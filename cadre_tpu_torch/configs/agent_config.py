@@ -1,0 +1,38 @@
+"""Agent and rollout configuration: the parts of
+cadre_tpu.configs.agent_config that the acting path reads."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+# 33-bin steering LUT: index -> steer
+STEER_CONTROL: np.ndarray = np.array(
+    [-8, -7, -6, -5, -4, -3, -2, -1, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, -9, 10,
+     -10, 11, -11, 12, -12, 13, -13, 14, -14, 15, -15, 16, -16],
+    dtype=np.float64) / 16.0
+
+# 3-bin throttle LUT: index -> (throttle, brake)
+THROTTLE_CONTROL: np.ndarray = np.array(
+    [[0.0, 0.0],   # coast
+     [0.0, 1.0],   # brake
+     [0.6, 0.0]],  # throttle
+    dtype=np.float64)
+
+NUM_COMMANDS = 4                           # LEFT, RIGHT, STRAIGHT, LANEFOLLOW
+MEASUREMENT_DIM = 18                       # 3 measurements tiled x6
+SEQ_LENGTH = 8                             # observation history frames
+
+
+@dataclasses.dataclass(frozen=True)
+class RolloutConfig:
+    num_steps: int = 200
+    seq_length: int = SEQ_LENGTH
+
+
+@dataclasses.dataclass(frozen=True)
+class AgentConfig:
+    command_num: int = NUM_COMMANDS
+    measurement_dim: int = MEASUREMENT_DIM
+    num_steer_outputs: int = len(STEER_CONTROL)        # 33
+    num_throttle_outputs: int = len(THROTTLE_CONTROL)  # 3

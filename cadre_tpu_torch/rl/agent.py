@@ -1,0 +1,104 @@
+"""Cascade agent for the acting path: frozen CoPM encoder -> per-command
+steer and throttle policy banks.
+
+PyTorch counterpart of the device-path pieces of cadre_tpu.rl.agent:
+`preprocess_obs`, `latent_features`, `CadreAgent.create` and
+`act_from_hist` (the JAX package's `_act_from_hist`). The PPO update,
+snapshots and the host-env act loops are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from cadre_tpu_torch.configs.agent_config import AgentConfig
+from cadre_tpu_torch.configs.danet_config import DANetParams, danet_params
+from cadre_tpu_torch.models.danet import DANet
+from cadre_tpu_torch.models.policy import Carry, PolicyBank, PolicyOutput
+from cadre_tpu_torch.utils.device import resolve_device
+
+
+def preprocess_obs(rgb: torch.Tensor, route_fig: torch.Tensor,
+                   blank_route: bool = False) -> torch.Tensor:
+    """Encoder input [N, H, W, 4]: rgb [N, H, W, 3] / 255 and the route
+    figure [N, W, H] normalised per frame by its max, transposed."""
+    rgb = rgb.float() / 255.0
+    route = route_fig.float()
+    peak = route.amax(dim=(1, 2), keepdim=True)
+    route = torch.where(peak > 0, route / peak, route)
+    route = route.transpose(1, 2)[..., None]
+    if blank_route:
+        route = torch.zeros_like(route)
+    return torch.cat([rgb, route], dim=-1)
+
+
+def latent_features(encoder: DANet, x: torch.Tensor,
+                    measurements: torch.Tensor) -> torch.Tensor:
+    """Encoder latent (input cast to the encoder's dtype, latent returned
+    in f32) ++ measurements tiled x6 -> [N, latent + 18]."""
+    dtype = next(encoder.parameters()).dtype
+    with torch.no_grad():
+        z = encoder.latent(x.to(dtype)).float()
+    meas = measurements.float().repeat(1, 6)
+    return torch.cat([z, meas], dim=-1)
+
+
+@dataclasses.dataclass
+class CadreAgent:
+    """Frozen encoder + steer and throttle policy banks on one device."""
+
+    agent_cfg: AgentConfig
+    danet_cfg: DANetParams
+    encoder: DANet
+    steer: PolicyBank
+    throttle: PolicyBank
+    device: torch.device
+
+    @property
+    def obs_dim(self) -> int:
+        return self.danet_cfg.latent_dim + self.agent_cfg.measurement_dim
+
+    @classmethod
+    def create(cls, danet_cfg: Optional[DANetParams] = None,
+               agent_cfg: Optional[AgentConfig] = None, *, seed: int = 0,
+               bf16_encoder: bool = False, device="cuda") -> "CadreAgent":
+        """Random weights from `seed` (the global torch generator is left
+        untouched); `bf16_encoder` casts the whole encoder to bf16."""
+        agent_cfg = agent_cfg or AgentConfig()
+        danet_cfg = danet_cfg or danet_params()
+        dev = resolve_device(device)
+        f = danet_cfg.latent_dim + agent_cfg.measurement_dim
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            encoder = DANet(danet_cfg)
+            steer = PolicyBank(agent_cfg.command_num,
+                               agent_cfg.num_steer_outputs, f)
+            throttle = PolicyBank(agent_cfg.command_num,
+                                  agent_cfg.num_throttle_outputs, f)
+        encoder = encoder.eval().to(dev, memory_format=torch.channels_last)
+        if bf16_encoder:     # parameters and buffers, BN statistics too
+            encoder = encoder.to(torch.bfloat16)
+        encoder.requires_grad_(False)
+        return cls(agent_cfg, danet_cfg, encoder, steer.to(dev),
+                   throttle.to(dev), dev)
+
+    def encode(self, obs: dict) -> torch.Tensor:
+        """obs (rgb, route_fig, measurements) -> features [N, obs_dim]."""
+        x = preprocess_obs(obs["rgb"], obs["route_fig"],
+                           blank_route=self.danet_cfg.in_route_blank)
+        return latent_features(self.encoder, x, obs["measurements"])
+
+    def act_from_hist(self, feat_hist: torch.Tensor, commands: torch.Tensor,
+                      hidden: Carry, steer_gumbel: torch.Tensor,
+                      throttle_gumbel: torch.Tensor
+                      ) -> Tuple[PolicyOutput, PolicyOutput, Carry]:
+        """feat_hist [T, N, F] -> (steer out, throttle out, steer carry)."""
+        with torch.no_grad():
+            steer_out, hidden_s = self.steer.act_batch(
+                feat_hist, commands, hidden, steer_gumbel)
+            throttle_out, _ = self.throttle.act_batch(
+                feat_hist, commands, hidden, throttle_gumbel)
+        return steer_out, throttle_out, hidden_s
+
