@@ -1,5 +1,5 @@
-// Fused position (PAM) and channel (CAM) attention of the DANet head, one
-// block per batch row.
+// Fused position (PAM) and channel (CAM) attention of the DANet head,
+// several blocks per batch row, bf16 products on the tensor cores.
 //
 // Replaces: cadre_tpu/ops/pallas_dual_attention.py::dual_attention_pallas
 // (kernel body _fused_kernel). Per batch row, with x, v: [P, C] and
@@ -12,43 +12,124 @@
 // (as the TPU kernel and the XLA path do), and the gamma residual is added
 // in f32 and rounded once, as the TPU kernel does.
 //
-// What bounds it on an H100: at the main path's shapes (P = 40, C = 128,
-// D = 16) a row moves about 54 KB in bf16 and does about 3.1 MFLOP, so the
-// function is bound by bytes: about 0.5 us at B = 32 and 4 us at B = 256.
-// At B = 32 only 32 blocks run, so launch and latency dominate.
+// What bounds it on an H100: bytes. At the main path's shapes (P = 40,
+// C = 128, D = 16) a row reads three [P, C] and two [P, D] tensors and
+// writes two [P, C] ones, 53.8 KB in bf16, against 3.1 MFLOP, which the
+// tensor cores do in a fraction of the time the bytes take: about 0.5 us
+// at B = 32 and 4 us at B = 256.
 //
-// Design: everything a row needs lives in shared memory as f32 (q, k, v,
-// the CAM input, the [P, P] energy and the [C, C] gram, about 116 KB at the
-// main path's shapes, hence the opt-in above 48 KB). The row is read from
-// device memory once and both outputs are written once. Each softmax row is
-// reduced by one warp with shuffles. The gram is stored with a row stride of
-// C + 1 and k with D + 1, so the column walks of the apply loops hit
-// distinct banks. The key loops run over exactly P positions, so there is
-// no padding to mask. Tensor cores are not used yet.
+// What the first design lost: one block of 512 threads per batch row, so
+// at B = 32 only 32 of the 132 SMs worked; the [C, C] gram and both apply
+// loops ran as scalar f32 FMAs with two shared-memory operands each, bound
+// by shared-memory bandwidth with the tensor cores idle; and 116 KB of
+// shared memory per block let only one block onto an SM.
+//
+// Design: a batch row is split over independent blocks of 256 threads,
+// which need no communication:
+// - CAM block g (C / 32 of them) computes rows i0 = 32 g .. i0 + 31 of the
+//   gram from all of x (10 KB in bf16), their row softmax, and from them
+//   columns i0 .. i0 + 31 of the CAM output.
+// - A PAM block computes the [P, P] attention and a range of columns of
+//   att v: all C of them at large B, where the total work decides; 32 when
+//   the CAM blocks alone would leave the SMs short of two blocks each
+//   (B * C / 32 < 2 * SMs), where the row's longest block decides.
+// At B = 32, C = 128 that is 4 + 4 blocks per row, 256 for 132 SMs; at
+// B = 256, 4 + 1 per row, 1,280.
+// bf16: the two products that apply an attention matrix (att v and
+// x att^T, 56% of the multiply-adds) are warp-level mma.sync.m16n8k16
+// (bf16 in, f32 accumulate), exactly the TPU kernel's contract. Their K
+// dimension is padded with zeros in shared memory (P = 40 -> 48), which
+// leaves every sum unchanged; M is padded to 16 and the padded rows are
+// never stored; padded keys get probability 0, and the attention goes
+// into the product as bf16, the rounding the contract asks for. The two
+// products that make the energies (q k^T and x^T x) stay on the CUDA
+// cores as chains of f32 FMAs in position order, the order of the plain
+// version's f32 products: the attention is rounded to bf16, and an energy
+// that differs in its last f32 bits (a tensor-core sum rounds in another
+// order and way) flips that rounding at some weights, which moves an
+// output by up to a bf16 step of its largest term. With all four products
+// on the tensor cores the kernel was 8.9 bf16 ulps from the plain version
+// at B = 256 (H100 80GB HBM3, 700 W; chip_smoke.py's bound is 4); with the
+// same sums the rounding agrees. v enters as stored, row-major, through ldmatrix.trans. mma.sync
+// rather than wgmma and TMA: the products are 48 x 32 (CAM) and 48 x 128
+// (PAM) with K of 48-128 over operands of a few KB, below wgmma's 64-row
+// warpgroup tile; the block is bound by its latency, not by the
+// tensor-core rate, and row strides of K + 8 bf16 keep the fragment loads
+// free of bank conflicts.
+// A warp holds whole rows of an energy in its registers, so each row's
+// softmax runs there with warp shuffles and only the rounded attention
+// goes to shared memory.
+// f32: the same split, every product on the CUDA cores (TF32 would break
+// the f32 tolerances), each thread accumulating a register tile.
+// Shared memory per block at the main path's shapes: 21 KB in bf16, 36 KB
+// in f32 (the first design: 116 KB), so several blocks share an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 512;
+typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kGroup = 32;       // channels (CAM) or value columns (PAM)
+constexpr int kMaxC = 128;       // limits the wrapper enforces
+constexpr int kMaxP = 64;
+
+__host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+__host__ __device__ constexpr size_t align16(size_t x) {
+  return (x + 15) / 16 * 16;
 }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
+
+// ------------------------------------------------------- shared layouts
+// Byte sizes of each block's regions, in the order they are carved out.
+// The wrapper's _smem_bytes mirrors smem_bytes.
+
+__host__ __device__ inline size_t cam_bf16_xr(int P, int C) {
+  return align16(static_cast<size_t>(round16(P)) * (C + 8) * 2);
 }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
+__host__ __device__ inline size_t cam_bf16_bytes(int P, int C) {
+  return cam_bf16_xr(P, C) + align16(static_cast<size_t>(kGroup) * (C + 8) * 2);
 }
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
+__host__ __device__ inline size_t pam_bf16_q(int P, int D) {
+  return align16(static_cast<size_t>(P) * D * 2);
 }
+__host__ __device__ inline size_t pam_bf16_k(int P, int D) {
+  return align16(static_cast<size_t>(P) * (D + 1) * 2);
+}
+__host__ __device__ inline size_t pam_bf16_v(int P, int C) {
+  return align16(static_cast<size_t>(round16(P)) * (C + 8) * 2);
+}
+__host__ __device__ inline size_t pam_bf16_bytes(int P, int C, int D) {
+  const int kp = round16(P);
+  return pam_bf16_q(P, D) + pam_bf16_k(P, D) + pam_bf16_v(P, C) +
+         align16(static_cast<size_t>(kp) * (kp + 8) * 2);
+}
+__host__ __device__ inline size_t f32_region(int rows, int cols) {
+  return align16(static_cast<size_t>(rows) * cols * 4);
+}
+__host__ __device__ inline size_t cam_f32_bytes(int P, int C) {
+  return f32_region(P, C) + f32_region(kGroup, C + 1);
+}
+__host__ __device__ inline size_t pam_f32_bytes(int P, int C, int D) {
+  return f32_region(P, D) + f32_region(P, D + 1) + f32_region(P, C) +
+         f32_region(P, P + 1);
+}
+
+template <typename T> size_t smem_bytes(int P, int C, int D);
+template <> size_t smem_bytes<float>(int P, int C, int D) {
+  const size_t a = cam_f32_bytes(P, C), b = pam_f32_bytes(P, C, D);
+  return a > b ? a : b;
+}
+template <> size_t smem_bytes<bf16>(int P, int C, int D) {
+  const size_t a = cam_bf16_bytes(P, C), b = pam_bf16_bytes(P, C, D);
+  return a > b ? a : b;
+}
+
+// ------------------------------------------------------- helpers
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -59,124 +140,445 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// In-place softmax of one row by one warp; with `cam` the row is first
-// replaced by rowmax(row) - row. The result is rounded to T.
-template <typename T>
-__device__ void softmax_row(float* row, int n, int lane, bool cam) {
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(bf16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+__device__ __forceinline__ void zero_smem(void* p, size_t bytes) {
+  uint4* z = static_cast<uint4*>(p);
+  for (size_t i = threadIdx.x; i < bytes / 16; i += kThreads) {
+    z[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// acc[i][j] = sum_k a(m, k) b(k, n) at m = w + W i (warp w of W) and
+// n = l + 32 j (lane l), zero where m >= M or n >= N, on the CUDA cores.
+// Each sum is one
+// chain of f32 FMAs over k = 0, 1, ... from zero: the order of the plain
+// version's f32 products (cuBLAS), so that both round the same sums. a(m, k)
+// is a broadcast within the warp, and b(k, n) walks neighbouring addresses
+// when its column stride is 1 (or odd). A warp holds whole rows of acc.
+template <int RM, int RN, class FA, class FB>
+__device__ __forceinline__ void gemm_f32(int M, int N, int K, FA a, FB b,
+                                         float (&acc)[RM][RN]) {
+  const int tm = threadIdx.x >> 5, tn = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < K; ++kk) {
+    float av[RM], bv[RN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int m = tm + kWarps * i;
+      av[i] = m < M ? a(m, kk) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {
+      const int n = tn + 32 * j;
+      bv[j] = n < N ? b(kk, n) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// Softmax of one row held by a warp in registers, lane l holding columns
+// l, l + 32, ... in v; columns >= n_valid are masked (probability 0). With
+// `cam` the row is first replaced by rowmax(row) - row. Writes out[0 .. n)
+// in OutT. The reductions run in the order of PyTorch's warp softmax: each
+// lane over its columns in order, then a butterfly over the lanes.
+template <int N, typename OutT>
+__device__ __forceinline__ void softmax_row(float (&v)[N], int n_valid, int n,
+                                            bool cam, OutT* out, int lane) {
   float m = -INFINITY;
-  for (int j = lane; j < n; j += 32) m = fmaxf(m, row[j]);
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    if (lane + 32 * u >= n_valid) v[u] = -INFINITY;
+    m = fmaxf(m, v[u]);
+  }
   m = warp_max(m);
   if (cam) {
     float m2 = -INFINITY;
-    for (int j = lane; j < n; j += 32) {
-      const float t = m - row[j];
-      row[j] = t;
-      m2 = fmaxf(m2, t);
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      if (lane + 32 * u < n_valid) {
+        v[u] = m - v[u];
+        m2 = fmaxf(m2, v[u]);
+      }
     }
     m = warp_max(m2);
   }
   float s = 0.f;
-  for (int j = lane; j < n; j += 32) {
-    const float e = expf(row[j] - m);
-    row[j] = e;
-    s += e;
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    v[u] = lane + 32 * u < n_valid ? expf(v[u] - m) : 0.f;
+    s += v[u];
   }
   s = warp_sum(s);
-  for (int j = lane; j < n; j += 32) row[j] = round_to<T>(row[j] / s);
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const int j = lane + 32 * u;
+    if (j < n) store(out + j, v[u] / s);
+  }
 }
 
+// ------------------------------------------------------- tensor cores
+
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a b for one m16n8k16 tile: bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One warp: acc[16 x 8] = A[16 x K] B[K x 8], A row-major in shared memory
+// (K contiguous, K a multiple of 16). B is stored transposed, [8][K] with K
+// contiguous, or with kRowB row-major, [K][8] with its 8 columns
+// contiguous, and then read with ldmatrix.trans, which hands each lane the
+// two neighbouring k of one column that the fragment wants. Lane l holds
+// acc[0..1] at (l / 4, 2 (l % 4) + {0, 1}) and acc[2..3] 8 rows below.
+template <bool kRowB>
+__device__ __forceinline__ void warp_mma(float (&acc)[4], const bf16* A,
+                                         int lda, const bf16* B, int ldb,
+                                         int K, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* a = A + g * lda + 2 * t;
+  acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
+  for (int k = 0; k < K; k += 16) {
+    const uint32_t af[4] = {ld_pair(a + k), ld_pair(a + 8 * lda + k),
+                            ld_pair(a + k + 8), ld_pair(a + 8 * lda + k + 8)};
+    uint32_t bfr[2];
+    if constexpr (kRowB) {
+      // lanes 0-15 address rows k .. k + 15 of the two 8 x 8 tiles
+      const unsigned addr = static_cast<unsigned>(
+          __cvta_generic_to_shared(B + (k + (lane & 15)) * ldb));
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+          : "=r"(bfr[0]), "=r"(bfr[1])
+          : "r"(addr));
+    } else {
+      const bf16* b = B + g * ldb + 2 * t;
+      bfr[0] = ld_pair(b + k);
+      bfr[1] = ld_pair(b + k + 8);
+    }
+    mma_bf16(acc, af, bfr);
+  }
+}
+
+// out[p, col0 + n] = g * (A B)[p, n] + res[p, col0 + n] for p < P and
+// n < ncols (a multiple of 8), with A [Kp x K] and B as in warp_mma, by the
+// block's warps on m16n8 tiles; res and out rows are ldr and C apart.
+// Two neighbouring columns per store.
+template <bool kRowB>
+__device__ __forceinline__ void apply_bf16(const bf16* A, int lda,
+                                           const bf16* B, int ldb, int K,
+                                           int kp, int ncols, int P, float g,
+                                           const bf16* res, int ldr,
+                                           bf16* out, int C, int col0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g4 = lane >> 2, t2 = 2 * (lane & 3);
+  const int ntiles = ncols / 8;
+  for (int tile = warp; tile < (kp / 16) * ntiles; tile += kWarps) {
+    const int m0 = (tile / ntiles) * 16, n0 = (tile % ntiles) * 8;
+    float acc[4];
+    warp_mma<kRowB>(acc, A + m0 * lda, lda, B + (kRowB ? n0 : n0 * ldb), ldb,
+                    K, lane);
+    const int col = col0 + n0 + t2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = m0 + g4 + 8 * h;
+      if (p < P) {
+        const __nv_bfloat162 r =
+            *reinterpret_cast<const __nv_bfloat162*>(res + p * ldr + col);
+        *reinterpret_cast<__nv_bfloat162*>(out + p * C + col) =
+            __floats2bfloat162_rn(g * acc[2 * h] + __low2float(r),
+                                  g * acc[2 * h + 1] + __high2float(r));
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------- bf16 blocks
+
+// CAM columns i0 .. i0 + 31 of one batch row; x, out: [P, C].
+__device__ void cam_block(const bf16* __restrict__ x, float g,
+                          bf16* __restrict__ out, int P, int C, int i0,
+                          unsigned char* sm) {
+  const int kp = round16(P);
+  const int ldx = C + 8;                  // x and att rows
+  bf16* xr = reinterpret_cast<bf16*>(sm);
+  bf16* att = reinterpret_cast<bf16*>(sm + cam_bf16_xr(P, C));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  zero_smem(xr + P * ldx, static_cast<size_t>(kp - P) * ldx * 2);
+  for (int i = tid; i < (C / 8) * P; i += kThreads) {
+    const int p = i / (C / 8), c8 = i % (C / 8);
+    *reinterpret_cast<uint4*>(xr + p * ldx + c8 * 8) =
+        *reinterpret_cast<const uint4*>(x + p * C + c8 * 8);
+  }
+  __syncthreads();
+
+  // gram rows i0 + 8 w .. i0 + 8 w + 7 (warp w), E[i, j] = sum_p x[p, i]
+  // x[p, j] at j = l + 32 u (lane l), as chains of f32 FMAs over p in order
+  // (see gemm_f32), then their softmax in the registers of the warp
+  constexpr int kRows = kGroup / kWarps;
+  float e[kRows][kMaxC / 32];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int u = 0; u < kMaxC / 32; ++u) e[r][u] = 0.f;
+  const bf16* rows = xr + i0 + kRows * warp;
+#pragma unroll 4
+  for (int p = 0; p < P; ++p) {
+    __nv_bfloat162 a[kRows / 2];
+#pragma unroll
+    for (int r = 0; r < kRows / 2; ++r) {
+      a[r] = reinterpret_cast<const __nv_bfloat162*>(rows + p * ldx)[r];
+    }
+    float bv[kMaxC / 32];
+#pragma unroll
+    for (int u = 0; u < kMaxC / 32; ++u) {
+      const int j = lane + 32 * u;
+      bv[u] = j < C ? __bfloat162float(xr[p * ldx + j]) : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float av = r % 2 ? __high2float(a[r / 2]) : __low2float(a[r / 2]);
+#pragma unroll
+      for (int u = 0; u < kMaxC / 32; ++u) e[r][u] = fmaf(av, bv[u], e[r][u]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    softmax_row(e[r], C, C, true, att + (kRows * warp + r) * ldx, lane);
+  }
+  __syncthreads();
+
+  // y[p, i0 + i] = g * sum_j x[p, j] att[i, j] + x[p, i0 + i]
+  apply_bf16<false>(xr, ldx, att, ldx, C, kp, kGroup, P, g, xr, ldx, out, C,
+                    i0);
+}
+
+// PAM columns c0 .. c0 + nc - 1 of one batch row; x, v, out: [P, C];
+// q, k: [P, D].
+__device__ void pam_block(const bf16* __restrict__ x,
+                          const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, float g,
+                          bf16* __restrict__ out, int P, int C, int D, int c0,
+                          int nc, unsigned char* sm) {
+  const int kp = round16(P);
+  const int ldk = D + 1;                  // k rows
+  const int ldv = nc + 8;                 // v rows
+  const int lda = kp + 8;                 // att rows
+  bf16* qs = reinterpret_cast<bf16*>(sm);
+  unsigned char* next = sm + pam_bf16_q(P, D);
+  bf16* ks = reinterpret_cast<bf16*>(next);
+  next += pam_bf16_k(P, D);
+  bf16* vs = reinterpret_cast<bf16*>(next);
+  bf16* att = reinterpret_cast<bf16*>(next + pam_bf16_v(P, C));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // padded keys of v and padded query rows of att are zero
+  zero_smem(vs + P * ldv, static_cast<size_t>(kp - P) * ldv * 2);
+  zero_smem(att + P * lda, static_cast<size_t>(kp - P) * lda * 2);
+  for (int i = tid; i < P * D; i += kThreads) {
+    qs[i] = q[i];
+    ks[(i / D) * ldk + i % D] = k[i];
+  }
+  for (int i = tid; i < (nc / 8) * P; i += kThreads) {
+    const int key = i / (nc / 8), c8 = i % (nc / 8);
+    *reinterpret_cast<uint4*>(vs + key * ldv + c8 * 8) =
+        *reinterpret_cast<const uint4*>(v + key * C + c0 + c8 * 8);
+  }
+  __syncthreads();
+
+  // energy [P, P] = q k^T and its softmax in registers; padded keys get
+  // probability 0
+  float s[kMaxP / kWarps][kMaxP / 32];
+  gemm_f32(
+      P, P, D, [&](int p, int d) { return __bfloat162float(qs[p * D + d]); },
+      [&](int d, int key) { return __bfloat162float(ks[key * ldk + d]); }, s);
+#pragma unroll
+  for (int i = 0; i < kMaxP / kWarps; ++i) {
+    const int row = warp + kWarps * i;
+    if (row < P) softmax_row(s[i], P, kp, false, att + row * lda, lane);
+  }
+  __syncthreads();
+
+  // y[p, c0 + c] = g * sum_key att[p, key] v[key, c0 + c] + x[p, c0 + c]
+  apply_bf16<true>(att, lda, vs, ldv, kp, kp, nc, P, g, x, C, out, C, c0);
+}
+
+// ------------------------------------------------------- f32 blocks
+
+__device__ void cam_block(const float* __restrict__ x, float g,
+                          float* __restrict__ out, int P, int C, int i0,
+                          unsigned char* sm) {
+  const int lda = C + 1;
+  float* xs = reinterpret_cast<float*>(sm);                      // [P, C]
+  float* att = reinterpret_cast<float*>(sm + f32_region(P, C));  // [32, C + 1]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < P * C / 4; i += kThreads) {
+    reinterpret_cast<float4*>(xs)[i] = reinterpret_cast<const float4*>(x)[i];
+  }
+  __syncthreads();
+  float e[kGroup / kWarps][kMaxC / 32];
+  gemm_f32(kGroup, C, P, [&](int m, int p) { return xs[p * C + i0 + m]; },
+           [&](int p, int n) { return xs[p * C + n]; }, e);
+#pragma unroll
+  for (int i = 0; i < kGroup / kWarps; ++i) {
+    softmax_row(e[i], C, C, true, att + (warp + kWarps * i) * lda, lane);
+  }
+  __syncthreads();
+  float y[kMaxP / kWarps][1];
+  gemm_f32(P, kGroup, C, [&](int p, int j) { return xs[p * C + j]; },
+           [&](int j, int i) { return att[i * lda + j]; }, y);
+#pragma unroll
+  for (int i = 0; i < kMaxP / kWarps; ++i) {
+    const int p = warp + kWarps * i;
+    if (p < P) {
+      out[p * C + i0 + lane] = g * y[i][0] + xs[p * C + i0 + lane];
+    }
+  }
+}
+
+__device__ void pam_block(const float* __restrict__ x,
+                          const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float g,
+                          float* __restrict__ out, int P, int C, int D,
+                          int c0, int nc, unsigned char* sm) {
+  const int ldk = D + 1;
+  const int lda = P + 1;
+  float* qs = reinterpret_cast<float*>(sm);                  // [P, D]
+  unsigned char* next = sm + f32_region(P, D);
+  float* ks = reinterpret_cast<float*>(next);                // [P, D + 1]
+  next += f32_region(P, ldk);
+  float* vs = reinterpret_cast<float*>(next);                // [P, C]
+  float* att = reinterpret_cast<float*>(next + f32_region(P, C));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < P * D; i += kThreads) {
+    qs[i] = q[i];
+    ks[(i / D) * ldk + i % D] = k[i];
+  }
+  for (int i = tid; i < P * C / 4; i += kThreads) {
+    reinterpret_cast<float4*>(vs)[i] = reinterpret_cast<const float4*>(v)[i];
+  }
+  __syncthreads();
+  float s[kMaxP / kWarps][kMaxP / 32];
+  gemm_f32(P, P, D, [&](int p, int d) { return qs[p * D + d]; },
+           [&](int d, int key) { return ks[key * ldk + d]; }, s);
+#pragma unroll
+  for (int i = 0; i < kMaxP / kWarps; ++i) {
+    const int row = warp + kWarps * i;
+    if (row < P) softmax_row(s[i], P, P, false, att + row * lda, lane);
+  }
+  __syncthreads();
+  for (int cg = c0; cg < c0 + nc; cg += kGroup) {
+    float y[kMaxP / kWarps][1];
+    gemm_f32(P, kGroup, P, [&](int p, int key) { return att[p * lda + key]; },
+             [&](int key, int c) { return vs[key * C + cg + c]; }, y);
+#pragma unroll
+    for (int i = 0; i < kMaxP / kWarps; ++i) {
+      const int p = warp + kWarps * i;
+      if (p < P) {
+        out[p * C + cg + lane] = g * y[i][0] + x[p * C + cg + lane];
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------- kernel
+
+// Blocks [0, C / 32) of a batch row do CAM, the rest PAM in column ranges
+// of pam_cols.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dual_attention_kernel(const T* __restrict__ xp, const T* __restrict__ q,
                       const T* __restrict__ k, const T* __restrict__ v,
-                      const float* __restrict__ gp, const T* __restrict__ xc,
-                      const float* __restrict__ gc, T* __restrict__ outp,
-                      T* __restrict__ outc, int P, int C, int D) {
-  extern __shared__ float sm[];
-  float* qs = sm;                       // [P, D]
-  float* ks = qs + P * D;               // [P, D + 1]
-  float* att = ks + P * (D + 1);        // [P, P]
-  float* vs = att + P * P;              // [P, C]
-  float* xs = vs + P * C;               // [P, C]
-  float* gram = xs + P * C;             // [C, C + 1]
-
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = nt >> 5;
-  const size_t oq = static_cast<size_t>(blockIdx.x) * P * D;
-  const size_t ov = static_cast<size_t>(blockIdx.x) * P * C;
-
-  for (int i = tid; i < P * D; i += nt) {
-    qs[i] = to_f32(q[oq + i]);
-    ks[(i / D) * (D + 1) + i % D] = to_f32(k[oq + i]);
+                      const T* __restrict__ gp, const T* __restrict__ xc,
+                      const T* __restrict__ gc, T* __restrict__ outp,
+                      T* __restrict__ outc, int P, int C, int D,
+                      int pam_cols) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int groups = C / kGroup;
+  const size_t ov = static_cast<size_t>(blockIdx.y) * P * C;
+  const size_t oq = static_cast<size_t>(blockIdx.y) * P * D;
+  const int item = blockIdx.x;
+  if (item < groups) {
+    cam_block(xc + ov, to_f32(gc[0]), outc + ov, P, C, item * kGroup, sm);
+  } else {
+    pam_block(xp + ov, q + oq, k + oq, v + ov, to_f32(gp[0]), outp + ov, P,
+              C, D, (item - groups) * pam_cols, pam_cols, sm);
   }
-  for (int i = tid; i < P * C; i += nt) {
-    vs[i] = to_f32(v[ov + i]);
-    xs[i] = to_f32(xc[ov + i]);
-  }
-  __syncthreads();
+}
 
-  // PAM energy [P, P] and CAM gram [C, C]
-  for (int i = tid; i < P * P; i += nt) {
-    const int r = i / P, c = i % P;
-    float acc = 0.f;
-    for (int d = 0; d < D; ++d) acc += qs[r * D + d] * ks[c * (D + 1) + d];
-    att[i] = acc;
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess) {
+      count = 1;
+    }
   }
-  for (int i = tid; i < C * C; i += nt) {
-    const int r = i / C, c = i % C;
-    float acc = 0.f;
-    for (int p = 0; p < P; ++p) acc += xs[p * C + r] * xs[p * C + c];
-    gram[r * (C + 1) + c] = acc;
-  }
-  __syncthreads();
-
-  for (int r = warp; r < P; r += nwarps) softmax_row<T>(att + r * P, P, lane, false);
-  for (int r = warp; r < C; r += nwarps)
-    softmax_row<T>(gram + r * (C + 1), C, lane, true);
-  __syncthreads();
-
-  const float g_pam = gp[0];
-  const float g_cam = gc[0];
-  for (int i = tid; i < P * C; i += nt) {
-    const int r = i / C, c = i % C;
-    float acc_p = 0.f;
-    for (int j = 0; j < P; ++j) acc_p += att[r * P + j] * vs[j * C + c];
-    outp[ov + i] = from_f32<T>(g_pam * acc_p + to_f32(xp[ov + i]));
-    float acc_c = 0.f;
-    for (int j = 0; j < C; ++j) acc_c += gram[c * (C + 1) + j] * xs[r * C + j];
-    outc[ov + i] = from_f32<T>(g_cam * acc_c + xs[i]);
-  }
+  return count;
 }
 
 template <typename T>
 int launch(const void* xp, const void* q, const void* k, const void* v,
            const void* gp, const void* xc, const void* gc, void* outp,
            void* outc, int B, int P, int C, int D, void* stream) {
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(P) * D + P * (D + 1) + P * P + 2 * P * C +
-       C * (C + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      dual_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dual_attention_kernel<T><<<B, kThreads, smem,
+  const size_t smem = smem_bytes<T>(P, C, D);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dual_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // One PAM block per row computes the attention once; when the CAM blocks
+  // alone would not fill the SMs twice over, PAM is split into 32-column
+  // blocks as well, which recompute the attention but shorten the row's
+  // longest block.
+  const int groups = C / kGroup;
+  const bool few = static_cast<long long>(B) * groups < 2LL * sm_count();
+  const int pam_cols = few ? kGroup : C;
+  const dim3 grid(groups + C / pam_cols, B);
+  dual_attention_kernel<T><<<grid, kThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xp), static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(gp), static_cast<const T*>(xc),
-      static_cast<const float*>(gc), static_cast<T*>(outp),
-      static_cast<T*>(outc), P, C, D);
+      static_cast<const T*>(gp), static_cast<const T*>(xc),
+      static_cast<const T*>(gc), static_cast<T*>(outp),
+      static_cast<T*>(outc), P, C, D, pam_cols);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x_pam, v, x_cam, out_pam, out_cam: [B, P, C]; q, k: [B, P, D]; all
-// contiguous and of one type. gamma_pam, gamma_cam: [1] f32 on the device.
-// Returns cudaGetLastError() (or the error of the shared-memory opt-in).
+// contiguous and of one type; x_pam, v and x_cam 16-byte aligned.
+// 1 <= P <= 64, C a multiple of 32 up to 128, 1 <= D <= 32 (the wrapper
+// checks). gamma_pam, gamma_cam: [1] of the same type on the device; the
+// residual is added in f32 with the gamma's value widened. Returns
+// cudaGetLastError() (or the error of the shared-memory opt-in).
 extern "C" int dual_attention_f32(const void* xp, const void* q, const void* k,
                                   const void* v, const void* gp,
                                   const void* xc, const void* gc, void* outp,
@@ -191,6 +593,14 @@ extern "C" int dual_attention_bf16(const void* xp, const void* q,
                                    const void* gp, const void* xc,
                                    const void* gc, void* outp, void* outc,
                                    int B, int P, int C, int D, void* stream) {
-  return launch<__nv_bfloat16>(xp, q, k, v, gp, xc, gc, outp, outc, B, P, C,
-                               D, stream);
+  return launch<bf16>(xp, q, k, v, gp, xc, gc, outp, outc, B, P, C, D,
+                      stream);
+}
+
+// Bytes of dynamic shared memory one block uses (bf16 != 0: the bf16
+// kernel), for the wrapper's check of its own mirror.
+extern "C" long long dual_attention_smem_bytes(int P, int C, int D,
+                                               int bf16_in) {
+  return static_cast<long long>(bf16_in ? smem_bytes<bf16>(P, C, D)
+                                        : smem_bytes<float>(P, C, D));
 }

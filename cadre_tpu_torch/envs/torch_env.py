@@ -729,10 +729,11 @@ def _const(name: str, like: torch.Tensor) -> torch.Tensor:
     return _device_constant(name, like.device)
 
 
-def _render_fig(cfg: EnvConfig, bank: RouteBank, state: EnvState,
-                scal: dict) -> torch.Tensor:
-    """Route figure [N, 256, 144]: the 50 m window as a ribbon of disks
-    in the ego frame rotated by yaw + pi/2 at 3.66 px/m."""
+def _fig_table(cfg: EnvConfig, bank: RouteBank, state: EnvState,
+               scal: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(base [N, 256, 144, 1], shape table [N, S, 8]) of the route figure:
+    the 50 m window as a ribbon of disks in the ego frame rotated by
+    yaw + pi/2 at 3.66 px/m."""
     w_pts, mask = scal["w"], scal["list_mask"]
     c = torch.deg2rad(state.yaw) + math.pi / 2
     cos_c, sin_c = torch.cos(c)[:, None], torch.sin(c)[:, None]
@@ -751,21 +752,25 @@ def _render_fig(cfg: EnvConfig, bank: RouteBank, state: EnvState,
     r2 = torch.full_like(cx, (LINE_WIDTH / 2.0) ** 2)
     rows = paint.disk_rows(cx, cy, r2, _const("white", cx), ok)
     fig = torch.zeros((cx.shape[0], _FH, _FW, 1), device=cx.device)
-    return paint.paint_shapes(fig, rows.contiguous())[..., 0]
+    return fig, rows.contiguous()
 
 
-def _render_rgb(cfg: EnvConfig, bank: RouteBank, state: EnvState,
-                noise: torch.Tensor) -> torch.Tensor:
-    """Forward camera [N, 144, 256, 3] f32 0..255: sky/ground, roadside
-    props, route markers, obstacles and traffic lights, then the weather's
-    ground brightness and sensor noise."""
+def _render_fig(cfg: EnvConfig, bank: RouteBank, state: EnvState,
+                scal: dict) -> torch.Tensor:
+    """Route figure [N, 256, 144] (see `_fig_table`)."""
+    return paint.paint_shapes(*_fig_table(cfg, bank, state, scal))[..., 0]
+
+
+def _rgb_table(cfg: EnvConfig, bank: RouteBank, state: EnvState
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(base [N, 144, 256, 3], shape table [N, S, 8]) of the forward
+    camera: sky/ground, then roadside props, route markers, obstacles and
+    traffic lights as rows."""
     h, w = _H, _W
     horizon = h // 2
     dev = state.pos.device
     weather = state.weather
     sky = _const("sky", weather)[weather]
-    bright = _const("bright", weather)[weather]
-    noise_std = _const("noise", weather)[weather]
     n = weather.shape[0]
 
     yy = torch.arange(h, device=dev)[None, :, None, None]
@@ -851,8 +856,19 @@ def _render_rgb(cfg: EnvConfig, bank: RouteBank, state: EnvState,
                                  _const("pole", u), okl))
     table.append(paint.rect_rows(u - r, u + r, v - r, v + r, lcol, okl))
 
-    img = paint.paint_shapes(img, torch.cat(table, dim=1).contiguous())
-    img = torch.where(yy >= horizon, img * bright[:, None, None, None], img)
+    return img, torch.cat(table, dim=1).contiguous()
+
+
+def _render_rgb(cfg: EnvConfig, bank: RouteBank, state: EnvState,
+                noise: torch.Tensor) -> torch.Tensor:
+    """Forward camera [N, 144, 256, 3] f32 0..255: the painted table of
+    `_rgb_table`, then the weather's ground brightness and sensor noise."""
+    weather = state.weather
+    bright = _const("bright", weather)[weather]
+    noise_std = _const("noise", weather)[weather]
+    yy = torch.arange(_H, device=weather.device)[None, :, None, None]
+    img = paint.paint_shapes(*_rgb_table(cfg, bank, state))
+    img = torch.where(yy >= _H // 2, img * bright[:, None, None, None], img)
     return torch.clamp(img + noise * noise_std[:, None, None, None],
                        0.0, 255.0)
 

@@ -2,13 +2,17 @@
 
 Each source under `cadre_tpu_torch/csrc/` becomes one shared library with a
 plain C interface in `build/kernels/` at the root of the checkout, built at
-first use and reused while it is newer than its source. Sources are built
-in parallel, one nvcc per source. Nothing here runs at import time: the
-CPU tests import every module on a machine without nvcc or a GPU.
+first use. A library is named after a hash of what it is built from (its
+`.cu`, every `csrc/*.cuh` and `NVCC_FLAGS`), so a changed source, header
+or flag always builds a new one and a stale library is never loaded.
+Sources are built in parallel, one nvcc per source. Nothing here runs at
+import time: the CPU tests import every module on a machine without nvcc
+or a GPU.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -40,37 +44,44 @@ def nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}.so"
+def source_hash(name: str, csrc: Path = CSRC,
+                flags: Sequence[str] = NVCC_FLAGS) -> str:
+    """12 hex digits of a hash of `csrc/<name>.cu`, every `csrc/*.cuh`
+    (by name, in name order) and `flags`: what the library is built from."""
+    h = hashlib.sha256()
+    for path in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update("\0".join(flags).encode())
+    return h.hexdigest()[:12]
 
 
-def _stale(name: str) -> bool:
-    lib = _lib_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{source_hash(name)}.so"
 
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
-    """Compile every stale source in `names` at once; returns the wall
-    seconds of the whole build per compiled name (0.0 when it was fresh).
-    Raises with nvcc's output if any compile fails."""
+    """Compile every source in `names` whose library is missing, all at
+    once; returns the wall seconds of the whole build per compiled name
+    (0.0 when it was there). Raises with nvcc's output if any compile
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in names if _stale(n)]
+    todo = {n: lib_path(n) for n in names}
+    todo = {n: p for n, p in todo.items() if not p.exists()}
     t0 = time.perf_counter()
     procs = {}
-    for name in todo:
-        tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+    for name, lib in todo.items():
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
+        procs[name] = (lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
-    for name, (tmp, proc) in procs.items():
+    for name, (lib, tmp, proc) in procs.items():
         out, _ = proc.communicate()
         build_log[name] = out
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{out}")
         else:
-            os.replace(tmp, _lib_path(name))
+            os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     seconds = time.perf_counter() - t0
@@ -82,9 +93,10 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            if _stale(name):
+            path = lib_path(name)
+            if not path.exists():
                 build([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib
 

@@ -8,8 +8,9 @@
 rounding: products accumulate in f32, the attention matrix is rounded to the
 input type before it is applied, and the branch output is rounded to the
 input type before the gamma residual. `fused_dual_attention` computes both
-branches with the hand-written kernel (`csrc/dual_attention.cu`) for CUDA
-tensors and with the plain versions for CPU tensors. The kernel adds the
+branches with the hand-written kernel (`csrc/dual_attention.cu`: several
+blocks per batch row, bf16 products on the tensor cores) for CUDA tensors
+and with the plain versions for CPU tensors. The kernel adds the
 residual in f32 and rounds once, as the TPU kernel did, so in bf16 the two
 differ by about one unit in the last place.
 All tensors are NHWC: x, v [B, H, W, C]; q, k [B, H, W, Cqk].
@@ -17,6 +18,7 @@ All tensors are NHWC: x, v [B, H, W, C]; q, k [B, H, W, Cqk].
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -27,7 +29,7 @@ launches = 0                       # kernel launches made by fused_dual_attentio
 
 _ENTRY = {torch.float32: "dual_attention_f32",
           torch.bfloat16: "dual_attention_bf16"}
-_SMEM_LIMIT = 232448               # bytes of shared memory a block may use
+_MAX_P, _MAX_C, _MAX_D = 64, 128, 32    # what the kernel takes (with C % 32)
 
 
 def pam_apply(x, q, k, v, gamma) -> torch.Tensor:
@@ -55,8 +57,41 @@ def cam_apply(x, gamma) -> torch.Tensor:
     return gamma * out + x
 
 
-def _smem_bytes(p: int, c: int, d: int) -> int:
-    return 4 * (p * d + p * (d + 1) + p * p + 2 * p * c + c * (c + 1))
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _smem_bytes(p: int, c: int, d: int, bf16: bool) -> int:
+    """Dynamic shared memory of one block, the larger of the CAM and the
+    PAM block's (mirrors smem_bytes in csrc/dual_attention.cu)."""
+    if bf16:
+        kp = _align16(p)
+        cam = _align16(2 * kp * (c + 8)) + _align16(2 * 32 * (c + 8))
+        pam = (_align16(2 * p * d) + _align16(2 * p * (d + 1))
+               + _align16(2 * kp * (c + 8)) + _align16(2 * kp * (kp + 8)))
+    else:
+        cam = _align16(4 * p * c) + _align16(4 * 32 * (c + 1))
+        pam = (_align16(4 * p * d) + _align16(4 * p * (d + 1))
+               + _align16(4 * p * c) + _align16(4 * p * (p + 1)))
+    return max(cam, pam)
+
+
+def _check_shape(p: int, c: int, d: int) -> None:
+    """Raise unless the kernel takes P positions, C channels, D = Cqk."""
+    if not (1 <= p <= _MAX_P and 32 <= c <= _MAX_C and c % 32 == 0
+            and 1 <= d <= _MAX_D):
+        raise ValueError(f"dual_attention: the kernel takes 1 <= P <= "
+                         f"{_MAX_P}, C a multiple of 32 up to {_MAX_C} and "
+                         f"1 <= Cqk <= {_MAX_D}; got P={p}, C={c}, Cqk={d}")
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype):
+    """The kernel's C entry for `dtype`, loaded and typed once."""
+    fn = getattr(_build.load("dual_attention"), _ENTRY[dtype])
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _dual_attention_cuda(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam):
@@ -75,20 +110,20 @@ def _dual_attention_cuda(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam):
         raise ValueError("dual_attention: shapes disagree")
     if gamma_pam.numel() != 1 or gamma_cam.numel() != 1:
         raise ValueError("dual_attention: gammas must hold one value")
-    if _smem_bytes(p, c, d) > _SMEM_LIMIT:
-        raise ValueError(f"dual_attention: P={p}, C={c}, D={d} needs "
-                         f"{_smem_bytes(p, c, d)} B of shared memory")
+    _check_shape(p, c, d)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("dual_attention: inputs must be contiguous")
-    gp = gamma_pam.reshape(1).to(device=x_pam.device, dtype=torch.float32)
-    gc = gamma_cam.reshape(1).to(device=x_pam.device, dtype=torch.float32)
+    if any(t.data_ptr() % 16 for t in (x_pam, v, x_cam)):
+        raise ValueError("dual_attention: x and v must be 16-byte aligned")
+    # the kernel reads each gamma in the input type and widens it to f32:
+    # the value the plain version multiplies by
+    gp = gamma_pam.reshape(1).to(device=x_pam.device, dtype=dtype)
+    gc = gamma_cam.reshape(1).to(device=x_pam.device, dtype=dtype)
     out_p = torch.empty_like(x_pam)
     out_c = torch.empty_like(x_cam)
     if b == 0:
         return out_p, out_c
-    fn = getattr(_build.load("dual_attention"), _ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _entry(dtype)
     stream = torch.cuda.current_stream(x_pam.device).cuda_stream
     _build.check(fn(x_pam.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     gp.data_ptr(), x_cam.data_ptr(), gc.data_ptr(),

@@ -9,8 +9,9 @@ winning:
 
 Masked rows are geometry that never hits (an empty rect, a negative squared
 radius). `paint_shapes` sends CUDA tensors to the hand-written kernel
-(`csrc/paint.cu`) and CPU tensors to `paint_shapes_ref`, the plain version
-with the same per-pixel arithmetic; both give bit-identical canvases.
+(`csrc/paint.cu`, which culls the table per tile before any pixel walks
+it) and CPU tensors to `paint_shapes_ref`, the plain version with the same
+per-pixel arithmetic; both give bit-identical canvases.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import torch
 
 from cadre_tpu_torch.ops import _build
 
-MAX_ROWS = 48 * 1024 // (8 * 4)   # the table must fit 48 KB of shared memory
+MAX_ROWS = 48 * 1024 // (8 * 4)   # a tile's survivors must fit 48 KB of
+                                   # shared memory
 
 launches = 0                       # kernel launches made by `paint_shapes`
 
@@ -74,6 +76,8 @@ def _paint_cuda(base: torch.Tensor, shapes: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"paint: needs 1..3 channels and <= {MAX_ROWS} rows")
     if not (base.is_contiguous() and shapes.is_contiguous()):
         raise ValueError("paint: inputs must be contiguous")
+    if shapes.data_ptr() % 16:
+        raise ValueError("paint: shapes must be 16-byte aligned")
     out = torch.empty_like(base)
     if n == 0 or shapes.shape[1] == 0:
         out.copy_(base)

@@ -8,8 +8,10 @@ Usage, from the root of the checkout, on a machine with a CUDA GPU and nvcc:
 Phases, each of which must pass:
   1. the card, its power limit, and the torch / CUDA / nvcc versions;
   2. build of every hand-written kernel from cadre_tpu_torch/csrc/;
-  3. each kernel against its plain PyTorch version on the card, at the
-     shapes of the main path, with timings against its bound;
+  3. each kernel against its plain PyTorch version on the card: paint
+     bit-equal on random, tile-edge and main-path tables, dual attention at
+     every shape the port calls it with; timings against each kernel's
+     bound and, for dual attention, a one-call PyTorch yardstick;
   4. the main path: a bf16 CoPM agent at production width drives 32 device
      envs for a 20-step rollout, with every kernel's launch count read
      around that one run;
@@ -34,6 +36,7 @@ BF16_TC_FLOPS = 989e12
 
 N_ENVS = 32
 T_STEPS = 20
+PAINT_TILE = (32, 8)       # x, y pixels of one block of the paint kernel
 # bf16 kernel vs plain: both round the same f32 sums, in another order, so
 # an attention weight or the residual may land one bf16 step apart; bound
 # the difference in bf16 units in the last place of max(|plain|, |x|).
@@ -49,8 +52,37 @@ def require(cond: bool, msg: str) -> None:
         raise PhaseError(msg)
 
 
+def device_ms(fn, iters: int = 200) -> float:
+    """Mean device milliseconds of `fn()` over `iters` calls captured in
+    one CUDA graph and replayed (CUDA events around the replay), so that
+    the host's cost of issuing each call does not count."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device milliseconds of `fn()` over `iters` calls (CUDA events)."""
+    """Mean milliseconds of `fn()` over `iters` calls issued one by one
+    (CUDA events): the device's time, or the host's where issuing the
+    calls takes longer."""
     import torch
 
     for _ in range(warmup):
@@ -140,68 +172,213 @@ def _paint_tables(n, h, w, n_rect, n_disk, disk_r2, gen, device):
     return table[:, perm].contiguous()
 
 
-def _paint_ops(table, h, w):
-    """fp32 operations of one paint call: 6 per (pixel, disk row), 4 per
-    (pixel, rect row)."""
+def paint_edge_tables(h, w, seed=0):
+    """Tables that test the paint kernel's per-tile cull at its edges, for
+    an h x w canvas: numpy [S, 8] f32 rows by case name.
+
+      disk_borders  disks whose r2 is 0, an exact square or a quarter,
+                    centred on tile borders, beside them and on half pixels;
+      rect_borders  rects whose edges fall on tile borders, on integers and
+                    on fractions;
+      masked        rows off the canvas, empty and inverted rects, negative,
+                    -0.0 and NaN r2, -1e6 and infinite centres, between
+                    rows that paint;
+      long          640 overlapping rows around three spots, so that one
+                    tile keeps rows of several cull chunks and their order
+                    decides each pixel.
+    """
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    tw, th = PAINT_TILE
+    xb = np.unique(np.r_[np.arange(0, w + 1, tw), w]).astype(np.float32)
+    yb = np.unique(np.r_[np.arange(0, h + 1, th), h]).astype(np.float32)
+    near = np.float32([-1.0, -0.5, 0.0, 0.5, 1.0])
+    frac = np.float32([-1.0, -0.5, -0.25, 0.0, 0.25, 0.5, 1.0])
+
+    def rows(kind, a, b, c, d):
+        n = len(a)
+        return np.concatenate([
+            np.stack([np.full(n, kind), a, b, c, d], -1),
+            rng.uniform(0, 255, (n, 3))], -1).astype(np.float32)
+
+    def pick(values, n):
+        return rng.choice(values, n).astype(np.float32)
+
+    n = 400
+    squares = np.float32([0, 0.25, 1, 2.25, 4, 9, 16, 25, 56.25, 64, 100,
+                          289])
+    disks = rows(1.0, pick(xb, n) + pick(near, n),
+                 pick(yb, n) + pick(near, n), pick(squares, n),
+                 np.zeros(n))
+    a = pick(xb, n) + pick(frac, n)
+    c = pick(yb, n) + pick(frac, n)
+    widths = np.float32([0.25, 0.5, 1, 1.5, 2, 8, 31, 32, 33])
+    on_border = rng.rand(n, 2) < 0.5
+    b = np.where(on_border[:, 0], pick(xb, n) + pick(frac, n),
+                 a + pick(widths, n))
+    d = np.where(on_border[:, 1], pick(yb, n) + pick(frac, n),
+                 c + pick(widths, n))
+    rects = rows(0.0, a, b, c, d)
+
+    big, nan, inf = 1e6, np.nan, np.inf
+    masked = np.concatenate([
+        # rects off each side of the canvas, empty, inverted, far away
+        rows(0.0, [w, -10, 0, 0, 10, 20, 5, -big],
+             [w + 10, 0, w, w, 10, 10, 9, -big + 5],
+             [0, 0, h, -5, 0, 0, 4, 0], [h, h, h + 5, 0, h, h, 4, h]),
+        # disks: masked r2, far masked centres, off-canvas centres (one
+        # reaching in), r2 = 0 and -0.0 on an integer centre, NaN and inf
+        rows(1.0, [10, 10, 10, -big, -big, 10, w + 20, w + 5, 40, 5, nan,
+                   10, inf, 30],
+             [8, 8, 8, -big, 8, -big, 8, 8, 16, 5, 8, 8, 8, 3],
+             [-1, -1e-3, -1e30, 56.25, 56.25, 56.25, 100, 100, 0, -0.0,
+              100, nan, 100, 4], np.zeros(14)),
+    ])
+    lo = rng.uniform(-5, [w, h], (24, 2))
+    hi = lo + rng.uniform(1, 40, (24, 2))
+    painting = rows(0.0, lo[:, 0], hi[:, 0], lo[:, 1], hi[:, 1])
+    masked = np.concatenate([masked, painting])
+    masked = masked[rng.permutation(len(masked))]
+
+    spots = np.float32([[w * 0.3, h * 0.4], [w * 0.7, h * 0.6],
+                        [tw * 2.0, th * 3.0]])
+    n = 640
+    at = spots[rng.randint(0, 3, n)] + rng.uniform(-20, 20, (n, 2))
+    size = rng.uniform(1, 20, (n, 2)).astype(np.float32)
+    is_disk = rng.rand(n) < 0.5
+    long = np.where(
+        is_disk[:, None],
+        rows(1.0, at[:, 0], at[:, 1], size[:, 0] * size[:, 1] / 2.0,
+             np.zeros(n)),
+        rows(0.0, at[:, 0], at[:, 0] + size[:, 0], at[:, 1],
+             at[:, 1] + size[:, 1]))
+    return {"disk_borders": disks, "rect_borders": rects, "masked": masked,
+            "long": long}
+
+
+def _main_path_paint_tables(device, steps=4):
+    """The (base, table) pairs the main path paints: the route figure and
+    the camera of N_ENVS envs over the rollout's route bank, after each of
+    a few steps under random controls."""
+    import torch
+
+    from cadre_tpu_torch.envs import torch_env as te
+
+    bank = te.make_route_bank(16, seed=0, device=device)
+    env = te.DrivingEnv(bank, num_envs=N_ENVS, seed=5, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    state, _ = env.reset()
+    tables = []
+    for _ in range(steps):
+        u = torch.rand(N_ENVS, 2, generator=gen, device=device)
+        controls = torch.stack([0.6 * u[:, 0] - 0.3, u[:, 1],
+                                torch.zeros_like(u[:, 0])], -1)
+        state, _ = env.step(state, controls)
+        scal = te._scalars(env.cfg, bank, state)
+        tables.append({"fig": te._fig_table(env.cfg, bank, state, scal),
+                       "rgb": te._rgb_table(env.cfg, bank, state)})
+    return tables
+
+
+def _every_row_tests(table, h, w):
+    """fp32 operations of the first paint design in one call, which
+    tested every row at every pixel (about 6 for a disk, 4 for a rect).
+    A count of that design's work, not a bound."""
     disks = float((table[..., 0] > 0.5).sum())
     rects = float(table.shape[0] * table.shape[1]) - disks
     return h * w * (6.0 * disks + 4.0 * rects)
 
 
-def check_paint(gen, device):
+def _paint_case(what, base, table, timed):
+    """Hold the kernel bit-equal to the plain version on one (base, table);
+    with `timed`, time both. Returns its figures."""
     import torch
 
     from cadre_tpu_torch.ops import paint
 
-    cases = {
-        # route figure 256 x 144 x 1 from 103 disk rows of the ribbon width
-        "fig": (256, 144, 1, 0, 103, 56.25),
-        # camera 144 x 256 x 3 from 108 rect rows and 32 disk rows
-        "rgb": (144, 256, 3, 108, 32, None),
-    }
-    fig = {}
-    for name, (h, w, c, n_rect, n_disk, r2) in cases.items():
-        base = 255.0 * torch.rand(N_ENVS, h, w, c, generator=gen,
-                                  device=device)
-        table = _paint_tables(N_ENVS, h, w, n_rect, n_disk, r2, gen, device)
-        out = paint.paint_shapes(base, table)
-        ref = paint.paint_shapes_ref(base, table)
-        torch.cuda.synchronize()
-        changed = int((ref != base).any(-1).sum())
-        diff = int((out != ref).sum())
-        require(changed > 0, f"paint {name}: the tables painted nothing")
-        require(diff == 0, f"paint {name}: {diff} values differ from plain")
-        ms = time_ms(lambda: paint.paint_shapes(base, table), 50)
-        plain_ms = time_ms(lambda: paint.paint_shapes_ref(base, table), 3, 1)
-        nbytes = 2 * base.numel() * 4 + table.numel() * 4
-        ops = _paint_ops(table, h, w)
-        fig[name] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
-                         err=float((out - ref).abs().max()))
-        print(f"[3] paint {name}: N={N_ENVS} {h}x{w}x{c}, "
-              f"{table.shape[1]} rows: bit-equal to plain ({changed} px "
-              f"painted); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP")
-    nbytes = sum(f["bytes"] for f in fig.values())
-    ops = sum(f["ops"] for f in fig.values())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
-    return dict(
-        name="paint", route="cuda", source="cadre_tpu_torch/csrc/paint.cu",
-        replaces="cadre_tpu/ops/paint.py:111 (_paint_pallas)",
-        max_abs_err=max(f["err"] for f in fig.values()),
-        ms=sum(f["ms"] for f in fig.values()),
-        plain_ms=sum(f["plain_ms"] for f in fig.values()),
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None,
-        shapes=f"one env step at N={N_ENVS}: fig 256x144x1 (103 rows) + "
-               f"rgb 144x256x3 (140 rows)")
+    out = paint.paint_shapes(base, table)
+    ref = paint.paint_shapes_ref(base, table)
+    torch.cuda.synchronize()
+    diff = int((out != ref).sum())
+    require(diff == 0, f"paint {what}: {diff} values differ from plain")
+    changed = int((ref != base).any(-1).sum())
+    require(changed > 0, f"paint {what}: the table painted nothing")
+    fig = dict(err=float((out - ref).abs().max()), changed=changed,
+               bytes=2 * base.numel() * 4 + table.numel() * 4,
+               every_row_tests=_every_row_tests(table, base.shape[1],
+                                                base.shape[2]))
+    if timed:
+        fig["ms"] = device_ms(lambda: paint.paint_shapes(base, table))
+        fig["call_ms"] = time_ms(lambda: paint.paint_shapes(base, table), 200)
+        fig["plain_ms"] = time_ms(lambda: paint.paint_shapes_ref(base, table),
+                                  3, 1)
+    return fig
 
 
-def _attention_inputs(b, dtype, gen, device):
+def check_paint(gen, device):
     import torch
 
-    h, w, c, d = 5, 8, 128, 16
+    canvases = {"fig": (256, 144, 1), "rgb": (144, 256, 3)}
+    # random tables at the main path's row counts: the route figure's 103
+    # disks of the ribbon width, the camera's 108 rects and 32 disks
+    random_rows = {"fig": (0, 103, 56.25), "rgb": (108, 32, None)}
+    figs = {}
+    for name, (h, w, c) in canvases.items():
+        base = 255.0 * torch.rand(N_ENVS, h, w, c, generator=gen,
+                                  device=device)
+        table = _paint_tables(N_ENVS, h, w, *random_rows[name], gen, device)
+        figs["random", name] = _paint_case(f"random {name}", base, table,
+                                           True)
+        for case, rows in paint_edge_tables(h, w).items():
+            t = torch.as_tensor(rows, device=device)
+            t = torch.stack([t, t.flip(0)]).contiguous()  # env 1: reversed
+            b = base[:2].contiguous()
+            figs[case, name] = _paint_case(f"{case} {name}", b, t, False)
+            print(f"[3] paint {case} {name}: {h}x{w}x{c}, {t.shape[1]} "
+                  f"rows, 2 envs: bit-equal to plain "
+                  f"({figs[case, name]['changed']} px painted)")
+    steps = _main_path_paint_tables(device)
+    for i, step in enumerate(steps):
+        for name, (base, table) in step.items():
+            figs[f"main{i}", name] = _paint_case(
+                f"main path step {i} {name}", base, table, i == len(steps) - 1)
+    print(f"[3] paint main path: fig and rgb tables of {len(steps)} env "
+          f"steps at N={N_ENVS}: bit-equal to plain")
+    last = f"main{len(steps) - 1}"
+    for kind in ("random", last):
+        for name, (h, w, c) in canvases.items():
+            f = figs[kind, name]
+            print(f"[3] paint {kind} {name}: N={N_ENVS} {h}x{w}x{c}: "
+                  f"kernel {f['ms']:.4f} ms (graph of 200; issued one by "
+                  f"one {f['call_ms']:.4f} ms), plain {f['plain_ms']:.3f} "
+                  f"ms, {f['bytes'] / 1e6:.2f} MB, bound "
+                  f"{f['bytes'] / HBM_BYTES_PER_S * 1e3:.5f} ms (bytes); "
+                  f"{f['every_row_tests'] / 1e9:.3f} G fp32 ops if every "
+                  f"pixel tested every row")
+    main = [figs[last, n] for n in canvases]
+    rand = [figs["random", n] for n in canvases]
+    nbytes = sum(f["bytes"] for f in main)
+    return dict(
+        name="paint", route="cuda", source="cadre_tpu_torch/csrc/paint.cu",
+        replaces="cadre_tpu/ops/paint.py:112 (_paint_pallas)",
+        max_abs_err=max(f["err"] for f in figs.values()),
+        ms=sum(f["ms"] for f in main),
+        plain_ms=sum(f["plain_ms"] for f in main),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None, call_ms=sum(f["call_ms"] for f in main),
+        ms_random=sum(f["ms"] for f in rand),
+        plain_ms_random=sum(f["plain_ms"] for f in rand),
+        shapes=f"one env step at N={N_ENVS}: fig 256x144x1 + rgb "
+               f"144x256x3, main-path tables ({main[0]['bytes'] / 1e6:.2f} "
+               f"+ {main[1]['bytes'] / 1e6:.2f} MB)")
+
+
+def _attention_inputs(b, c, d, dtype, gen, device):
+    import torch
+
+    h, w = 5, 8
 
     def r(*shape):
         return torch.randn(*shape, generator=gen, device=device).to(dtype)
@@ -236,23 +413,40 @@ def _attention_library(x, q, k, v, gp, xc, gc):
     return gp * out_p + x, gc * out_c + xc
 
 
+# (B, C, Cqk) of every call the port makes: the production head at the
+# main path's batch (N_ENVS) and at B=256, and phase 5's small head
+ATTENTION_SHAPES = ((32, 128, 16), (256, 128, 16), (2, 32, 4))
+
+
 def check_dual_attention(gen, device):
+    import ctypes
+
     import torch
 
+    from cadre_tpu_torch.ops import _build
     from cadre_tpu_torch.ops import dual_attention as da
 
+    smem_fn = _build.load("dual_attention").dual_attention_smem_bytes
+    smem_fn.argtypes = [ctypes.c_int] * 4
+    smem_fn.restype = ctypes.c_longlong
     main = None
-    for b in (32, 256):
+    for b, c, d in ATTENTION_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            args = _attention_inputs(b, dtype, gen, device)
+            bf16 = dtype == torch.bfloat16
+            p = 40
+            smem = smem_fn(p, c, d, int(bf16))
+            mirror = da._smem_bytes(p, c, d, bf16)
+            require(smem == mirror, f"dual_attention: _smem_bytes {mirror} "
+                    f"!= the kernel's {smem}")
+            args = _attention_inputs(b, c, d, dtype, gen, device)
             op, oc = da.fused_dual_attention(*args)
             rp = da.pam_apply(*args[:5])
             rc = da.cam_apply(args[5], args[6])
             torch.cuda.synchronize()
             err_p = float((op.float() - rp.float()).abs().max())
             err_c = float((oc.float() - rc.float()).abs().max())
-            tag = f"B={b} {str(dtype).split('.')[-1]}"
-            if dtype == torch.float32:
+            tag = f"B={b} C={c} Cqk={d} {str(dtype).split('.')[-1]}"
+            if not bf16:
                 require(err_p <= 2e-4, f"dual_attention {tag}: PAM err "
                         f"{err_p:.3g} > 2e-4")
                 require(err_c <= 2e-3, f"dual_attention {tag}: CAM err "
@@ -269,22 +463,27 @@ def check_dual_attention(gen, device):
                         f"{BF16_ULP_BOUND}")
                 tol = (f"bf16 {ulps[0]:.1f}/{ulps[1]:.1f} ulps "
                        f"<= {BF16_ULP_BOUND}")
-            ms = time_ms(lambda: da.fused_dual_attention(*args), 50)
+            ms = device_ms(lambda: da.fused_dual_attention(*args))
+            lib_ms = device_ms(lambda: _attention_library(*args))
+            call_ms = time_ms(lambda: da.fused_dual_attention(*args), 200)
+            lib_call_ms = time_ms(lambda: _attention_library(*args), 200)
             plain_ms = time_ms(lambda: (da.pam_apply(*args[:5]),
                                         da.cam_apply(args[5], args[6])), 20)
-            lib_ms = time_ms(lambda: _attention_library(*args), 20)
-            p, c, d = 40, 128, 16
-            elem = 2 if dtype == torch.bfloat16 else 4
+            elem = 2 if bf16 else 4
             nbytes = b * (5 * p * c + 2 * p * d) * elem + 8
             flops = b * 2.0 * (p * p * d + p * p * c + 2 * p * c * c)
-            peak = BF16_TC_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+            peak = BF16_TC_FLOPS if bf16 else FP32_FLOPS
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / peak * 1e3
             print(f"[3] dual_attention {tag}: max|err| PAM {err_p:.3g} CAM "
-                  f"{err_c:.3g} ({tol}); kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-                  f"{max(t_bytes, t_ops):.5f} ms")
-            if b == 32 and dtype == torch.bfloat16:
+                  f"{err_c:.3g} ({tol}); kernel {ms:.4f} ms, library "
+                  f"{lib_ms:.4f} ms (graphs of 200 calls); issued one by "
+                  f"one: kernel {call_ms:.4f} ms, library {lib_call_ms:.4f} "
+                  f"ms (200 calls), plain {plain_ms:.4f} ms (20 calls); "
+                  f"bound {max(t_bytes, t_ops):.5f} ms "
+                  f"({'bytes' if t_bytes >= t_ops else 'operations'}); "
+                  f"{smem} B shared memory per block")
+            if (b, c, d) == ATTENTION_SHAPES[0] and bf16:
                 main = dict(
                     name="dual_attention", route="cuda",
                     source="cadre_tpu_torch/csrc/dual_attention.cu",
@@ -293,8 +492,13 @@ def check_dual_attention(gen, device):
                     max_abs_err=max(err_p, err_c), ms=ms, plain_ms=plain_ms,
                     bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    library_ms=lib_ms,
-                    shapes=f"B={b} P=40 C=128 Cqk=16 bf16")
+                    library_ms=lib_ms, call_ms=call_ms,
+                    library_call_ms=lib_call_ms,
+                    shapes=f"B={b} P=40 C={c} Cqk={d} bf16")
+            elif (b, c, d) == ATTENTION_SHAPES[1] and bf16:
+                require(main is not None, "dual_attention: B=32 not run")
+                main.update(ms_b256=ms, library_ms_b256=lib_ms,
+                            bound_ms_b256=max(t_bytes, t_ops))
     return main
 
 

@@ -8,20 +8,30 @@ Tolerances: paint bit-exact (the JAX tests assert equality); dual
 attention f32 atol 2e-4 (PAM) and 2e-3 (CAM), those of
 tests/test_pallas_kernels.py.
 """
+import os
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from cadre_tpu.envs import jax_env
 from cadre_tpu.ops import dual_attention as jda
 from cadre_tpu.ops import paint as jpaint
 from cadre_tpu.ops.pallas_dual_attention import dual_attention_pallas
+from cadre_tpu_torch.envs import torch_env
+from cadre_tpu_torch.ops import _build
 from cadre_tpu_torch.ops import dual_attention as tda
 from cadre_tpu_torch.ops import paint as tpaint
+from cadre_tpu_torch.utils.convert import (
+    env_state_from_numpy,
+    route_bank_from_numpy,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -65,6 +75,34 @@ def test_paint_plain_batched_bit_equal_to_jax():
         assert (ours[i] == ref).all()
 
 
+EDGE_CASES = ("disk_borders", "rect_borders", "masked", "long")
+EDGE_CANVASES = {"fig": (256, 144, 1), "rgb": (144, 256, 3)}
+
+
+@pytest.mark.parametrize("canvas", list(EDGE_CANVASES))
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_paint_plain_bit_equal_to_jax_on_tile_edge_tables(case, canvas):
+    """The tables that chip_smoke.py holds the kernel's per-tile cull to
+    (edges on tile borders, exact squares, masked rows, a table longer
+    than one cull chunk): the plain version equals the JAX scan and the
+    interpret-mode Pallas kernel bit for bit."""
+    h, w, c = EDGE_CANVASES[canvas]
+    tables = chip_smoke.paint_edge_tables(h, w)
+    assert set(tables) == set(EDGE_CASES)
+    table = tables[case]
+    base = np.random.RandomState(1).uniform(0, 255, (h, w, c)) \
+        .astype(np.float32)
+    xla = np.asarray(jpaint._paint_xla(jnp.asarray(base), jnp.asarray(table)))
+    pallas = np.asarray(jpaint._paint_pallas(
+        jnp.asarray(base), jnp.asarray(table), interpret=True))
+    ours = tpaint.paint_shapes(torch.from_numpy(base)[None],
+                               torch.from_numpy(table)[None])[0].numpy()
+    assert (ours == xla).all() and (ours == pallas).all()
+    assert (ours != base).any()
+    if case == "long":
+        assert len(table) >= 600
+
+
 def test_paint_rows_match_jax_rows():
     rng = np.random.RandomState(3)
     a, b, c, d = (rng.uniform(0, 100, 10).astype(np.float32) for _ in range(4))
@@ -91,9 +129,9 @@ def test_paint_order_last_writer_wins():
     assert float(img[36, 64 + 15, 0]) == 10.0
 
 
-def _attention_inputs(batch):
+def _attention_inputs(batch, c=128):
     rng = np.random.RandomState(batch)
-    b, h, w, c = batch, 5, 8, 128
+    b, h, w = batch, 5, 8
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     return (f(b, h, w, c), f(b, h, w, c // 8), f(b, h, w, c // 8),
             f(b, h, w, c), np.full((1,), 0.5, np.float32), f(b, h, w, c),
@@ -115,6 +153,126 @@ def test_dual_attention_plain_matches_jax(batch):
                                    atol=2e-4)
         np.testing.assert_allclose(ours_c.numpy(), np.asarray(pal_c),
                                    atol=2e-3)
+
+
+@pytest.mark.parametrize("batch", [2, 5])
+def test_dual_attention_plain_matches_jax_small_head(batch):
+    """The small head of chip_smoke.py's phase 5 (C=32, Cqk=4)."""
+    args = _attention_inputs(batch, c=32)
+    assert args[1].shape[-1] == 4
+    ours_p, ours_c = tda.fused_dual_attention(*map(torch.from_numpy, args))
+    jargs = list(map(jnp.asarray, args))
+    np.testing.assert_allclose(ours_p.numpy(),
+                               np.asarray(jda.pam_apply(*jargs[:5])),
+                               atol=2e-4)
+    np.testing.assert_allclose(ours_c.numpy(),
+                               np.asarray(jda.cam_apply(jargs[5], jargs[6])),
+                               atol=2e-3)
+
+
+@pytest.mark.parametrize("p, c, d", [(40, 48, 16), (40, 256, 16),
+                                     (65, 128, 16), (40, 128, 33),
+                                     (40, 16, 2)])
+def test_dual_attention_kernel_refuses_shapes_it_does_not_take(p, c, d):
+    """The CUDA wrapper raises on such a shape before any launch; it never
+    falls back to the plain version."""
+    x = torch.zeros(1, 1, p, c)
+    qk = torch.zeros(1, 1, p, d)
+    g = torch.ones(1)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        tda._dual_attention_cuda(x, qk, qk, x, g, x, g)
+
+
+def test_dual_attention_smem_fits_several_blocks_per_sm():
+    """Shared memory per block at the port's shapes (mirrors the kernel's
+    layout; chip_smoke.py checks the mirror against the kernel)."""
+    assert tda._smem_bytes(40, 128, 16, True) == 21760
+    assert tda._smem_bytes(40, 128, 16, False) == 36992
+    for bf16 in (True, False):
+        assert 4 * tda._smem_bytes(40, 128, 16, bf16) < 227 * 1024
+        assert tda._smem_bytes(64, 128, 32, bf16) < 227 * 1024
+
+
+def test_paint_kernel_refuses_what_it_does_not_take():
+    base = torch.zeros(1, 8, 8, 4)
+    with pytest.raises(ValueError, match="channels"):
+        tpaint._paint_cuda(base, torch.zeros(1, 2, 8))
+    with pytest.raises(ValueError, match="rows"):
+        tpaint._paint_cuda(base[..., :3],
+                           torch.zeros(1, tpaint.MAX_ROWS + 1, 8))
+
+
+def test_build_hash_follows_sources_headers_and_flags(tmp_path):
+    """A library is named after what it is built from: the hash moves with
+    the text of its .cu, of any .cuh and with the flags, and not with
+    another .cu or a file's times."""
+    (tmp_path / "a.cu").write_text("kernel a")
+    (tmp_path / "b.cu").write_text("kernel b")
+    (tmp_path / "common.cuh").write_text("header")
+    flags = ("-O3",)
+    h0 = _build.source_hash("a", tmp_path, flags)
+    assert len(h0) == 12 and h0 != _build.source_hash("b", tmp_path, flags)
+    (tmp_path / "b.cu").write_text("kernel b, edited")
+    os.utime(tmp_path / "a.cu", (1, 1))
+    assert _build.source_hash("a", tmp_path, flags) == h0
+    (tmp_path / "a.cu").write_text("kernel a, edited")
+    h1 = _build.source_hash("a", tmp_path, flags)
+    assert h1 != h0
+    (tmp_path / "common.cuh").write_text("header, edited")
+    h2 = _build.source_hash("a", tmp_path, flags)
+    assert h2 != h1
+    (tmp_path / "extra.cuh").write_text("")
+    h3 = _build.source_hash("a", tmp_path, flags)
+    assert h3 != h2
+    assert _build.source_hash("a", tmp_path, ("-O2",)) != h3
+    assert _build.source_hash("a", tmp_path, flags) == h3
+    lib = _build.lib_path("paint")
+    assert lib.name == f"libpaint-{_build.source_hash('paint')}.so"
+    assert lib.parent == _build.BUILD_DIR
+
+
+def test_render_tables_paint_the_jax_renderers_images(monkeypatch):
+    """`_fig_table`/`_rgb_table` through `paint_shapes_ref` give the images
+    that the JAX renderers paint before their noise, on the env of
+    tests/test_torch_port_slice.py (images equal but for at most 0.5% of
+    values at shape boundaries, the tolerance of that file), and the
+    port's renderers paint exactly these tables."""
+    n = 4
+    cfg = jax_env.JaxEnvConfig()
+    jbank = jax_env.make_route_bank(3, seed=0)
+    jstate, _ = jax_env.JaxDrivingEnv(jbank, n, cfg).reset(
+        jax.random.PRNGKey(5))
+    painted = []
+    real_paint = jax_env.paint.paint_shapes
+    monkeypatch.setattr(jax_env.paint, "paint_shapes", lambda base, rows: (
+        painted.append((base.shape, rows.shape, real_paint(base, rows)))
+        or painted[-1][2]))
+    ref = {"fig": [], "rgb": []}
+    for i in range(n):
+        one = jax.tree.map(lambda t: t[i], jstate)
+        scal = jax_env._scalars(cfg, jbank, one)
+        jax_env._render_rgb(cfg, jbank, one, jax.random.PRNGKey(0))
+        jax_env._render_fig(cfg, jbank, one, scal)
+        ref["rgb"].append(painted[-2])
+        ref["fig"].append(painted[-1])
+
+    bank = route_bank_from_numpy({k: np.asarray(v)
+                                  for k, v in jbank._asdict().items()})
+    state = env_state_from_numpy({k: np.asarray(v)
+                                  for k, v in jstate._asdict().items()})
+    tcfg = torch_env.EnvConfig()
+    scal = torch_env._scalars(tcfg, bank, state)
+    tables = {"fig": torch_env._fig_table(tcfg, bank, state, scal),
+              "rgb": torch_env._rgb_table(tcfg, bank, state)}
+    for name, (base, rows) in tables.items():
+        img = tpaint.paint_shapes_ref(base, rows).numpy()
+        for i, (base_shape, rows_shape, jimg) in enumerate(ref[name]):
+            assert tuple(base.shape[1:]) == tuple(base_shape)
+            assert tuple(rows.shape[1:]) == tuple(rows_shape)
+            share = float((np.abs(img[i] - np.asarray(jimg)) > 1e-3).mean())
+            assert share <= 0.005, f"{name} env {i}: {share:.4%} differ"
+    fig = torch_env._render_fig(tcfg, bank, state, scal)
+    assert torch.equal(fig, tpaint.paint_shapes_ref(*tables["fig"])[..., 0])
 
 
 def test_dual_attention_plain_bf16_matches_jax():
