@@ -175,9 +175,11 @@ int launch(const void* base, const void* shapes, void* out, int n, int h,
 }  // namespace
 
 // base, out: [n, h, w, c] f32 contiguous; shapes: [n, s, 8] f32 contiguous
-// and 16-byte aligned; 1 <= c <= 3 (a row carries three colours); s rows
-// must fit 48 KB of shared memory. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a channel count the kernel does not take.
+// and 16-byte aligned; 1 <= c <= 3 (a row carries three colours);
+// s <= 1535, so that the table (32 B a row) and the 32 B of warp_count fit
+// the 48 KB of shared memory a block has without opting in. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a channel count the
+// kernel does not take.
 extern "C" int paint_f32(const void* base, const void* shapes, void* out,
                          int n, int h, int w, int c, int s, void* stream) {
   switch (c) {

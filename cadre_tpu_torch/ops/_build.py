@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -99,6 +101,14 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib
+
+
+def cuda_stream(tensor: torch.Tensor) -> int:
+    """The handle of the current CUDA stream of `tensor`'s device, for a
+    kernel's C entry. Read raw, as torch's own generated kernels read it:
+    `torch.cuda.current_stream()` builds a Stream object on every call,
+    host time spent again on every launch."""
+    return torch._C._cuda_getCurrentRawStream(tensor.get_device())
 
 
 def check(err: int, what: str) -> None:

@@ -57,25 +57,6 @@ def cam_apply(x, gamma) -> torch.Tensor:
     return gamma * out + x
 
 
-def _align16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def _smem_bytes(p: int, c: int, d: int, bf16: bool) -> int:
-    """Dynamic shared memory of one block, the larger of the CAM and the
-    PAM block's (mirrors smem_bytes in csrc/dual_attention.cu)."""
-    if bf16:
-        kp = _align16(p)
-        cam = _align16(2 * kp * (c + 8)) + _align16(2 * 32 * (c + 8))
-        pam = (_align16(2 * p * d) + _align16(2 * p * (d + 1))
-               + _align16(2 * kp * (c + 8)) + _align16(2 * kp * (kp + 8)))
-    else:
-        cam = _align16(4 * p * c) + _align16(4 * 32 * (c + 1))
-        pam = (_align16(4 * p * d) + _align16(4 * p * (d + 1))
-               + _align16(4 * p * c) + _align16(4 * p * (p + 1)))
-    return max(cam, pam)
-
-
 def _check_shape(p: int, c: int, d: int) -> None:
     """Raise unless the kernel takes P positions, C channels, D = Cqk."""
     if not (1 <= p <= _MAX_P and 32 <= c <= _MAX_C and c % 32 == 0
@@ -92,6 +73,14 @@ def _entry(dtype: torch.dtype):
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _gamma(g: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
+    """A one-value gamma of `dtype` on `device`: `g` itself when it is one
+    already (its data pointer is then that value), else a converted copy."""
+    if g.dtype == dtype and g.device == device:
+        return g
+    return g.reshape(1).to(device=device, dtype=dtype)
 
 
 def _dual_attention_cuda(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam):
@@ -117,14 +106,14 @@ def _dual_attention_cuda(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam):
         raise ValueError("dual_attention: x and v must be 16-byte aligned")
     # the kernel reads each gamma in the input type and widens it to f32:
     # the value the plain version multiplies by
-    gp = gamma_pam.reshape(1).to(device=x_pam.device, dtype=dtype)
-    gc = gamma_cam.reshape(1).to(device=x_pam.device, dtype=dtype)
+    gp = _gamma(gamma_pam, dtype, x_pam.device)
+    gc = _gamma(gamma_cam, dtype, x_pam.device)
     out_p = torch.empty_like(x_pam)
     out_c = torch.empty_like(x_cam)
     if b == 0:
         return out_p, out_c
     fn = _entry(dtype)
-    stream = torch.cuda.current_stream(x_pam.device).cuda_stream
+    stream = _build.cuda_stream(x_pam)
     _build.check(fn(x_pam.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     gp.data_ptr(), x_cam.data_ptr(), gc.data_ptr(),
                     out_p.data_ptr(), out_c.data_ptr(), b, p, c, d, stream),

@@ -16,13 +16,18 @@ per-pixel arithmetic; both give bit-identical canvases.
 from __future__ import annotations
 
 import ctypes
+import functools
+import re
+from typing import Tuple
 
 import torch
 
 from cadre_tpu_torch.ops import _build
 
-MAX_ROWS = 48 * 1024 // (8 * 4)   # a tile's survivors must fit 48 KB of
-                                   # shared memory
+# The kernel stages an env's whole table (32 B a row) in dynamic shared
+# memory beside 32 B of static counters, within the 48 KB a block may use
+# without opting in to more.
+MAX_ROWS = (48 * 1024 - 32) // 32
 
 launches = 0                       # kernel launches made by `paint_shapes`
 
@@ -62,6 +67,27 @@ def paint_shapes_ref(base: torch.Tensor, shapes: torch.Tensor) -> torch.Tensor:
     return img
 
 
+@functools.lru_cache(maxsize=None)
+def kernel_tile() -> Tuple[int, int]:
+    """(width, height) in pixels of the tile one block of `csrc/paint.cu`
+    paints, read from its `kTileW` / `kTileH`."""
+    text = (_build.CSRC / "paint.cu").read_text()
+    sizes = [re.search(rf"constexpr int {name} = (\d+);", text)
+             for name in ("kTileW", "kTileH")]
+    if not all(sizes):
+        raise RuntimeError("paint.cu: kTileW / kTileH not found")
+    return int(sizes[0].group(1)), int(sizes[1].group(1))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry, loaded and typed once."""
+    fn = _build.load("paint").paint_f32
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _paint_cuda(base: torch.Tensor, shapes: torch.Tensor) -> torch.Tensor:
     global launches
     n, h, w, c = base.shape
@@ -82,13 +108,9 @@ def _paint_cuda(base: torch.Tensor, shapes: torch.Tensor) -> torch.Tensor:
     if n == 0 or shapes.shape[1] == 0:
         out.copy_(base)
         return out
-    lib = _build.load("paint")
-    fn = lib.paint_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(base.device).cuda_stream
-    _build.check(fn(base.data_ptr(), shapes.data_ptr(), out.data_ptr(),
-                    n, h, w, c, shapes.shape[1], stream), "paint")
+    stream = _build.cuda_stream(base)
+    _build.check(_entry()(base.data_ptr(), shapes.data_ptr(), out.data_ptr(),
+                          n, h, w, c, shapes.shape[1], stream), "paint")
     launches += 1
     return out
 

@@ -20,6 +20,14 @@ Phases, each of which must pass:
 It prints one JSON line of kernel figures, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. It exits non-zero, printing no
 result, without a CUDA GPU or without the package beside it.
+
+    python3 chip_smoke.py --kernel-times ROOT [ROOT ...]
+
+times the paint and dual-attention wrappers of each checkout ROOT (a
+directory holding `cadre_tpu_torch/`, built there at first use) on the same
+inputs, one process per ROOT in the order given, two ways: a CUDA graph of
+200 calls, and 200 calls issued one by one. Give the checkouts to compare
+as A B B A to see the spread between runs.
 """
 from __future__ import annotations
 
@@ -36,7 +44,6 @@ BF16_TC_FLOPS = 989e12
 
 N_ENVS = 32
 T_STEPS = 20
-PAINT_TILE = (32, 8)       # x, y pixels of one block of the paint kernel
 # bf16 kernel vs plain: both round the same f32 sums, in another order, so
 # an attention weight or the residual may land one bf16 step apart; bound
 # the difference in bf16 units in the last place of max(|plain|, |x|).
@@ -174,7 +181,8 @@ def _paint_tables(n, h, w, n_rect, n_disk, disk_r2, gen, device):
 
 def paint_edge_tables(h, w, seed=0):
     """Tables that test the paint kernel's per-tile cull at its edges, for
-    an h x w canvas: numpy [S, 8] f32 rows by case name.
+    an h x w canvas and the kernel's tile (`paint.kernel_tile()`, read from
+    its source): numpy [S, 8] f32 rows by case name.
 
       disk_borders  disks whose r2 is 0, an exact square or a quarter,
                     centred on tile borders, beside them and on half pixels;
@@ -189,8 +197,10 @@ def paint_edge_tables(h, w, seed=0):
     """
     import numpy as np
 
+    from cadre_tpu_torch.ops import paint
+
     rng = np.random.RandomState(seed)
-    tw, th = PAINT_TILE
+    tw, th = paint.kernel_tile()
     xb = np.unique(np.r_[np.arange(0, w + 1, tw), w]).astype(np.float32)
     yb = np.unique(np.r_[np.arange(0, h + 1, th), h]).astype(np.float32)
     near = np.float32([-1.0, -0.5, 0.0, 0.5, 1.0])
@@ -320,6 +330,8 @@ def _paint_case(what, base, table, timed):
 def check_paint(gen, device):
     import torch
 
+    from cadre_tpu_torch.ops import paint
+
     canvases = {"fig": (256, 144, 1), "rgb": (144, 256, 3)}
     # random tables at the main path's row counts: the route figure's 103
     # disks of the ribbon width, the camera's 108 rects and 32 disks
@@ -339,6 +351,21 @@ def check_paint(gen, device):
             print(f"[3] paint {case} {name}: {h}x{w}x{c}, {t.shape[1]} "
                   f"rows, 2 envs: bit-equal to plain "
                   f"({figs[case, name]['changed']} px painted)")
+        # the longest table the wrapper takes, whose shared memory is
+        # within a row of the 48 KB limit; one row more is refused
+        n_rect = paint.MAX_ROWS // 2
+        t = _paint_tables(2, h, w, n_rect, paint.MAX_ROWS - n_rect, None,
+                          gen, device)
+        figs["max_rows", name] = _paint_case(f"max_rows {name}", base[:2],
+                                             t, False)
+        try:
+            paint.paint_shapes(base[:2], torch.cat([t, t[:, :1]], 1))
+            refused = False
+        except ValueError:
+            refused = True
+        require(refused, f"paint took {paint.MAX_ROWS + 1} rows")
+        print(f"[3] paint max_rows {name}: {paint.MAX_ROWS} rows, 2 envs: "
+              f"bit-equal to plain; {paint.MAX_ROWS + 1} rows refused")
     steps = _main_path_paint_tables(device)
     for i, step in enumerate(steps):
         for name, (base, table) in step.items():
@@ -369,6 +396,7 @@ def check_paint(gen, device):
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None, call_ms=sum(f["call_ms"] for f in main),
         ms_random=sum(f["ms"] for f in rand),
+        call_ms_random=sum(f["call_ms"] for f in rand),
         plain_ms_random=sum(f["plain_ms"] for f in rand),
         shapes=f"one env step at N={N_ENVS}: fig 256x144x1 + rgb "
                f"144x256x3, main-path tables ({main[0]['bytes'] / 1e6:.2f} "
@@ -435,9 +463,6 @@ def check_dual_attention(gen, device):
             bf16 = dtype == torch.bfloat16
             p = 40
             smem = smem_fn(p, c, d, int(bf16))
-            mirror = da._smem_bytes(p, c, d, bf16)
-            require(smem == mirror, f"dual_attention: _smem_bytes {mirror} "
-                    f"!= the kernel's {smem}")
             args = _attention_inputs(b, c, d, dtype, gen, device)
             op, oc = da.fused_dual_attention(*args)
             rp = da.pam_apply(*args[:5])
@@ -498,6 +523,8 @@ def check_dual_attention(gen, device):
             elif (b, c, d) == ATTENTION_SHAPES[1] and bf16:
                 require(main is not None, "dual_attention: B=32 not run")
                 main.update(ms_b256=ms, library_ms_b256=lib_ms,
+                            call_ms_b256=call_ms,
+                            library_call_ms_b256=lib_call_ms,
                             bound_ms_b256=max(t_bytes, t_ops))
     return main
 
@@ -687,9 +714,112 @@ def phase_cpu_agreement():
           f"(bounds 1e-3, 1e-3, 0.5% px, 0.5% px)")
 
 
+# ------------------------------------------- kernel times of checkouts
+
+def _timing_inputs(device):
+    """The inputs both kernels are timed on, by case: paint on the main
+    path's fig and rgb tables of one env step at N_ENVS and on random
+    tables of the same row counts; dual attention at every shape and type
+    of ATTENTION_SHAPES. Made from fixed seeds."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    cases = {}
+    step = _main_path_paint_tables(device, steps=1)[0]
+    random_rows = {"fig": (0, 103, 56.25), "rgb": (108, 32, None)}
+    for name, (base, table) in step.items():
+        cases[f"paint main {name}"] = ("paint", (base, table))
+        n, h, w, _ = base.shape
+        cases[f"paint random {name}"] = ("paint", (base, _paint_tables(
+            n, h, w, *random_rows[name], gen, device)))
+    for b, c, d in ATTENTION_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"dual_attention B={b} C={c} {str(dtype).split('.')[-1]}"
+            cases[tag] = ("dual_attention",
+                          _attention_inputs(b, c, d, dtype, gen, device))
+    return cases
+
+
+def time_kernels_of(root: str, inputs: str) -> int:
+    """Child of `compare_kernel_times`: import the port of the checkout at
+    `root`, time its wrappers on the saved inputs both ways, print one
+    JSON line."""
+    import os
+
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import cadre_tpu_torch
+    from cadre_tpu_torch.ops import dual_attention, paint
+
+    where = os.path.dirname(os.path.abspath(cadre_tpu_torch.__file__))
+    require(where.startswith(os.path.abspath(root)),
+            f"imported the port from {where}, not from {root}")
+    fns = {"paint": paint.paint_shapes,
+           "dual_attention": dual_attention.fused_dual_attention}
+    times = {}
+    for case, (kernel, args) in torch.load(inputs).items():
+        args = [a.cuda() for a in args]
+
+        def call(fn=fns[kernel], args=args):
+            return fn(*args)
+
+        times[case] = {"graph_ms": device_ms(call),
+                       "one_by_one_ms": time_ms(call, 200)}
+    print(json.dumps({"root": root, "times": times}))
+    return 0
+
+
+def compare_kernel_times(roots) -> int:
+    """Time the kernels of several checkouts of the port (each a directory
+    holding `cadre_tpu_torch/`) on the same inputs, in the order given,
+    one process each: per call from a CUDA graph of 200 calls (the
+    device's time) and from 200 calls issued one by one (the device's
+    time or the host's, whichever is longer)."""
+    import os
+
+    import torch
+
+    device = torch.device("cuda")
+    inputs = os.path.abspath(os.path.join("build", "timing_inputs.pt"))
+    os.makedirs(os.path.dirname(inputs), exist_ok=True)
+    cases = _timing_inputs(device)
+    torch.save({k: (kernel, [a.cpu() for a in args])
+                for k, (kernel, args) in cases.items()}, inputs)
+    runs = []
+    for root in roots:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--time-kernels-of", root, inputs],
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            raise PhaseError(f"timing the kernels of {root} failed")
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    print(f"[t] card: {card_line()}")
+    print("[t] ms per call, graph of 200 / issued one by one, in run order: "
+          + ", ".join(r["root"] for r in runs))
+    for case in cases:
+        figs = "  ".join(f"{r['times'][case]['graph_ms']:.4f} / "
+                         f"{r['times'][case]['one_by_one_ms']:.4f}"
+                         for r in runs)
+        print(f"[t] {case:34s} {figs}")
+    def per_step(run, kind, how):
+        return sum(run["times"][f"paint {kind} {n}"][how]
+                   for n in ("fig", "rgb"))
+
+    for kind in ("main", "random"):
+        figs = "  ".join(f"{per_step(r, kind, 'graph_ms'):.4f} / "
+                         f"{per_step(r, kind, 'one_by_one_ms'):.4f}"
+                         for r in runs)
+        print(f"[t] {'paint ' + kind + ' per env step':34s} {figs}")
+    print(json.dumps({"runs": runs}))
+    return 0
+
+
 # ---------------------------------------------------------------- main
 
-def main() -> int:
+def main(argv) -> int:
     try:
         import torch
     except ImportError:
@@ -698,11 +828,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU", file=sys.stderr)
         return 2
+    if argv[:1] == ["--time-kernels-of"] and len(argv) == 3:
+        return time_kernels_of(*argv[1:])
     try:
         import cadre_tpu_torch  # noqa: F401
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script: {exc}",
               file=sys.stderr)
+        return 2
+    if argv[:1] == ["--kernel-times"] and len(argv) > 1:
+        try:
+            return compare_kernel_times(argv[1:])
+        except PhaseError as exc:
+            print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+            return 1
+    if argv:
+        print(__doc__, file=sys.stderr)
         return 2
     try:
         card = phase_card()
@@ -724,4 +865,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -183,14 +183,15 @@ def test_dual_attention_kernel_refuses_shapes_it_does_not_take(p, c, d):
         tda._dual_attention_cuda(x, qk, qk, x, g, x, g)
 
 
-def test_dual_attention_smem_fits_several_blocks_per_sm():
-    """Shared memory per block at the port's shapes (mirrors the kernel's
-    layout; chip_smoke.py checks the mirror against the kernel)."""
-    assert tda._smem_bytes(40, 128, 16, True) == 21760
-    assert tda._smem_bytes(40, 128, 16, False) == 36992
-    for bf16 in (True, False):
-        assert 4 * tda._smem_bytes(40, 128, 16, bf16) < 227 * 1024
-        assert tda._smem_bytes(64, 128, 32, bf16) < 227 * 1024
+def test_dual_attention_gamma_passes_through_or_converts():
+    """A gamma already of the input type and device goes to the kernel as
+    it is (no copy per call); any other is converted to one such value."""
+    g = torch.tensor([0.5])
+    assert tda._gamma(g, torch.float32, g.device) is g
+    scalar = torch.tensor(0.25, dtype=torch.float64)
+    out = tda._gamma(scalar, torch.bfloat16, g.device)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (1,)
+    assert float(out) == 0.25
 
 
 def test_paint_kernel_refuses_what_it_does_not_take():
@@ -200,6 +201,36 @@ def test_paint_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="rows"):
         tpaint._paint_cuda(base[..., :3],
                            torch.zeros(1, tpaint.MAX_ROWS + 1, 8))
+    # the kernel keeps the table (32 B a row) and 32 B of counters in the
+    # 48 KB of shared memory a block has without opting in
+    assert 32 * tpaint.MAX_ROWS + 32 <= 48 * 1024 < 32 * tpaint.MAX_ROWS + 64
+
+
+def test_paint_edge_tables_follow_the_kernels_tile(tmp_path, monkeypatch):
+    """The tile whose borders chip_smoke.py's edge tables aim at is read
+    from csrc/paint.cu: change kTileW / kTileH there and the disks move to
+    the new borders."""
+    tw, th = tpaint.kernel_tile()
+    assert tw > 0 and th > 0
+    text = (_build.CSRC / "paint.cu").read_text()
+    (tmp_path / "paint.cu").write_text(
+        text.replace(f"kTileW = {tw};", "kTileW = 24;")
+        .replace(f"kTileH = {th};", "kTileH = 6;"))
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    tpaint.kernel_tile.cache_clear()
+    try:
+        assert tpaint.kernel_tile() == (24, 6)
+        h, w = 144, 256
+        disks = chip_smoke.paint_edge_tables(h, w)["disk_borders"]
+    finally:
+        monkeypatch.undo()
+        tpaint.kernel_tile.cache_clear()
+    for centre, tile, edge in ((disks[:, 1], 24, w), (disks[:, 2], 6, h)):
+        border = np.round(centre)
+        off = np.minimum(border % tile, tile - border % tile)
+        assert ((off <= 1) | (np.abs(border - edge) <= 1)).all()
+        assert (np.abs(border % (2 * tile) - tile) <= 1).any()
+    assert tpaint.kernel_tile() == (tw, th)
 
 
 def test_build_hash_follows_sources_headers_and_flags(tmp_path):
