@@ -1,8 +1,10 @@
 """cadre_tpu_torch: the PyTorch/CUDA port of cadre_tpu for one NVIDIA H100.
 
-This package runs the acting half of the device-resident iteration: the
-batched driving env (rendered through a hand-written CUDA paint kernel), the
-frozen CoPM encoder (whose dual attention is a hand-written CUDA kernel) and
-the per-command policy banks. It imports torch and numpy only; `cadre_tpu`
-(the JAX package) is its reference and is never imported here.
+This package runs the device-resident training iteration: the batched
+driving env (rendered through a hand-written CUDA paint kernel), the frozen
+CoPM encoder (whose dual attention is a hand-written CUDA kernel) and the
+per-command policy banks act for T steps, then GAE and the PPO epochs train
+the banks (`rl.device_rollout.train_device`, `python -m
+cadre_tpu_torch.main`). It imports torch and numpy only; `cadre_tpu` (the
+JAX package) is its reference and is never imported here.
 """

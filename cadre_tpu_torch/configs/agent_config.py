@@ -1,5 +1,5 @@
-"""Agent and rollout configuration: the parts of
-cadre_tpu.configs.agent_config that the acting path reads."""
+"""Agent, rollout and training configuration: the parts of
+cadre_tpu.configs.agent_config that the device iteration reads."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,7 +27,12 @@ SEQ_LENGTH = 8                             # observation history frames
 @dataclasses.dataclass(frozen=True)
 class RolloutConfig:
     num_steps: int = 200
+    mini_batch_num: int = 2
+    feature_dims: int = 512 + MEASUREMENT_DIM  # 530
     seq_length: int = SEQ_LENGTH
+    use_gae: bool = True
+    gamma: float = 0.99
+    tau: float = 0.95
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,3 +41,15 @@ class AgentConfig:
     measurement_dim: int = MEASUREMENT_DIM
     num_steer_outputs: int = len(STEER_CONTROL)        # 33
     num_throttle_outputs: int = len(THROTTLE_CONTROL)  # 3
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    max_episode: int = 3000
+    max_grad_norm: float = 250.0
+    use_adv_norm: bool = True
+    ppo_epoch: int = 4
+    lr: float = 3e-4
+    save_interval: int = 100
+    log_interval: int = 10
+    num_processes: int = 4

@@ -1,10 +1,10 @@
 """Command-banked policy: LSTM memory + categorical actor-critic.
 
-PyTorch counterpart of cadre_tpu.models.policy for the acting path. One
-`PolicyBank` holds the parameters of all command banks of one signal
-(steer or throttle) stacked on a leading command axis; `act_batch`
-evaluates every bank densely over the N envs and gathers each env's own
-bank, as the JAX package's `PolicyBankDef.act_batch` does.
+PyTorch counterpart of cadre_tpu.models.policy for the device iteration.
+One `PolicyBank` holds the parameters of all command banks of one signal
+(steer or throttle) stacked on a leading command axis; `act_batch` and
+`evaluate_masked` evaluate every bank densely over the batch and keep each
+sample's own bank, as the JAX package's `PolicyBankDef` does.
 
   LSTMCell: torch nn.LSTMCell semantics (gates i, f, g, o; two biases),
             orthogonal weights, zero biases.
@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from cadre_tpu_torch.rl.distributions import (
+    categorical_entropy,
     categorical_log_prob,
     categorical_sample,
 )
@@ -102,19 +103,42 @@ class PolicyBank(nn.Module):
         self.critic_fc2 = BankedLinear(c, hidsize, hidsize, 1.0)
         self.critic_fc3 = BankedLinear(c, hidsize, 1, 1.0)
 
+    def _all_banks(self, obs_seq: torch.Tensor, carry: Carry):
+        """Every bank on every env: (logits [C, N, A], values [C, N],
+        carry ([C, N, F], [C, N, F]))."""
+        h, c = self.lstm.unroll(obs_seq, carry)
+        ctl = self.control
+        x = torch.relu(ctl["fc1"](h))
+        logits_c = ctl["fc3"](torch.relu(ctl["fc2"](x)))
+        v = torch.relu(self.critic_fc1(h))
+        values_c = self.critic_fc3(torch.relu(self.critic_fc2(v)))[..., 0]
+        return logits_c, values_c, (h, c)
+
     def evaluate(self, obs_seq: torch.Tensor, commands: torch.Tensor,
                  carry: Carry):
         """All banks densely, then each env's own: obs_seq [T, N, F],
         commands [N] -> (logits [N, A], value [N], carry ([N, F], [N, F]))."""
-        h, c = self.lstm.unroll(obs_seq, carry)          # [C, N, F]
-        ctl = self.control
-        x = torch.relu(ctl["fc1"](h))
-        logits_c = ctl["fc3"](torch.relu(ctl["fc2"](x)))   # [C, N, A]
-        v = torch.relu(self.critic_fc1(h))
-        values_c = self.critic_fc3(torch.relu(self.critic_fc2(v)))[..., 0]
+        logits_c, values_c, (h, c) = self._all_banks(obs_seq, carry)
         idx = (commands.long(), torch.arange(obs_seq.shape[1],
                                              device=obs_seq.device))
         return logits_c[idx], values_c[idx], (h[idx], c[idx])
+
+    def evaluate_masked(self, obs_seq: torch.Tensor, carry: Carry,
+                        action: torch.Tensor, commands: torch.Tensor):
+        """The update's forward pass (JAX `evaluate_masked`): every bank on
+        every sample, each sample keeping its own bank's terms through a
+        one-hot mask summed over banks, so every bank's parameters get a
+        dense gradient (zero where no sample has its command).
+        obs_seq [T, B, F], carry ([B, F], [B, F]), action and commands [B]
+        -> (value, log_prob, entropy), each [B]."""
+        logits_c, values_c, _ = self._all_banks(obs_seq, carry)
+        lps = categorical_log_prob(logits_c,
+                                   action.expand(logits_c.shape[:2]))
+        ents = categorical_entropy(logits_c)
+        onehot = torch.nn.functional.one_hot(
+            commands.long(), logits_c.shape[0]).to(values_c.dtype).T
+        return ((values_c * onehot).sum(0), (lps * onehot).sum(0),
+                (ents * onehot).sum(0))
 
     def act_batch(self, obs_seq: torch.Tensor, commands: torch.Tensor,
                   carry: Carry, gumbel: torch.Tensor

@@ -3,13 +3,16 @@ steer and throttle policy banks.
 
 PyTorch counterpart of the device-path pieces of cadre_tpu.rl.agent:
 `preprocess_obs`, `latent_features`, `CadreAgent.create` and
-`act_from_hist` (the JAX package's `_act_from_hist`). The PPO update,
-snapshots and the host-env act loops are not ported yet.
+`act_from_hist` (the JAX package's `_act_from_hist`), the PPO
+configuration and the policy snapshots (native torch files; reading the JAX
+package's msgpack snapshots is not ported yet, nor are the host-env act
+loops).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import os
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -17,6 +20,7 @@ from cadre_tpu_torch.configs.agent_config import AgentConfig
 from cadre_tpu_torch.configs.danet_config import DANetParams, danet_params
 from cadre_tpu_torch.models.danet import DANet
 from cadre_tpu_torch.models.policy import Carry, PolicyBank, PolicyOutput
+from cadre_tpu_torch.rl.ppo import PPOConfig
 from cadre_tpu_torch.utils.device import resolve_device
 
 
@@ -55,6 +59,7 @@ class CadreAgent:
     steer: PolicyBank
     throttle: PolicyBank
     device: torch.device
+    ppo_cfg: PPOConfig = dataclasses.field(default_factory=PPOConfig)
 
     @property
     def obs_dim(self) -> int:
@@ -62,7 +67,8 @@ class CadreAgent:
 
     @classmethod
     def create(cls, danet_cfg: Optional[DANetParams] = None,
-               agent_cfg: Optional[AgentConfig] = None, *, seed: int = 0,
+               agent_cfg: Optional[AgentConfig] = None,
+               ppo_cfg: Optional[PPOConfig] = None, *, seed: int = 0,
                bf16_encoder: bool = False, device="cuda") -> "CadreAgent":
         """Random weights from `seed` (the global torch generator is left
         untouched); `bf16_encoder` casts the whole encoder to bf16."""
@@ -82,7 +88,12 @@ class CadreAgent:
             encoder = encoder.to(torch.bfloat16)
         encoder.requires_grad_(False)
         return cls(agent_cfg, danet_cfg, encoder, steer.to(dev),
-                   throttle.to(dev), dev)
+                   throttle.to(dev), dev, ppo_cfg or PPOConfig())
+
+    def policy_parameters(self) -> List[torch.nn.Parameter]:
+        """The parameters of both banks, steer first: what the optimizer
+        and the global-norm clip cover (the encoder is frozen)."""
+        return [*self.steer.parameters(), *self.throttle.parameters()]
 
     def encode(self, obs: dict) -> torch.Tensor:
         """obs (rgb, route_fig, measurements) -> features [N, obs_dim]."""
@@ -102,3 +113,23 @@ class CadreAgent:
                 feat_hist, commands, hidden, throttle_gumbel)
         return steer_out, throttle_out, hidden_s
 
+    def save_snapshot(self, path: str,
+                      opt: Optional[torch.optim.Optimizer] = None) -> None:
+        """Both banks' state dicts to `path` (torch.save); with `opt`, its
+        state dict too, for an exact resume."""
+        tree = {"steer": self.steer.state_dict(),
+                "throttle": self.throttle.state_dict()}
+        if opt is not None:
+            tree["opt"] = opt.state_dict()
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        torch.save(tree, path)
+
+    def load_snapshot(self, path: str,
+                      opt: Optional[torch.optim.Optimizer] = None) -> None:
+        """Load a `save_snapshot` file; with `opt`, restore its state too
+        (the file must hold one)."""
+        tree = torch.load(path, map_location=self.device, weights_only=True)
+        self.steer.load_state_dict(tree["steer"])
+        self.throttle.load_state_dict(tree["throttle"])
+        if opt is not None:
+            opt.load_state_dict(tree["opt"])

@@ -1,18 +1,21 @@
-"""The acting half of the device-resident iteration: a policy driving N
-device envs for T steps on one GPU.
+"""The device-resident training iteration: a policy driving N device envs
+for T steps on one GPU, then the PPO update on what they saw.
 
-PyTorch counterpart of the rollout part of
-cadre_tpu.rl.device_rollout.make_device_iteration: per step, encode the
-newest observation with the frozen CoPM encoder, roll it into the 8-frame
-feature history (re-tiled from the first frame after an auto-reset), act
-with the per-command banks from a zero LSTM carry (the reference's
-behaviour), and step the envs; then one bootstrap evaluation whose values
-are zeroed where the last step ended an episode. The returned buffers are
-the [T+1, N, ...] layout the PPO update reads; the update itself is not
-ported yet.
+PyTorch counterpart of cadre_tpu.rl.device_rollout. `make_device_rollout`
+is the acting half: per step, encode the newest observation with the
+frozen CoPM encoder, roll it into the 8-frame feature history (re-tiled
+from the first frame after an auto-reset), act with the per-command banks
+from a zero LSTM carry (the reference's behaviour), and step the envs; then
+one bootstrap evaluation whose values are zeroed where the last step ended
+an episode. It returns the [T+1, N, ...] buffers the update reads.
+`make_device_iteration` composes it with the fused PPO update
+(rl/fused_update.py), and `train_device` loops iterations with one
+optimizer.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -21,10 +24,14 @@ from cadre_tpu_torch.configs.agent_config import (
     STEER_CONTROL,
     THROTTLE_CONTROL,
     RolloutConfig,
+    TrainConfig,
 )
 from cadre_tpu_torch.envs.torch_env import DrivingEnv, EnvState, StepDraws
 from cadre_tpu_torch.rl.agent import CadreAgent
 from cadre_tpu_torch.rl.distributions import gumbel
+from cadre_tpu_torch.rl.fused_update import Perms, make_fused_iteration_update
+from cadre_tpu_torch.rl.ppo import make_optimizer
+from cadre_tpu_torch.rl.rollout import RolloutBuffer
 
 
 class DeviceCarry(NamedTuple):
@@ -44,20 +51,6 @@ class ActDraws(NamedTuple):
     env: StepDraws
 
 
-class RolloutBuffer(NamedTuple):
-    """[T+1, N, ...] storage of one signal; slot T is zero padding."""
-
-    obs: torch.Tensor              # [T+1, N, seq, F]
-    action: torch.Tensor
-    log_prob: torch.Tensor
-    value: torch.Tensor
-    reward: torch.Tensor
-    mask: torch.Tensor             # 1 - action_done of the signal
-    command: torch.Tensor
-    hn: torch.Tensor               # [T+1, N, F]
-    cn: torch.Tensor
-
-
 class RolloutMetrics(NamedTuple):
     mean_steer_reward: torch.Tensor
     mean_throttle_reward: torch.Tensor
@@ -66,6 +59,20 @@ class RolloutMetrics(NamedTuple):
     error_hist: torch.Tensor       # [10] done-step counts per error code
     red_lights: torch.Tensor       # red-light infractions of done episodes
     checksum: torch.Tensor         # data-dependent scalar
+
+
+class IterationMetrics(NamedTuple):
+    value_loss: torch.Tensor
+    policy_loss: torch.Tensor
+    entropy_loss: torch.Tensor
+    mean_steer_reward: torch.Tensor
+    mean_throttle_reward: torch.Tensor
+    episodes_done: torch.Tensor
+    completion_sum: torch.Tensor   # sum of completion at done steps
+    error_hist: torch.Tensor       # [10] done-step counts per error code
+    red_lights: torch.Tensor       # red-light infractions of done episodes
+    checksum: torch.Tensor         # rewards + the first policy leaf's sum
+    rollout_seconds: float         # host clock, rollout half synchronised
 
 
 def advance_hist(feat_hist: torch.Tensor, feats: torch.Tensor,
@@ -191,3 +198,104 @@ def make_device_rollout(agent: CadreAgent, env: DrivingEnv,
                 steer_buf, throttle_buf, next_values, metrics)
 
     return rollout, init_carry
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def make_device_iteration(agent: CadreAgent, env: DrivingEnv,
+                          rollout_cfg: Optional[RolloutConfig] = None,
+                          train_cfg: Optional[TrainConfig] = None,
+                          seed: int = 0):
+    """Returns (iteration, init_carry):
+
+    init_carry(draws=None) -> DeviceCarry
+    iteration(opt, carry, draws=None, perms=None) -> (carry,
+        IterationMetrics); the banks' parameters and `opt` (from
+        `make_optimizer(agent.policy_parameters(), agent.ppo_cfg)`) are
+        updated in place.
+
+    One iteration is a T-step rollout and the fused PPO update on its
+    buffers. `draws` (T ActDraws) and `perms` ((steer, throttle) [E*M, B]
+    row indices) replace the generators, which are seeded from `seed`.
+    The update runs agent.ppo_cfg with ppo_epoch from `train_cfg` and
+    gamma / tau from `rollout_cfg`, as the JAX iteration does.
+    """
+    rollout_cfg = rollout_cfg or RolloutConfig()
+    train_cfg = train_cfg or TrainConfig()
+    ppo_cfg = dataclasses.replace(agent.ppo_cfg,
+                                  ppo_epoch=train_cfg.ppo_epoch,
+                                  gamma=rollout_cfg.gamma,
+                                  tau=rollout_cfg.tau)
+    rollout, init_carry = make_device_rollout(agent, env, rollout_cfg, seed)
+    update = make_fused_iteration_update(agent.steer, agent.throttle,
+                                         ppo_cfg, rollout_cfg, seed)
+
+    def iteration(opt: torch.optim.Optimizer, carry: DeviceCarry,
+                  draws: Optional[Sequence[ActDraws]] = None,
+                  perms: Optional[Perms] = None):
+        t0 = time.perf_counter()
+        carry, steer_buf, throttle_buf, next_values, m = rollout(carry, draws)
+        _sync(agent.device)
+        rollout_seconds = time.perf_counter() - t0
+        aux = update(opt, steer_buf, throttle_buf, next_values, perms)
+        with torch.no_grad():
+            # the JAX checksum's first params leaf: steer control fc1 bias
+            checksum = (steer_buf.reward.sum() + throttle_buf.reward.sum()
+                        + agent.steer.control["fc1"].bias.sum())
+        metrics = IterationMetrics(
+            value_loss=aux.value_loss, policy_loss=aux.action_loss,
+            entropy_loss=aux.entropy_loss,
+            mean_steer_reward=m.mean_steer_reward,
+            mean_throttle_reward=m.mean_throttle_reward,
+            episodes_done=m.episodes_done, completion_sum=m.completion_sum,
+            error_hist=m.error_hist, red_lights=m.red_lights,
+            checksum=checksum, rollout_seconds=rollout_seconds)
+        return carry, metrics
+
+    return iteration, init_carry
+
+
+def train_device(agent: CadreAgent, env: DrivingEnv, iterations: int = 10,
+                 rollout_cfg: Optional[RolloutConfig] = None,
+                 train_cfg: Optional[TrainConfig] = None,
+                 seed: int = 0, log_fn=print
+                 ) -> Tuple[torch.optim.Optimizer, List[dict]]:
+    """Train the agent's banks in place for `iterations` iterations with
+    one optimizer (Adam at agent.ppo_cfg.lr, clip at its max_grad_norm).
+    Returns (the optimizer, one metrics row per iteration); each row is
+    timed to the device's end by reading the iteration's checksum."""
+    rollout_cfg = rollout_cfg or RolloutConfig()
+    iteration, init_carry = make_device_iteration(agent, env, rollout_cfg,
+                                                  train_cfg, seed)
+    opt = make_optimizer(agent.policy_parameters(), agent.ppo_cfg)
+    carry = init_carry()
+    steps_per_iter = rollout_cfg.num_steps * env.num_envs
+    out = []
+    for i in range(iterations):
+        t0 = time.perf_counter()
+        carry, m = iteration(opt, carry)
+        checksum = float(m.checksum)            # waits for the device
+        dt = time.perf_counter() - t0
+        episodes = float(m.episodes_done)
+        row = dict(iteration=i, env_steps_per_sec=steps_per_iter / dt,
+                   rollout_seconds=m.rollout_seconds,
+                   update_seconds=dt - m.rollout_seconds,
+                   value_loss=float(m.value_loss),
+                   policy_loss=float(m.policy_loss),
+                   entropy_loss=float(m.entropy_loss),
+                   episodes_done=episodes,
+                   mean_completion=float(m.completion_sum)
+                   / max(episodes, 1.0),
+                   steer_reward=float(m.mean_steer_reward),
+                   throttle_reward=float(m.mean_throttle_reward),
+                   checksum=checksum)
+        out.append(row)
+        if log_fn is not None:
+            log_fn(f"device iter {i}: {row['env_steps_per_sec']:.0f} "
+                   f"env-steps/s, value {row['value_loss']:.4f}, "
+                   f"eps {row['episodes_done']:.0f}, "
+                   f"completion {row['mean_completion']:.2%}")
+    return opt, out

@@ -1,0 +1,92 @@
+"""The whole-iteration PPO update on one device.
+
+PyTorch counterpart of the unsharded path of
+cadre_tpu.rl.fused_update.make_fused_iteration_update: GAE for both
+signals, advantage normalisation, ppo_epoch x mini_batch_num minibatch
+steps over epoch-major row permutations (separate ones for steer and
+throttle, remainder rows dropped), each a gather, the loss, the gradients
+of both banks, a global-norm clip and an Adam step; then the means of the
+loss terms over every step. Nothing reads a device value back on the host,
+so the loop issues its work without waiting for the device.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from cadre_tpu_torch.configs.agent_config import RolloutConfig
+from cadre_tpu_torch.models.policy import PolicyBank
+from cadre_tpu_torch.rl.ppo import LossAux, PPOConfig, update_step
+from cadre_tpu_torch.rl.rollout import (
+    RolloutBuffer,
+    batched_returns,
+    gather_minibatch_batched,
+    normalize_advantages,
+)
+
+Perms = Tuple[torch.Tensor, torch.Tensor]   # (steer, throttle) [E*M, B]
+
+
+def minibatch_layout(total_rows: int, mini_batch_num: int) -> Tuple[int, int]:
+    """(minibatches per epoch, rows per minibatch); the remainder of
+    total_rows is dropped."""
+    eff_mb = min(mini_batch_num, total_rows)
+    return eff_mb, total_rows // eff_mb
+
+
+def make_perms(n_epochs: int, total_rows: int, mini_batch_num: int,
+               generator: torch.Generator, device) -> torch.Tensor:
+    """One row permutation per epoch, cut into minibatches: [E*M, B]."""
+    eff_mb, mb_size = minibatch_layout(total_rows, mini_batch_num)
+    perms = torch.stack([
+        torch.randperm(total_rows, generator=generator, device=device)
+        for _ in range(n_epochs)])
+    return perms[:, :mb_size * eff_mb].reshape(n_epochs * eff_mb, mb_size)
+
+
+def make_fused_iteration_update(steer: PolicyBank, throttle: PolicyBank,
+                                cfg: PPOConfig, rollout_cfg: RolloutConfig,
+                                seed: int = 0) -> Callable:
+    """Returns
+    update(opt, steer_buf, throttle_buf, next_values, perms=None) -> LossAux
+    of means over every minibatch step; the banks' parameters and `opt`'s
+    state are updated in place.
+
+    `perms` (steer, throttle) [E*M, B] int64 row indices replace the
+    permutations, which otherwise come from a generator on the banks'
+    device seeded from `seed`. The minibatch count is
+    rollout_cfg.mini_batch_num; the epoch count, clip, coefficients, gamma
+    and tau come from `cfg`.
+    """
+    device = next(steer.parameters()).device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(np.random.SeedSequence([seed, 1]).generate_state(1)[0]))
+
+    def update(opt: torch.optim.Optimizer, steer_buf: RolloutBuffer,
+               throttle_buf: RolloutBuffer,
+               next_values: Tuple[torch.Tensor, torch.Tensor],
+               perms: Optional[Perms] = None) -> LossAux:
+        next_steer, next_throttle = next_values
+        s_ret, s_adv = batched_returns(steer_buf, next_steer, cfg.gamma,
+                                       cfg.tau)
+        t_ret, t_adv = batched_returns(throttle_buf, next_throttle,
+                                       cfg.gamma, cfg.tau)
+        s_adv = normalize_advantages(s_adv)
+        t_adv = normalize_advantages(t_adv)
+        if perms is None:
+            total_rows = steer_buf.num_steps * steer_buf.num_envs
+            perms = tuple(make_perms(cfg.ppo_epoch, total_rows,
+                                     rollout_cfg.mini_batch_num, gen, device)
+                          for _ in range(2))
+        s_idx, t_idx = perms
+        auxes = []
+        for si, ti in zip(s_idx, t_idx):
+            s_mb = gather_minibatch_batched(steer_buf, s_ret, s_adv, si)
+            t_mb = gather_minibatch_batched(throttle_buf, t_ret, t_adv, ti)
+            auxes.append(torch.stack(update_step(steer, throttle, opt, s_mb,
+                                                 t_mb, cfg)))
+        return LossAux(*torch.stack(auxes).mean(dim=0))
+
+    return update

@@ -13,9 +13,14 @@ Phases, each of which must pass:
      every shape the port calls it with; timings against each kernel's
      bound and, for dual attention, a one-call PyTorch yardstick;
   4. the main path: a bf16 CoPM agent at production width drives 32 device
-     envs for a 20-step rollout, with every kernel's launch count read
-     around that one run;
-  5. the CUDA path against the CPU path of the same port on a small input.
+     envs for a 20-step rollout, then trains one whole iteration at
+     production size (T=200, 4 PPO epochs of 2 minibatches) after a T=2
+     warm-up iteration, with every kernel's launch count read around each
+     of those two runs; a profile of one update;
+  5. the CUDA path against the CPU path of the same port on a small input:
+     rollout pieces and one fused PPO update;
+  6. the training CLI, `python -m cadre_tpu_torch.main --env jax`, for two
+     iterations of 32 envs x 20 steps, and its snapshot read back.
 
 It prints one JSON line of kernel figures, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -44,6 +49,9 @@ BF16_TC_FLOPS = 989e12
 
 N_ENVS = 32
 T_STEPS = 20
+# the training iteration's steps: RolloutConfig's default and the shape of
+# the JAX package's scripts/bench_device_env.py::bench_train
+T_TRAIN = 200
 # bf16 kernel vs plain: both round the same f32 sums, in another order, so
 # an attention weight or the residual may land one bf16 step apart; bound
 # the difference in bf16 units in the last place of max(|plain|, |x|).
@@ -548,8 +556,8 @@ def _finite(name, t):
 
 
 def phase_slice():
-    """The main path at production width; returns the launch counts of
-    the one counted rollout."""
+    """The main path at production width: a counted rollout, then one
+    counted training iteration; returns the iteration's launch counts."""
     import torch
 
     from cadre_tpu_torch.configs.agent_config import RolloutConfig
@@ -583,11 +591,10 @@ def phase_slice():
     launches = {"paint": paint.launches,
                 "dual_attention": dual_attention.launches}
 
-    require(launches["paint"] >= 2 * T_STEPS,
-            f"paint launched {launches['paint']} < {2 * T_STEPS} times")
-    require(launches["dual_attention"] >= T_STEPS + 1,
-            f"dual_attention launched {launches['dual_attention']} < "
-            f"{T_STEPS + 1} times")
+    require(launches["paint"] == 2 * T_STEPS
+            and launches["dual_attention"] == T_STEPS + 1,
+            f"rollout launches {launches}, not {2 * T_STEPS} / "
+            f"{T_STEPS + 1}")
     f = agent.obs_dim
     require(tuple(steer.obs.shape) == (T_STEPS + 1, N_ENVS, 8, f),
             f"steer buffer obs {tuple(steer.obs.shape)}")
@@ -622,12 +629,23 @@ def phase_slice():
     short, _ = make_device_rollout(agent, env,
                                    RolloutConfig(num_steps=prof_steps),
                                    seed=2)
+    carry = profile(lambda: short(carry)[0], f"{prof_steps} steps",
+                    prof_steps, "step")
+    return train_iteration(agent, env, carry, (steer, throttle))
+
+
+def profile(fn, what: str, per: int, unit: str):
+    """Run fn() once under torch.profiler; print the wall time, the
+    device's busy time and idle share, its op count per `unit` (`per` of
+    them in the run) and the top ops. Returns fn()'s result."""
+    import torch
+
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        carry = short(carry)[0]
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only (kernels, copies): the aten ops that launch
@@ -636,14 +654,118 @@ def phase_slice():
     rows = [e for e in prof.key_averages() if e.device_type == cuda]
     busy_us = sum(e.self_device_time_total for e in rows)
     kernels = sum(e.count for e in rows)
-    print(f"[4] profile of {prof_steps} steps: wall {wall * 1e3:.1f} ms, "
+    require(busy_us > 0, f"profile of {what}: no device time")
+    print(f"[4] profile of {what}: wall {wall * 1e3:.1f} ms, "
           f"device busy {busy_us / 1e3:.1f} ms "
           f"({100.0 * (1 - busy_us / 1e6 / wall):.1f}% idle), "
-          f"{kernels} device ops, {kernels / prof_steps:.0f} per step")
+          f"{kernels} device ops, {kernels / per:.0f} per {unit}")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:12]:
         print(f"[4]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x {e.key[:80]}")
+    return out
+
+
+def _tile_buffer(buf, t):
+    """A RolloutBuffer's steps repeated up to t steps, zero slot after."""
+    import torch
+
+    reps = -(-t // buf.num_steps)
+
+    def tile(x):
+        x = x[:-1].repeat(reps, *([1] * (x.dim() - 1)))[:t]
+        return torch.cat([x, torch.zeros_like(x[:1])])
+
+    return type(buf)(*(tile(x) for x in buf))
+
+
+def train_iteration(agent, env, carry, bufs):
+    """One whole training iteration at production size (T_TRAIN steps of
+    N_ENVS envs, TrainConfig's 4 epochs of RolloutConfig's 2 minibatches)
+    after a T=2 warm-up iteration; then a profile of one update on the
+    T_STEPS rollout's buffers `bufs` tiled to T_TRAIN. Returns the launch
+    counts of the counted iteration."""
+    import dataclasses
+
+    import torch
+
+    from cadre_tpu_torch.configs.agent_config import (
+        RolloutConfig,
+        TrainConfig,
+    )
+    from cadre_tpu_torch.ops import dual_attention, paint
+    from cadre_tpu_torch.rl.device_rollout import make_device_iteration
+    from cadre_tpu_torch.rl.fused_update import (
+        make_fused_iteration_update,
+        minibatch_layout,
+    )
+    from cadre_tpu_torch.rl.ppo import make_optimizer
+
+    train_cfg, rollout_cfg = TrainConfig(), RolloutConfig(num_steps=T_TRAIN)
+    opt = make_optimizer(agent.policy_parameters(), agent.ppo_cfg)
+    warm, _ = make_device_iteration(agent, env, RolloutConfig(num_steps=2),
+                                    train_cfg, seed=3)
+    t0 = time.perf_counter()
+    carry, m = warm(opt, carry)
+    float(m.checksum)
+    print(f"[4] warm-up iteration T=2: {time.perf_counter() - t0:.2f} s")
+
+    iteration, _ = make_device_iteration(agent, env, rollout_cfg, train_cfg,
+                                         seed=4)
+    before = [p.detach().clone() for p in agent.policy_parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paint.launches = 0
+    dual_attention.launches = 0
+    t0 = time.perf_counter()
+    carry, m = iteration(opt, carry)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"paint": paint.launches,
+                "dual_attention": dual_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    require(launches["paint"] == 2 * T_TRAIN
+            and launches["dual_attention"] == T_TRAIN + 1,
+            f"iteration launches {launches}, not {2 * T_TRAIN} / "
+            f"{T_TRAIN + 1}")
+    for name, t in m._asdict().items():
+        if isinstance(t, torch.Tensor):
+            _finite(name, t)
+    params = agent.policy_parameters()
+    for i, p in enumerate(params):
+        _finite(f"policy parameter {i}", p.detach())
+    moved = sum(not torch.equal(a, b.detach()) for a, b in zip(before, params))
+    require(moved == len(params),
+            f"only {moved} of {len(params)} policy tensors moved")
+    steps = T_TRAIN * N_ENVS
+    eff_mb, mb_rows = minibatch_layout(steps, rollout_cfg.mini_batch_num)
+    print(f"[4] iteration N={N_ENVS} T={T_TRAIN} E={train_cfg.ppo_epoch} "
+          f"M={eff_mb} ({mb_rows} rows per minibatch): {seconds:.3f} s, "
+          f"{steps / seconds:.1f} env-steps/s; rollout "
+          f"{m.rollout_seconds:.3f} s ({steps / m.rollout_seconds:.1f} "
+          f"env-steps/s), update {seconds - m.rollout_seconds:.3f} s; peak "
+          f"memory allocated {peak / 2**30:.2f} GiB; losses value "
+          f"{float(m.value_loss):.5f} policy {float(m.policy_loss):.5f} "
+          f"entropy {float(m.entropy_loss):.5f}; episodes_done "
+          f"{float(m.episodes_done):.0f}; launches {launches}")
+
+    ppo_cfg = dataclasses.replace(agent.ppo_cfg,
+                                  ppo_epoch=train_cfg.ppo_epoch)
+    update = make_fused_iteration_update(agent.steer, agent.throttle,
+                                         ppo_cfg, rollout_cfg, seed=5)
+    steer, throttle = (_tile_buffer(b, T_TRAIN) for b in bufs)
+    zeros = torch.zeros(N_ENVS, device=steer.obs.device)
+    n_steps = train_cfg.ppo_epoch * eff_mb
+    paint.launches = 0
+    dual_attention.launches = 0
+    aux = profile(lambda: update(opt, steer, throttle, (zeros, zeros)),
+                  f"one update (T={T_TRAIN}, {n_steps} minibatch steps)",
+                  n_steps, "minibatch step")
+    require(paint.launches == 0 and dual_attention.launches == 0,
+            "the update launched a kernel")
+    for name, t in aux._asdict().items():
+        _finite(f"update {name}", t)
     return launches
 
 
@@ -712,6 +834,130 @@ def phase_cpu_agreement():
     print(f"[5] cuda vs cpu, small f32 agent: latent max|err| {err:.3g} "
           f"(scale {scale:.3g}, bound 1e-3 x scale); 3 env steps: {worst} "
           f"(bounds 1e-3, 1e-3, 0.5% px, 0.5% px)")
+    update_agreement()
+
+
+def update_agreement():
+    """One fused PPO update (E=2, M=2) of small f32 banks on the card and
+    on the CPU, from the same weights, buffers and permutations: LossAux
+    within 1e-5 relative, every updated tensor within 1% of the largest
+    change the CPU update made to it."""
+    import numpy as np
+    import torch
+
+    from cadre_tpu_torch.configs.agent_config import RolloutConfig
+    from cadre_tpu_torch.models.policy import PolicyBank
+    from cadre_tpu_torch.rl.fused_update import make_fused_iteration_update
+    from cadre_tpu_torch.rl.ppo import PPOConfig, make_optimizer
+    from cadre_tpu_torch.rl.rollout import RolloutBuffer
+
+    f, t, n, seq, epochs, mbs = 50, 6, 4, 3, 2, 2
+    rng = np.random.RandomState(11)
+
+    def arrays(n_out):
+        a = dict(obs=rng.standard_normal((t, n, seq, f)),
+                 action=rng.randint(0, n_out, (t, n)),
+                 log_prob=-np.abs(rng.standard_normal((t, n))) - 0.5,
+                 value=0.1 * rng.standard_normal((t, n)),
+                 reward=rng.standard_normal((t, n)),
+                 mask=(rng.rand(t, n) > 0.25).astype(np.float64),
+                 command=rng.randint(0, 4, (t, n)),
+                 hn=0.5 * rng.standard_normal((t, n, f)),
+                 cn=0.5 * rng.standard_normal((t, n, f)))
+        return {k: np.concatenate([v, np.zeros_like(v[:1])])
+                for k, v in a.items()}
+
+    data = {"steer": arrays(33), "throttle": arrays(3)}
+    nv = rng.standard_normal((2, n))
+    perms = [np.stack([rng.permutation(t * n)[:t * n // mbs * mbs]
+                       .reshape(mbs, -1) for _ in range(epochs)])
+             .reshape(epochs * mbs, -1) for _ in range(2)]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(12)
+        init = {s: PolicyBank(4, a, f).state_dict()
+                for s, a in (("steer", 33), ("throttle", 3))}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        def tensor(x):
+            return torch.as_tensor(x, dtype=torch.int64 if x.dtype.kind
+                                   == "i" else torch.float32, device=dev)
+
+        banks = {}
+        for s, a in (("steer", 33), ("throttle", 3)):
+            banks[s] = PolicyBank(4, a, f).to(dev)
+            banks[s].load_state_dict(init[s])
+        update = make_fused_iteration_update(
+            banks["steer"], banks["throttle"], PPOConfig(ppo_epoch=epochs),
+            RolloutConfig(num_steps=t, mini_batch_num=mbs, seq_length=seq,
+                          feature_dims=f))
+        opt = make_optimizer([*banks["steer"].parameters(),
+                              *banks["throttle"].parameters()], PPOConfig())
+        aux = update(opt, *(RolloutBuffer(**{k: tensor(v) for k, v in
+                                            data[s].items()})
+                            for s in ("steer", "throttle")),
+                     (tensor(nv[0]), tensor(nv[1])),
+                     tuple(tensor(p) for p in perms))
+        out[dev] = ([float(x) for x in aux],
+                    {(s, k): v.cpu() for s in banks
+                     for k, v in banks[s].state_dict().items()})
+    (aux_c, p_c), (aux_g, p_g) = out["cpu"], out["cuda"]
+    aux_err = max(abs(g - c) / max(abs(c), 1e-30)
+                  for g, c in zip(aux_g, aux_c))
+    require(aux_err <= 1e-5, f"update cuda vs cpu: LossAux {aux_g} vs "
+            f"{aux_c}, {aux_err:.3g} relative > 1e-5")
+    worst = 0.0
+    for key, c in p_c.items():
+        before = init[key[0]][key[1]]
+        change = float((c - before).abs().max())
+        require(change > 0, f"update cuda vs cpu: {key} did not move")
+        worst = max(worst, float((p_g[key] - c).abs().max()) / change)
+    require(worst <= 0.01, f"update cuda vs cpu: a tensor {worst:.3g} of "
+            f"its largest change from the CPU's > 0.01")
+    print(f"[5] cuda vs cpu, one fused update (f={f}, T={t}, N={n}, E="
+          f"{epochs}, M={mbs}): LossAux {aux_err:.3g} relative (bound "
+          f"1e-5); parameters at most {worst:.3g} of each tensor's largest "
+          f"change (bound 0.01)")
+
+
+# ---------------------------------------------------------------- phase 6
+
+def phase_cli():
+    """The training CLI at production width for two short iterations, in
+    its own process; its snapshot must load into a fresh agent."""
+    import os
+    import shutil
+
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.rl.agent import CadreAgent
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    cmd = [sys.executable, "-m", "cadre_tpu_torch.main", "--env", "jax",
+           "--num-envs", str(N_ENVS), "--num-steps", str(T_STEPS),
+           "--iterations", "2", "--work-dir", work]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    seconds = time.perf_counter() - t0
+    require(out.returncode == 0, f"the CLI exited {out.returncode}: "
+            f"{out.stderr[-3000:]}")
+    for line in out.stdout.strip().splitlines():
+        print(f"[6]   {line}")
+    path = os.path.join(work, "models", "ppo_model_2.pt")
+    require(os.path.exists(path), f"the CLI wrote no {path}")
+    agent = CadreAgent.create(danet_params(), seed=1, device="cuda")
+    agent.load_snapshot(path)
+    saved = torch.load(path, map_location="cuda", weights_only=True)
+    for name in ("steer", "throttle"):
+        for k, v in getattr(agent, name).state_dict().items():
+            require(torch.equal(v, saved[name][k]),
+                    f"snapshot {name}.{k} did not load back equal")
+    print(f"[6] python -m cadre_tpu_torch.main --env jax --num-envs "
+          f"{N_ENVS} --num-steps {T_STEPS} --iterations 2: exit 0 in "
+          f"{seconds:.1f} s; {os.path.relpath(path, root)} loads back equal")
 
 
 # ------------------------------------------- kernel times of checkouts
@@ -851,6 +1097,7 @@ def main(argv) -> int:
         kernels = phase_kernels()
         launches = phase_slice()
         phase_cpu_agreement()
+        phase_cli()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

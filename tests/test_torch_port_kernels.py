@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import chip_smoke
+from test_torch_port_slice import few_torch_threads  # noqa: F401 (autouse)
 from cadre_tpu.envs import jax_env
 from cadre_tpu.ops import dual_attention as jda
 from cadre_tpu.ops import paint as jpaint

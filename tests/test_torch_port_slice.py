@@ -8,12 +8,15 @@ Tolerances are stated per test; the env's images may differ at a small
 share of shape-boundary pixels where the two frameworks' trig differs in
 the last ulp.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from cadre_tpu.configs.agent_config import AgentConfig as JaxAgentConfig
 from cadre_tpu.configs.agent_config import STEER_CONTROL, THROTTLE_CONTROL
 from cadre_tpu.configs.danet_config import danet_params as jax_danet_params
 from cadre_tpu.envs import jax_env
@@ -23,6 +26,7 @@ from cadre_tpu.models.policy import PolicyBankDef
 from cadre_tpu.rl.agent import CadreAgent as JaxAgent
 from cadre_tpu.rl.agent import latent_features as jax_latent
 from cadre_tpu.rl.agent import preprocess_obs as jax_preprocess
+from cadre_tpu.rl.ppo import PPOConfig as JaxPPOConfig
 from cadre_tpu_torch.configs.agent_config import RolloutConfig
 from cadre_tpu_torch.configs.danet_config import danet_params
 from cadre_tpu_torch.envs import torch_env
@@ -38,6 +42,17 @@ from cadre_tpu_torch.utils.convert import (
 )
 
 SMALL = dict(da_feature_channel=32, inter_att_dims=24, z_dims=16)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_torch_threads():
+    """Two intra-op threads for this module's torch work: the suite runs
+    several worker processes, each beside JAX's own thread pool, and
+    torch's default of one thread per core oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -187,14 +202,18 @@ def jax_reset_draws(cfg, n_routes, key, n):
     return _torch_draws(reset, noise)
 
 
-def jax_step_draws(cfg, n_routes, rng):
-    """Port draws equal to what JaxDrivingEnv.step uses from state.rng."""
+@functools.lru_cache(maxsize=None)
+def _step_draws_fn(cfg, n_routes):
     def one(key):
         _, k_reset, k_noise = jax.random.split(key, 3)
         return _reset_draws_one(cfg, n_routes, k_reset)[1], _noise(k_noise)
 
-    reset, noise = jax.vmap(one)(rng)
-    return _torch_draws(reset, noise)
+    return jax.jit(jax.vmap(one))
+
+
+def jax_step_draws(cfg, n_routes, rng):
+    """Port draws equal to what JaxDrivingEnv.step uses from state.rng."""
+    return _torch_draws(*_step_draws_fn(cfg, n_routes)(rng))
 
 
 def _assert_obs_close(ours, ref, what, max_px_share=0.005):
@@ -284,14 +303,33 @@ def test_env_reset_and_steps_match_jax(variant):
 
 # ---------------------------------------------------------------- slice
 
-def test_slice_three_steps_match_jax():
-    """render -> encode -> act -> step for 3 steps at N=2, small encoder in
-    f32: the port's rollout buffers against the JAX pieces step by step.
-    Features, log-probs and values within 1e-4 of their scale, actions and
-    done equal, rewards within 1e-3."""
-    n, t_steps = 2, 3
-    jagent = JaxAgent.create(jax.random.PRNGKey(0),
-                             danet_cfg=jax_danet_params(**SMALL))
+def jax_agent(seed=0):
+    """The agent JaxAgent.create makes with the small encoder, its
+    initialisation jitted: flax's eager init compiles every op alone."""
+    dcfg = jax_danet_params(**SMALL)
+    acfg = JaxAgentConfig()
+    f = dcfg.latent_dim + acfg.measurement_dim
+    steer, throttle = (PolicyBankDef(acfg.command_num, a, f) for a in
+                       (acfg.num_steer_outputs, acfg.num_throttle_outputs))
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(seed), 3)
+    danet_vars, params = jax.jit(lambda: (
+        create_danet(dcfg, k1)[1],
+        {"steer": steer.init_params(k2),
+         "throttle": throttle.init_params(k3)}))()
+    return JaxAgent(agent_cfg=acfg, danet_cfg=dcfg,
+                    danet=JaxDANet(params_cfg=dcfg), danet_vars=danet_vars,
+                    steer_def=steer, throttle_def=throttle, params=params,
+                    ppo_cfg=JaxPPOConfig())
+
+
+def three_step_reference(n=2, t_steps=3):
+    """The JAX pieces of the acting slice, step by step: render -> encode
+    -> act -> step for `t_steps` steps at N=`n`, small encoder in f32,
+    perturbed weights; env 0 times out on the first step, so its history is
+    re-tiled. Returns the JAX agent, weights, env, per-step outputs and
+    commands, the port's draws for the same steps and the state after the
+    last step."""
+    jagent = jax_agent()
     vnp = _perturb(_np(jagent.danet_vars), np.random.RandomState(0))
     pnp = {s: _perturb(_np(jagent.params[s]), np.random.RandomState(i + 1))
            for i, s in enumerate(("steer", "throttle"))}
@@ -303,7 +341,6 @@ def test_slice_three_steps_match_jax():
     jenv = jax_env.JaxDrivingEnv(jbank, n, cfg)
     key = jax.random.PRNGKey(7)
     jstate, obs = jenv.reset(key)
-    # env 0 times out on the first step, so its history is re-tiled
     jstate = jstate._replace(step=jstate.step.at[0].set(100000))
     jstate0 = jstate
 
@@ -317,7 +354,8 @@ def test_slice_three_steps_match_jax():
     zeros = (jnp.zeros((n, f)), jnp.zeros((n, f)))
     steer_lut = jnp.asarray(STEER_CONTROL, jnp.float32)
     throttle_lut = jnp.asarray(THROTTLE_CONTROL, jnp.float32)
-    ref, draws = [], []
+    act = jax.jit(jagent._act_from_hist)
+    ref, draws, commands = [], [], []
     for t in range(t_steps):
         feats = encode(obs)
         rolled = jnp.concatenate([feat_hist[1:], feats[None]], axis=0)
@@ -325,8 +363,8 @@ def test_slice_three_steps_match_jax():
                               jnp.broadcast_to(feats[None], feat_hist.shape),
                               rolled)
         k = jax.random.PRNGKey(100 + t)
-        s_out, t_out, _ = jagent._act_from_hist(jparams, feat_hist,
-                                                obs["command"], zeros, k)
+        commands.append(obs["command"])
+        s_out, t_out, _ = act(jparams, feat_hist, obs["command"], zeros, k)
         rs, rt = jax.random.split(k)
         step_draws = jax_step_draws(cfg, 3, jstate.rng)
         controls = jnp.concatenate([steer_lut[s_out.action][:, None],
@@ -341,22 +379,45 @@ def test_slice_three_steps_match_jax():
             torch.from_numpy(np.array(jax.random.gumbel(rs, (n, 33)))),
             torch.from_numpy(np.array(jax.random.gumbel(rt, (n, 3)))),
             step_draws))
+    return dict(jagent=jagent, vnp=vnp, pnp=pnp, jparams=jparams,
+                encode=encode, act=act, cfg=cfg, jbank=jbank, key=key,
+                jstate0=jstate0, ref=ref, draws=draws, commands=commands,
+                obs=obs,
+                feat_hist=feat_hist, done_prev=done_prev)
 
+
+def port_agent_and_carry(r, rollout_cfg, make=make_device_rollout, **kw):
+    """The port's agent and env with the reference's weights, and `make`'s
+    (step fn, init_carry) with its carry started from the reference's
+    reset and initial state."""
+    n = r["done_prev"].shape[0]
     agent = CadreAgent.create(danet_params(**SMALL), device="cpu")
-    agent.encoder.load_state_dict(danet_from_flax(vnp, agent.danet_cfg))
-    agent.steer.load_state_dict(policy_from_flax(pnp["steer"]))
-    agent.throttle.load_state_dict(policy_from_flax(pnp["throttle"]))
-    bank = route_bank_from_numpy(_np(jbank._asdict()))
+    agent.encoder.load_state_dict(danet_from_flax(r["vnp"], agent.danet_cfg))
+    agent.steer.load_state_dict(policy_from_flax(r["pnp"]["steer"]))
+    agent.throttle.load_state_dict(policy_from_flax(r["pnp"]["throttle"]))
+    bank = route_bank_from_numpy(_np(r["jbank"]._asdict()))
     env = torch_env.DrivingEnv(bank, n, device="cpu")
-    rollout, init_carry = make_device_rollout(
-        agent, env, RolloutConfig(num_steps=t_steps))
-    carry = init_carry(jax_reset_draws(cfg, 3, key, n))
+    fn, init_carry = make(agent, env, rollout_cfg, **kw)
+    carry = init_carry(jax_reset_draws(r["cfg"], 3, r["key"], n))
     carry = carry._replace(
-        env_state=env_state_from_numpy(_state_dict(jstate0)))
-    carry, steer_buf, throttle_buf, _, metrics = rollout(carry, draws)
+        env_state=env_state_from_numpy(_state_dict(r["jstate0"])))
+    return agent, fn, carry
 
+
+def test_slice_three_steps_match_jax():
+    """render -> encode -> act -> step for 3 steps at N=2, small encoder in
+    f32: the port's rollout buffers against the JAX pieces step by step.
+    Features, log-probs and values within 1e-4 of their scale, actions and
+    done equal, rewards within 1e-3."""
+    n, t_steps = 2, 3
+    r = three_step_reference(n, t_steps)
+    _, rollout, carry = port_agent_and_carry(
+        r, RolloutConfig(num_steps=t_steps))
+    carry, steer_buf, throttle_buf, _, metrics = rollout(carry, r["draws"])
+
+    f = r["jagent"].obs_dim
     assert steer_buf.obs.shape == (t_steps + 1, n, 8, f)
-    for t, (hist, s_out, t_out, out) in enumerate(ref):
+    for t, (hist, s_out, t_out, out) in enumerate(r["ref"]):
         _rel_close(steer_buf.obs[t].numpy(), hist, 1e-4)
         for buf, o in ((steer_buf, s_out), (throttle_buf, t_out)):
             np.testing.assert_array_equal(buf.action[t].numpy(),
