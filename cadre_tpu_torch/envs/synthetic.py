@@ -1,8 +1,8 @@
 """Host-side world constants and generators of the synthetic route bank.
 
 numpy copies of what the device env's bank builder reads from the JAX
-package's host modules (route_fig, sim_env, traffic_lights, route_parser),
-so that `make_route_bank` draws the same numbers from the same seed.
+package's host modules (route_fig, sim_env, traffic_lights, scenarios), so
+that `make_route_bank` draws the same numbers from the same seed.
 """
 from __future__ import annotations
 
@@ -70,22 +70,6 @@ def synthetic_route(rng: np.random.RandomState, n_legs: int = 3,
     return np.asarray(pts)
 
 
-def interpolate_route(points: np.ndarray, resolution: float = 1.0
-                      ) -> np.ndarray:
-    """Densify a keypoint polyline to about `resolution`-meter spacing."""
-    pts = np.asarray(points, dtype=np.float64)
-    if len(pts) < 2:
-        return pts
-    out = [pts[0]]
-    for a, b in zip(pts[:-1], pts[1:]):
-        seg = b - a
-        dist = float(np.hypot(*seg))
-        n = max(1, int(dist // resolution))
-        for i in range(1, n + 1):
-            out.append(a + seg * (i / n))
-    return np.asarray(out)
-
-
 def roadside_props(dense: np.ndarray, rng: np.random.RandomState,
                    spacing: float = 22.0,
                    lateral: Tuple[float, float] = (8.0, 14.0),
@@ -143,3 +127,29 @@ def lights_at_route_corners(keypoints: np.ndarray,
         stop_pos = kp[i] - u_in * min(setback, 0.7 * n_in)
         lights.append((stop_pos, u_in, float(rng.uniform(0, CYCLE))))
     return lights
+
+
+def _route_corners(dense: np.ndarray, angle_deg: float = 30.0) -> np.ndarray:
+    """Corner points of a dense polyline (direction change > angle over
+    5 m either side), one per run of corner points: the keypoints a traced
+    route's lights are placed at."""
+    if len(dense) < 12:
+        return np.zeros((0, 2))
+    a = dense[5:-5] - dense[:-10]
+    b = dense[10:] - dense[5:-5]
+    na = np.hypot(a[:, 0], a[:, 1])
+    nb = np.hypot(b[:, 0], b[:, 1])
+    cos = (a * b).sum(axis=1) / np.maximum(na * nb, 1e-9)
+    corner = cos < math.cos(math.radians(angle_deg))
+    out = []
+    i = 0
+    while i < len(corner):
+        if corner[i]:
+            j = i
+            while j + 1 < len(corner) and corner[j + 1]:
+                j += 1
+            out.append(dense[5 + (i + j) // 2])
+            i = j + 1
+        else:
+            i += 1
+    return np.asarray(out) if out else np.zeros((0, 2))

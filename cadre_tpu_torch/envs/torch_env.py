@@ -2,7 +2,9 @@
 
 Counterpart of cadre_tpu.envs.jax_env: bicycle dynamics, the GPS
 route-planner window, route-completion, turn, red-light and stop-sign
-state, route-driving NPC vehicles and wandering walkers, the decomposed
+state, route-driving NPC vehicles and wandering walkers, Scenario-3
+crossing hazards and Scenario-4 junction crossers, the per-env priority
+route curriculum, the decomposed
 steer/throttle reward with termination and auto-reset, and the two
 observation canvases (route figure and synthetic camera) painted through
 `ops.paint` -- all on [N, ...] tensors on one device. The JAX package's
@@ -13,21 +15,21 @@ Randomness comes through one seam: `draw_reset` and `draw_step` make the
 `ResetDraws` / `StepDraws` bundles from a torch.Generator, and
 `reset_from_draws` / `DrivingEnv.step` consume them, so a test can hand in
 the JAX package's own numbers instead.
-
-Not ported yet (they raise NotImplementedError): scenario hazards
-(`n_hazards`, `n_junction_hazards`), priority routes, stop-sign banks
-(`stop_sign_prob` > 0) and route-file / town-map banks.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from cadre_tpu_torch.envs.route_parser import (
+    interpolate_route,
+    parse_routes_file,
+)
 from cadre_tpu_torch.envs.synthetic import (
     CYCLE,
     GREEN_TIME,
@@ -39,11 +41,12 @@ from cadre_tpu_torch.envs.synthetic import (
     SIZE_Y,
     WEATHER_PRESETS,
     YELLOW_TIME,
-    interpolate_route,
+    _route_corners,
     lights_at_route_corners,
     roadside_props,
     synthetic_route,
 )
+from cadre_tpu_torch.envs.town_maps import town_map, trace_dense_route
 from cadre_tpu_torch.ops import paint
 from cadre_tpu_torch.utils.device import resolve_device
 
@@ -66,6 +69,20 @@ _NOISE = np.asarray([WEATHER_PRESETS[n][2] for n in _WNAMES], np.float32)
 _LIGHT_COLORS = np.asarray([[40.0, 255.0, 60.0], [255.0, 220.0, 40.0],
                             [255.0, 30.0, 30.0]], np.float32)
 _FAR = 1.0e8                       # padding sentinel for bank entries
+
+# bank geometry: the JAX make_route_bank defaults
+_ROUTE_LEGS = 3
+_LEG_LEN = (40.0, 90.0)
+_MAX_LIGHTS = 8
+_MAX_STOP_SIGNS = 2
+_MAX_PROPS = 40
+_PAD = 80          # endpoint copies past the longest route, so windows at
+#                    the head never clip
+
+# hazards: the JAX env config's defaults
+_HAZARD_TRIGGER = 12.0             # m from the ego at which one springs
+_HAZARD_OFFSET = 5.0               # m beside the route or light it waits at
+_JUNCTION_HAZARD_SPEED = (2.5, 4.0)
 
 ERROR_CODES = {
     0: "", 1: "collision static", 2: "collision vehicles!",
@@ -103,21 +120,28 @@ class EnvConfig:
     randomize_weather: bool = True
     render: bool = True
     blind_route: bool = False
-    # not ported yet: must stay at these values
+    # Scenario-3 crossing pedestrians armed _HAZARD_OFFSET m beside the
+    # route, springing into a straight crossing walk when the ego comes
+    # within _HAZARD_TRIGGER m (DynamicObjectCrossing)
     n_hazards: int = 0
+    # Scenario-4 cyclist-class crossers armed beside a corner light
+    # (VehicleTurningRoute), springing the same way
     n_junction_hazards: int = 0
+    # per-env route curriculum (PriorityRouteIndexer): at episode end
+    # priority[route] = 100 - completion%; a reset draws uniformly 20% of
+    # the time, else from softmax(priority)
     priority_routes: bool = False
 
-    def __post_init__(self):
-        if self.n_hazards or self.n_junction_hazards or self.priority_routes:
-            raise NotImplementedError(
-                "scenario hazards and priority routes are not ported yet")
+    @property
+    def n_actors(self) -> int:
+        return (self.n_vehicles + self.n_walkers + self.n_hazards
+                + self.n_junction_hazards)
 
     @property
     def n_obstacles(self) -> int:
         # at least one (inert) row so the obstacle reductions never run
         # over an empty axis
-        return max(self.n_vehicles + self.n_walkers, 1)
+        return max(self.n_actors, 1)
 
 
 class RouteBank(NamedTuple):
@@ -146,6 +170,8 @@ class EnvState(NamedTuple):
     begin: torch.Tensor            # int64, 1 on the first post-reset step
     obstacles: torch.Tensor        # [N, M, 6] x, y, radius, kind, speed,
     #                                heading
+    hazard_speed: torch.Tensor     # [N, M] latent crossing speed of an
+    #                                armed hazard; 0 for other rows
     npc_s: torch.Tensor            # [N, M] route arc position; -1 unbound
     npc_cruise: torch.Tensor       # [N, M] cruise speed of route vehicles
     weather: torch.Tensor          # int64 preset index
@@ -154,6 +180,7 @@ class EnvState(NamedTuple):
     last_red: torch.Tensor         # int64 debounced red-light index
     stop_state: torch.Tensor       # [N, 3] target, stop_completed, affected
     infractions: torch.Tensor      # [N, 2] int64 episode (red, stop) counts
+    route_prio: torch.Tensor       # [N, K] f32 curriculum priority per route
 
 
 class StepOutput(NamedTuple):
@@ -170,15 +197,24 @@ class StepOutput(NamedTuple):
 
 
 class ResetDraws(NamedTuple):
-    """Every random number of one episode reset, batched over N envs."""
+    """Every random number of one episode reset, batched over N envs. The
+    four hazard fields are None in a configuration without hazards, and
+    the last two without priority routes."""
 
-    route: torch.Tensor            # [N] int64 in [0, K)
+    route: torch.Tensor            # [N] int64 uniform in [0, K)
     spawn: torch.Tensor            # [N, M] int64 in [0, 2**30)
     lateral: torch.Tensor          # [N, M, 2] uniform [-3, 3)
     walker_speed: torch.Tensor     # [N, M] uniform [0.3, 1.2)
     heading: torch.Tensor          # [N, M] uniform [0, 2 pi)
     cruise: torch.Tensor           # [N, M] uniform over cfg.npc_cruise
     weather: torch.Tensor          # [N] int64 in [0, 16)
+    side: Optional[torch.Tensor]            # [N, M] bool, hazard on the left
+    hazard_speed: Optional[torch.Tensor]    # [N, M] uniform [1.2, 2.0)
+    junction_light: Optional[torch.Tensor]  # [N, M] int64 in [0, 2**30)
+    junction_speed: Optional[torch.Tensor]  # [N, M] uniform over
+    #                                         _JUNCTION_HAZARD_SPEED
+    prio_eps: Optional[torch.Tensor]        # [N] uniform [0, 1)
+    prio_gumbel: Optional[torch.Tensor]     # [N, K] standard Gumbel
 
 
 class StepDraws(NamedTuple):
@@ -188,42 +224,72 @@ class StepDraws(NamedTuple):
 
 # ---------------------------------------------------------------- bank
 
-# bank geometry: the JAX make_route_bank defaults
-_ROUTE_LEGS = 3
-_LEG_LEN = (40.0, 90.0)
-_MAX_LIGHTS = 8
-_MAX_STOP_SIGNS = 2
-_MAX_PROPS = 40
-_PAD = 80          # endpoint copies past the longest route, so windows at
-#                    the head never clip
-
-
 def make_route_bank(n_routes: int, seed: int = 0,
+                    route_legs: int = _ROUTE_LEGS,
+                    route_leg_len: Tuple[float, float] = _LEG_LEN,
                     routes_file: Optional[str] = None,
-                    map_name: Optional[str] = None,
                     stop_sign_prob: float = 0.0,
+                    map_name: Optional[str] = None,
+                    dense_routes: Optional[Sequence[np.ndarray]] = None,
                     device="cuda") -> RouteBank:
-    """Synthetic-route episode bank with its corner lights and roadside
-    props: the same numbers as the JAX package's make_route_bank from the
-    same seed. Route-file and town-map banks and stop signs are not ported
-    yet."""
-    if routes_file is not None or map_name is not None or stop_sign_prob > 0:
-        raise NotImplementedError(
-            "route-file, town-map and stop-sign banks are not ported yet")
+    """Episode bank with its corner lights, stop signs and roadside props:
+    the same numbers as the JAX package's make_route_bank from the same
+    seed.
+
+    Synthetic axis-aligned routes by default; with `routes_file`, the
+    route XML's keypoints (at most `n_routes`), densified in straight
+    lines, or traced over the town grid of `map_name` so that they turn at
+    its junctions; `dense_routes` takes pre-traced [R, 2] polylines as
+    they are. Lights go at the keypoint corners (of a traced route: the
+    corners of its trace); `stop_sign_prob` > 0 turns that share of them
+    into stop signs, a lane-wide trigger box straddling the stop line."""
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
-    keypoints = [synthetic_route(rng, n_legs=_ROUTE_LEGS, leg_len=_LEG_LEN)
-                 for _ in range(n_routes)]
-    dense_list, lights_list, props_list = [], [], []
+    pre_traced = dense_routes is not None
+    if pre_traced:
+        keypoints = [np.asarray(d, np.float64) for d in dense_routes[:n_routes]]
+    elif routes_file is not None:
+        keypoints = [np.asarray([w.xy for w in cfg.trajectory])
+                     for cfg in parse_routes_file(routes_file)[:n_routes]]
+        if not keypoints:
+            raise ValueError(f"no routes in {routes_file}")
+        if map_name is not None:
+            town = town_map(map_name)
+            keypoints = [trace_dense_route(town, kp) for kp in keypoints]
+            pre_traced = True
+    else:
+        keypoints = [synthetic_route(rng, n_legs=route_legs,
+                                     leg_len=route_leg_len)
+                     for _ in range(n_routes)]
+    n_routes = len(keypoints)
+
+    dense_list, lights_list, signs_list, props_list = [], [], [], []
     for pts in keypoints:
         dense = interpolate_route(pts, resolution=1.0)
         dense_list.append(dense)
+        if pre_traced:
+            # lights need the leg corners, not the per-meter trace
+            corners = _route_corners(dense)
+            pts = np.concatenate([dense[:1], corners, dense[-1:]]) \
+                if len(corners) else np.stack([dense[0], dense[-1]])
         arr = np.full((_MAX_LIGHTS, 5), _FAR, np.float32)
-        for i, (center, direction, phase) in enumerate(
-                lights_at_route_corners(pts, rng)[:_MAX_LIGHTS]):
-            arr[i] = [center[0], center[1], phase, direction[0],
-                      direction[1]]
+        signs = np.full((_MAX_STOP_SIGNS, 5), _FAR, np.float32)
+        n_li = n_si = 0
+        # every light's phase is drawn first, then one stop-sign draw per
+        # light while stop signs are on
+        for center, direction, phase in lights_at_route_corners(pts, rng):
+            if stop_sign_prob > 0 and rng.rand() < stop_sign_prob \
+                    and n_si < _MAX_STOP_SIGNS:
+                yaw = math.degrees(math.atan2(direction[1], direction[0]))
+                signs[n_si] = [center[0], center[1], 2.0,
+                               0.5 * _LANE_WIDTH, yaw]
+                n_si += 1
+            elif n_li < _MAX_LIGHTS:
+                arr[n_li] = [center[0], center[1], phase, direction[0],
+                             direction[1]]
+                n_li += 1
         lights_list.append(arr)
+        signs_list.append(signs)
         pr = np.full((_MAX_PROPS, 6), _FAR, np.float32)
         gen = roadside_props(dense, rng, max_props=_MAX_PROPS)
         pr[:len(gen)] = gen
@@ -239,13 +305,12 @@ def make_route_bank(n_routes: int, seed: int = 0,
         cum = np.concatenate([[0.0], np.cumsum(seg)])
         cums[i, :len(d)] = cum / max(cum[-1], 1e-6)
         lens[i] = len(d)
-    signs = np.full((n_routes, _MAX_STOP_SIGNS, 5), _FAR, np.float32)
 
     def t(a):
         return torch.as_tensor(a, device=dev)
 
     return RouteBank(t(routes), t(lens), t(cums), t(np.stack(lights_list)),
-                     t(signs), t(np.stack(props_list)))
+                     t(np.stack(signs_list)), t(np.stack(props_list)))
 
 
 # ---------------------------------------------------------------- core math
@@ -887,32 +952,62 @@ def draw_reset(cfg: EnvConfig, n_routes: int, n: int,
     def randint(hi, shape):
         return torch.randint(0, hi, shape, generator=gen, device=device)
 
-    return ResetDraws(
+    draws = dict(
         route=randint(n_routes, (n,)), spawn=randint(1 << 30, (n, m)),
         lateral=uniform((n, m, 2), -3.0, 3.0),
         walker_speed=uniform((n, m), 0.3, 1.2),
         heading=uniform((n, m), 0.0, 2.0 * math.pi),
         cruise=uniform((n, m), *cfg.npc_cruise),
         weather=randint(len(_WNAMES), (n,)))
+    # the options' draws come after the others, and only where an option
+    # is on, so that a configuration without them draws what it always did
+    draws.update(side=None, hazard_speed=None, junction_light=None,
+                 junction_speed=None, prio_eps=None, prio_gumbel=None)
+    if cfg.n_hazards or cfg.n_junction_hazards:
+        draws.update(side=uniform((n, m), 0.0, 1.0) < 0.5,
+                     hazard_speed=uniform((n, m), 1.2, 2.0),
+                     junction_light=randint(1 << 30, (n, m)),
+                     junction_speed=uniform((n, m), *_JUNCTION_HAZARD_SPEED))
+    if cfg.priority_routes:
+        u = uniform((n, n_routes), 0.0, 1.0)
+        tiny = torch.finfo(torch.float32).tiny
+        draws.update(prio_eps=uniform((n,), 0.0, 1.0),
+                     prio_gumbel=-torch.log(-torch.log(u.clamp_min(tiny))))
+    return ResetDraws(**draws)
 
 
 def draw_step(cfg: EnvConfig, n_routes: int, n: int, gen: torch.Generator,
               device) -> StepDraws:
-    """Reset draws plus the camera noise of one step of `n` envs."""
+    """Reset draws plus the camera noise of one step of `n` envs (none
+    where the env renders nothing)."""
+    shape = (n, _H, _W, 3) if cfg.render else (n, 0, 0, 3)
     return StepDraws(draw_reset(cfg, n_routes, n, gen, device),
-                     torch.randn((n, _H, _W, 3), generator=gen,
-                                 device=device))
+                     torch.randn(shape, generator=gen, device=device))
 
 
-def reset_from_draws(cfg: EnvConfig, bank: RouteBank,
-                     draws: ResetDraws) -> EnvState:
+def reset_from_draws(cfg: EnvConfig, bank: RouteBank, draws: ResetDraws,
+                     prio: Optional[torch.Tensor] = None,
+                     route_ids: Optional[torch.Tensor] = None) -> EnvState:
     """Fresh episodes (SimDrivingEnv._world_reset over the bank): the ego
     at the route start facing along it, NPC vehicles on the route line
-    beyond its first quarter, walkers beside it."""
-    route_id = draws.route.long()
-    n = route_id.shape[0]
+    beyond its first quarter, walkers beside it, armed hazards beside the
+    route and beside a corner light. `prio` [N, K] is each env's route
+    priority table (100 everywhere when None), which the fresh episode
+    carries as it is; `route_ids` [N] pins each env to a route (the
+    sequential RouteIndexer of the eval protocol)."""
+    n = draws.route.shape[0]
     dev = bank.routes.device
     rows = _rows(n, dev)
+    if prio is None:
+        prio = torch.full((n, bank.routes.shape[0]), 100.0, device=dev)
+    if route_ids is not None:
+        route_id = route_ids.long()
+    elif cfg.priority_routes:
+        # jax.random.categorical(logits=prio) is argmax(gumbel + prio)
+        soft = torch.argmax(draws.prio_gumbel + prio, dim=1)
+        route_id = torch.where(draws.prio_eps > 0.8, draws.route.long(), soft)
+    else:
+        route_id = draws.route.long()
     route = bank.routes[route_id]
     rlen = bank.route_len[route_id]
     start = route[:, 0]
@@ -934,15 +1029,58 @@ def reset_from_draws(cfg: EnvConfig, bank: RouteBank,
     is_vehicle = ~is_walker & (rank < cfg.n_vehicles)
     speed = torch.where(is_walker, draws.walker_speed,
                         torch.where(is_vehicle, draws.cruise, zero))
-    real = rank < cfg.n_vehicles + cfg.n_walkers
+    heading = draws.heading
+    hazard_speed = zero
+
+    # hazards, as (rows, where they are armed, the direction they cross,
+    # their latent speed): crossing pedestrians beside a route point and
+    # cyclist-class crossers beside a live corner light (with no live
+    # light they stay on the far pad, never sprung and never seen)
+    n_moving = cfg.n_vehicles + cfg.n_walkers
+    hazards = []
+    if cfg.n_hazards:
+        is_hazard = (rank >= n_moving) & (rank < n_moving + cfg.n_hazards)
+        dnext = route[rows[:, None], torch.minimum(idx + 2, rlen[:, None] - 1)
+                      ] - base
+        hazards.append((is_hazard.expand(n, m), base,
+                        dnext / _norm(dnext).clamp_min(1e-6)[..., None],
+                        draws.hazard_speed))
+    if cfg.n_junction_hazards:
+        is_jhazard = (rank >= n_moving + cfg.n_hazards).expand(n, m)
+        jl = bank.lights[route_id]                          # [N, L, 5]
+        n_live = (jl[..., 0] < _FAR / 2).sum(1)
+        l_idx = draws.junction_light.long() % n_live.clamp_min(1)[:, None]
+        jl = jl[rows[:, None], l_idx]                       # [N, M, 5]
+        hazards.append((is_jhazard, jl[..., :2], jl[..., 3:5],
+                        draws.junction_speed))
+        kind = torch.where(is_jhazard, 0.0, kind)           # vehicle class
+        radius = torch.where(is_jhazard, 0.6, radius)       # cyclist
+    if hazards:
+        side = torch.where(draws.side, 1.0, -1.0)
+    for mask, xy, direction, latent in hazards:
+        # _HAZARD_OFFSET m to one side, still until sprung, heading back
+        # across the route
+        perp = torch.stack([-direction[..., 1], direction[..., 0]], dim=-1)
+        pos = torch.where(mask[..., None],
+                          xy + (side * _HAZARD_OFFSET)[..., None] * perp,
+                          pos)
+        heading = torch.where(mask, torch.atan2(-side * perp[..., 1],
+                                                -side * perp[..., 0]),
+                              heading)
+        speed = torch.where(mask, zero, speed)
+        hazard_speed = torch.where(mask, latent, hazard_speed)
+
+    real = rank < cfg.n_actors
     pos = torch.where(real[None, :, None], pos, torch.full_like(pos, 1.0e7))
     radius = torch.where(real, radius, zero)
     speed = torch.where(real, speed, zero)
+    if hazards:
+        hazard_speed = torch.where(real, hazard_speed, zero)
     npc = is_vehicle & real
     npc_s = torch.where(npc, idx.float(), torch.full_like(zero, -1.0))
     npc_cruise = torch.where(npc, draws.cruise, zero)
     obstacles = torch.stack([pos[..., 0], pos[..., 1], radius, kind, speed,
-                             draws.heading], dim=-1)
+                             heading], dim=-1)
     weather = draws.weather.long() if cfg.randomize_weather else \
         torch.zeros_like(route_id)
     zeros_i = torch.zeros_like(route_id)
@@ -950,11 +1088,13 @@ def reset_from_draws(cfg: EnvConfig, bank: RouteBank,
         route_id=route_id, head=zeros_i, progress=zeros_i, pos=start,
         yaw=yaw, speed=torch.zeros_like(yaw), step=zeros_i,
         last_event_t=zeros_i, begin=torch.ones_like(route_id),
-        obstacles=obstacles, npc_s=npc_s, npc_cruise=npc_cruise,
-        weather=weather, turn=torch.zeros((n, 8), device=dev),
+        obstacles=obstacles, hazard_speed=hazard_speed, npc_s=npc_s,
+        npc_cruise=npc_cruise, weather=weather,
+        turn=torch.zeros((n, 8), device=dev),
         last_red=torch.full_like(route_id, -1),
         stop_state=_const("no_stop", yaw).repeat(n, 1),
-        infractions=torch.zeros((n, 2), dtype=torch.long, device=dev))
+        infractions=torch.zeros((n, 2), dtype=torch.long, device=dev),
+        route_prio=prio)
 
 
 def _observe(cfg: EnvConfig, bank: RouteBank, state: EnvState, scal: dict,
@@ -971,8 +1111,24 @@ def _observe(cfg: EnvConfig, bank: RouteBank, state: EnvState, scal: dict,
             _render_fig(cfg, bank, state, scal), meas)
 
 
+def _spring_hazards(cfg: EnvConfig, state: EnvState) -> EnvState:
+    """An armed (still) hazard within _HAZARD_TRIGGER m of the ego starts
+    its crossing at its latent speed; once moving it never fires again."""
+    if not (cfg.n_hazards or cfg.n_junction_hazards):
+        return state
+    obs = state.obstacles
+    d = _norm(obs[..., :2] - state.pos[:, None])
+    fire = (d < _HAZARD_TRIGGER) & (state.hazard_speed > 0.0) & \
+        (obs[..., 4] == 0.0)
+    obs = obs.clone()
+    obs[..., 4] = torch.where(fire, state.hazard_speed, obs[..., 4])
+    return state._replace(obstacles=obs)
+
+
 def _select(done: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
-    return EnvState(*(torch.where(done.view((-1,) + (1,) * (x.dim() - 1)),
+    # a field both states share (a table no option updates) is kept as is
+    return EnvState(*(x if x is y else
+                      torch.where(done.view((-1,) + (1,) * (x.dim() - 1)),
                                   x, y) for x, y in zip(a, b)))
 
 
@@ -982,7 +1138,8 @@ def step_envs(cfg: EnvConfig, bank: RouteBank, state: EnvState,
     """One tick of every env with auto-reset; controls [N, 3] = steer,
     throttle, brake. A finished env's returned observation is the first
     frame of its fresh episode."""
-    stepped, collision = _physics(cfg, bank, state, controls)
+    stepped, collision = _physics(cfg, bank, _spring_hazards(cfg, state),
+                                  controls)
     stepped = _red_light_check(cfg, bank, stepped)
     stepped = _stop_sign_check(cfg, bank, stepped)
     stepped = _plan_pop(cfg, bank, stepped)
@@ -994,7 +1151,21 @@ def step_envs(cfg: EnvConfig, bank: RouteBank, state: EnvState,
     stepped, rewards, done, action_done, err = _reward_step(
         cfg, stepped, scal, collision, obstacle, route_completed, route_m)
 
-    fresh = _plan_pop(cfg, bank, reset_from_draws(cfg, bank, draws.reset))
+    # curriculum bookkeeping: a finished route's priority becomes
+    # 100 - completion%, before the fresh episode draws from the table.
+    # Without priority routes nothing reads the table, and it stays as the
+    # first reset made it (the JAX env updates it all the same).
+    if cfg.priority_routes:
+        rid = stepped.route_id[:, None]
+        prio = stepped.route_prio.scatter(1, rid, torch.where(
+            done[:, None], 100.0 * (1.0 - completion[:, None]),
+            stepped.route_prio.gather(1, rid)))
+        stepped = stepped._replace(route_prio=prio)
+    fresh = _plan_pop(cfg, bank, reset_from_draws(cfg, bank, draws.reset,
+                                                  stepped.route_prio))
+    if not (cfg.n_hazards or cfg.n_junction_hazards):
+        # every state's latent hazard speeds are zero
+        fresh = fresh._replace(hazard_speed=stepped.hazard_speed)
     nxt = _select(done, fresh, stepped)
     rgb, fig, meas = _observe(cfg, bank, nxt, _scalars(cfg, bank, nxt),
                               draws.noise)
@@ -1034,9 +1205,18 @@ class DrivingEnv:
 
     def reset(self, draws: Optional[StepDraws] = None):
         """Fresh episodes for all envs and their first observation."""
+        return self._reset(draws, None)
+
+    def reset_routes(self, route_ids, draws: Optional[StepDraws] = None):
+        """As `reset`, with env i pinned to route `route_ids[i]`."""
+        return self._reset(draws, torch.as_tensor(route_ids,
+                                                  device=self.device))
+
+    def _reset(self, draws: Optional[StepDraws], route_ids):
         draws = draws if draws is not None else self.draw_step()
         cfg, bank = self.cfg, self.bank
-        state = _plan_pop(cfg, bank, reset_from_draws(cfg, bank, draws.reset))
+        state = _plan_pop(cfg, bank, reset_from_draws(
+            cfg, bank, draws.reset, route_ids=route_ids))
         rgb, fig, meas = _observe(cfg, bank, state,
                                   _scalars(cfg, bank, state), draws.noise)
         command = torch.full((self.num_envs,), 3, dtype=torch.long,

@@ -4,8 +4,10 @@ The `--env jax` path of the JAX package's `main.py`: the whole iteration
 (render, encode, act, step the batched device envs, then GAE and the PPO
 epochs) runs on one device through `rl.device_rollout.train_device`, and a
 snapshot of both policy banks is saved at the end to
-<work-dir>/models/ppo_model_<iterations>.pt. It runs on the GPU unless
-given `--device cpu`.
+<work-dir>/models/ppo_model_<iterations>.pt. `--routes` banks the routes
+of a route XML instead of synthetic ones, `--hazards` arms that many
+crossing pedestrians per episode and `--priority-routes` turns on the
+route curriculum. It runs on the GPU unless given `--device cpu`.
 """
 from __future__ import annotations
 
@@ -16,9 +18,6 @@ import os
 # flags of the JAX CLI whose features the port does not have yet, by the
 # ROADMAP.md queue A item that ports them
 UNPORTED = {
-    "routes": "route-file banks, ROADMAP.md queue A item 10",
-    "hazards": "Scenario-3 crossing hazards, ROADMAP.md queue A item 10",
-    "priority_routes": "priority routes, ROADMAP.md queue A item 10",
     "danet_checkpoint": "encoder checkpoints, ROADMAP.md queue A item 15",
     "config": "experiment config files, ROADMAP.md queue A item 15",
 }
@@ -41,10 +40,13 @@ def parse_args(argv=None):
                    help="small encoder (fast CPU runs)")
     p.add_argument("--work-dir", default=None)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--routes", default=None,
+                   help="route XML whose routes make the episode bank")
+    p.add_argument("--hazards", type=int, default=0,
+                   help="Scenario-3 crossing pedestrians per episode")
+    p.add_argument("--priority-routes", action="store_true",
+                   help="priority route curriculum (per-env route table)")
     # not ported yet: each raises (see UNPORTED)
-    p.add_argument("--routes", default=None)
-    p.add_argument("--hazards", type=int, default=0)
-    p.add_argument("--priority-routes", action="store_true")
     p.add_argument("--danet-checkpoint", default=None)
     p.add_argument("--config", default=None)
     return p.parse_args(argv)
@@ -63,7 +65,11 @@ def main(argv=None) -> str:
         TrainConfig,
     )
     from cadre_tpu_torch.configs.danet_config import danet_params
-    from cadre_tpu_torch.envs.torch_env import DrivingEnv, make_route_bank
+    from cadre_tpu_torch.envs.torch_env import (
+        DrivingEnv,
+        EnvConfig,
+        make_route_bank,
+    )
     from cadre_tpu_torch.rl.agent import CadreAgent
     from cadre_tpu_torch.rl.device_rollout import train_device
 
@@ -78,8 +84,10 @@ def main(argv=None) -> str:
                                 feature_dims=agent.obs_dim)
     train_cfg = TrainConfig(max_episode=args.episodes)
     bank = make_route_bank(max(args.num_envs * 2, 16), seed=args.seed,
-                           device=args.device)
+                           routes_file=args.routes, device=args.device)
     env = DrivingEnv(bank, num_envs=max(args.num_envs, 1), seed=args.seed,
+                     config=EnvConfig(n_hazards=args.hazards,
+                                      priority_routes=args.priority_routes),
                      device=args.device)
     iterations = args.iterations if args.iterations is not None else \
         args.episodes

@@ -140,6 +140,23 @@ class PolicyBank(nn.Module):
         return ((values_c * onehot).sum(0), (lps * onehot).sum(0),
                 (ents * onehot).sum(0))
 
+    def sample_members(self, members: int, obs_seq: torch.Tensor,
+                       commands: torch.Tensor, carry: Carry,
+                       gumbel: torch.Tensor) -> torch.Tensor:
+        """Actions of `members` policies whose banks are stacked on this
+        bank axis (member m's command c at bank m * C + c): every bank on
+        every env in one pass, then each member's bank of each env's
+        command. obs_seq [T, N, F], commands [N], gumbel [K, N, A] ->
+        actions [K, N]."""
+        logits_c, _, _ = self._all_banks(obs_seq, carry)      # [K*C, N, A]
+        n = commands.shape[0]
+        dev = logits_c.device
+        banks = logits_c.shape[0] // members
+        idx = torch.arange(members, device=dev)[:, None] * banks \
+            + commands.long()[None]
+        logits = logits_c[idx, torch.arange(n, device=dev)[None]]
+        return categorical_sample(logits, gumbel)
+
     def act_batch(self, obs_seq: torch.Tensor, commands: torch.Tensor,
                   carry: Carry, gumbel: torch.Tensor
                   ) -> Tuple[PolicyOutput, Carry]:

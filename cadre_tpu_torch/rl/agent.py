@@ -4,15 +4,16 @@ steer and throttle policy banks.
 PyTorch counterpart of the device-path pieces of cadre_tpu.rl.agent:
 `preprocess_obs`, `latent_features`, `CadreAgent.create` and
 `act_from_hist` (the JAX package's `_act_from_hist`), the PPO
-configuration and the policy snapshots (native torch files; reading the JAX
+configuration, the policy snapshots (native torch files; reading the JAX
 package's msgpack snapshots is not ported yet, nor are the host-env act
-loops).
+loops) and an ensemble of snapshots acting as one (`Ensemble`, the
+`EnsembleAgent` of the device eval).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -133,3 +134,46 @@ class CadreAgent:
         self.throttle.load_state_dict(tree["throttle"])
         if opt is not None:
             opt.load_state_dict(tree["opt"])
+
+
+class Ensemble(NamedTuple):
+    """K policy snapshots acting together on one feature history. Each
+    signal's K members are folded into one PolicyBank of K * C banks, so
+    one pass evaluates every member: as many launches as one member."""
+
+    members: int
+    steer: PolicyBank
+    throttle: PolicyBank
+
+    @classmethod
+    def load(cls, agent: CadreAgent, snapshot_paths: Sequence[str]
+             ) -> "Ensemble":
+        """The `save_snapshot` files at `snapshot_paths`, stacked on the
+        host and then copied to the agent's device once."""
+        trees = [torch.load(p, map_location="cpu", weights_only=True)
+                 for p in snapshot_paths]
+        if not trees:
+            raise ValueError("an ensemble needs at least one snapshot")
+        k, cfg, f = len(trees), agent.agent_cfg, agent.obs_dim
+        banks = []
+        for name, outputs in (("steer", cfg.num_steer_outputs),
+                              ("throttle", cfg.num_throttle_outputs)):
+            with torch.device("meta"):
+                bank = PolicyBank(k * cfg.command_num, outputs, f)
+            bank.load_state_dict({key: torch.cat([t[name][key] for t in trees])
+                                  for key in trees[0][name]}, assign=True)
+            banks.append(bank.to(agent.device).requires_grad_(False))
+        return cls(k, *banks)
+
+    def act(self, feat_hist: torch.Tensor, commands: torch.Tensor,
+            hidden: Carry, steer_gumbel: torch.Tensor,
+            throttle_gumbel: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """feat_hist [T, N, F], Gumbel noise [K, N, A] per member ->
+        (steer, throttle) actions, each [K, N]."""
+        with torch.no_grad():
+            return (self.steer.sample_members(self.members, feat_hist,
+                                              commands, hidden, steer_gumbel),
+                    self.throttle.sample_members(self.members, feat_hist,
+                                                 commands, hidden,
+                                                 throttle_gumbel))

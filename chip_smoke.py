@@ -9,9 +9,10 @@ Phases, each of which must pass:
   1. the card, its power limit, and the torch / CUDA / nvcc versions;
   2. build of every hand-written kernel from cadre_tpu_torch/csrc/;
   3. each kernel against its plain PyTorch version on the card: paint
-     bit-equal on random, tile-edge and main-path tables, dual attention at
-     every shape the port calls it with; timings against each kernel's
-     bound and, for dual attention, a one-call PyTorch yardstick;
+     bit-equal on random, tile-edge and main-path tables and on those of
+     an eval-tier env and a hazard env, dual attention at every shape the
+     port calls it with (the eval's B=25 among them); timings against each
+     kernel's bound and, for dual attention, a one-call PyTorch yardstick;
   4. the main path: a bf16 CoPM agent at production width drives 32 device
      envs for a 20-step rollout, then trains one whole iteration at
      production size (T=200, 4 PPO epochs of 2 minibatches) after a T=2
@@ -20,7 +21,18 @@ Phases, each of which must pass:
   5. the CUDA path against the CPU path of the same port on a small input:
      rollout pieces and one fused PPO update;
   6. the training CLI, `python -m cadre_tpu_torch.main --env jax`, for two
-     iterations of 32 envs x 20 steps, and its snapshot read back.
+     iterations of 32 envs x 20 steps, and its snapshot read back;
+  7. the eval path: (a) a bank of 25 Town01 routes traced from a route XML
+     the script writes, three of them 12 m long; (b) the ensemble eval of
+     8 member snapshots with the bf16 production encoder, 25 envs pinned
+     to the routes, 200 steps, with every kernel's launch count read
+     around it and a scored row for each short route, and a profile of a
+     few eval steps; (c) one training iteration with the NoCrash options
+     (priority routes, hazards, stop signs) on a bank of Town01 traces,
+     four envs started halfway along past their route timeout so that
+     their episodes end and their routes' priorities move; (d) the eval
+     on the card against the eval on the CPU from the same draws; (e) the
+     scripted expert over the eval bank.
 
 It prints one JSON line of kernel figures, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -49,6 +61,20 @@ BF16_TC_FLOPS = 989e12
 
 N_ENVS = 32
 T_STEPS = 20
+# the eval: one env per route of the NoCrash eval XMLs' 25 routes, K
+# member snapshots (scripts/run_nocrash_eval.py --eval-members), cut to
+# EVAL_STEPS of the script's 8,000 steps
+EVAL_ENVS = 25
+EVAL_MEMBERS = 8
+EVAL_STEPS = 200
+# of the eval's routes, the last EVAL_SHORT run 12 m along one lane: their
+# episodes end (by the route timeout at 154 steps, if nothing sooner)
+# within EVAL_STEPS whatever the random members do, so rows are scored
+EVAL_SHORT = 3
+# envs of the NoCrash training iteration that start past their route
+# timeout halfway along their routes, so that episodes end and priorities
+# move within its T_STEPS
+NOCRASH_PINNED = 4
 # the training iteration's steps: RolloutConfig's default and the shape of
 # the JAX package's scripts/bench_device_env.py::bench_train
 T_TRAIN = 200
@@ -65,6 +91,17 @@ class PhaseError(RuntimeError):
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+def _counted(fn):
+    """fn()'s result and each kernel's launches while it ran."""
+    from cadre_tpu_torch.ops import dual_attention, paint
+
+    paint.launches = 0
+    dual_attention.launches = 0
+    out = fn()
+    return out, {"paint": paint.launches,
+                 "dual_attention": dual_attention.launches}
 
 
 def device_ms(fn, iters: int = 200) -> float:
@@ -275,22 +312,25 @@ def paint_edge_tables(h, w, seed=0):
             "long": long}
 
 
-def _main_path_paint_tables(device, steps=4):
+def _main_path_paint_tables(device, steps=4, bank=None, cfg=None,
+                            n=N_ENVS):
     """The (base, table) pairs the main path paints: the route figure and
-    the camera of N_ENVS envs over the rollout's route bank, after each of
-    a few steps under random controls."""
+    the camera of `n` envs over the rollout's route bank (or `bank`, with
+    env config `cfg`), after each of a few steps under random controls."""
     import torch
 
     from cadre_tpu_torch.envs import torch_env as te
 
-    bank = te.make_route_bank(16, seed=0, device=device)
-    env = te.DrivingEnv(bank, num_envs=N_ENVS, seed=5, device=device)
+    bank = bank if bank is not None else te.make_route_bank(16, seed=0,
+                                                            device=device)
+    env = te.DrivingEnv(bank, num_envs=n, seed=5, device=device,
+                        config=cfg or te.EnvConfig())
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
     state, _ = env.reset()
     tables = []
     for _ in range(steps):
-        u = torch.rand(N_ENVS, 2, generator=gen, device=device)
+        u = torch.rand(n, 2, generator=gen, device=device)
         controls = torch.stack([0.6 * u[:, 0] - 0.3, u[:, 1],
                                 torch.zeros_like(u[:, 0])], -1)
         state, _ = env.step(state, controls)
@@ -381,6 +421,19 @@ def check_paint(gen, device):
                 f"main path step {i} {name}", base, table, i == len(steps) - 1)
     print(f"[3] paint main path: fig and rgb tables of {len(steps)} env "
           f"steps at N={N_ENVS}: bit-equal to plain")
+    from cadre_tpu_torch.envs import torch_env as te
+
+    options = {
+        "eval tier": (eval_bank(device), eval_env_config(), EVAL_ENVS),
+        "hazards": (None, te.EnvConfig(n_hazards=2, n_junction_hazards=1),
+                    N_ENVS)}
+    for what, (bank, cfg, n) in options.items():
+        for i, step in enumerate(_main_path_paint_tables(device, 2, bank,
+                                                         cfg, n)):
+            for name, (base, table) in step.items():
+                _paint_case(f"{what} step {i} {name}", base, table, False)
+        print(f"[3] paint {what}: fig and rgb tables ({table.shape[1]} "
+              f"camera rows) of 2 env steps at N={n}: bit-equal to plain")
     last = f"main{len(steps) - 1}"
     for kind in ("random", last):
         for name, (h, w, c) in canvases.items():
@@ -450,8 +503,10 @@ def _attention_library(x, q, k, v, gp, xc, gc):
 
 
 # (B, C, Cqk) of every call the port makes: the production head at the
-# main path's batch (N_ENVS) and at B=256, and phase 5's small head
-ATTENTION_SHAPES = ((32, 128, 16), (256, 128, 16), (2, 32, 4))
+# main path's batch (N_ENVS), at B=256 and at the eval's B=EVAL_ENVS, and
+# phase 5's small head
+ATTENTION_SHAPES = ((32, 128, 16), (256, 128, 16), (25, 128, 16),
+                    (2, 32, 4))
 
 
 def check_dual_attention(gen, device):
@@ -528,12 +583,12 @@ def check_dual_attention(gen, device):
                     library_ms=lib_ms, call_ms=call_ms,
                     library_call_ms=lib_call_ms,
                     shapes=f"B={b} P=40 C={c} Cqk={d} bf16")
-            elif (b, c, d) == ATTENTION_SHAPES[1] and bf16:
+            elif (b, c, d) in ATTENTION_SHAPES[1:3] and bf16:
                 require(main is not None, "dual_attention: B=32 not run")
-                main.update(ms_b256=ms, library_ms_b256=lib_ms,
-                            call_ms_b256=call_ms,
-                            library_call_ms_b256=lib_call_ms,
-                            bound_ms_b256=max(t_bytes, t_ops))
+                main.update({f"ms_b{b}": ms, f"library_ms_b{b}": lib_ms,
+                             f"call_ms_b{b}": call_ms,
+                             f"library_call_ms_b{b}": lib_call_ms,
+                             f"bound_ms_b{b}": max(t_bytes, t_ops)})
     return main
 
 
@@ -563,7 +618,6 @@ def phase_slice():
     from cadre_tpu_torch.configs.agent_config import RolloutConfig
     from cadre_tpu_torch.configs.danet_config import danet_params
     from cadre_tpu_torch.envs.torch_env import DrivingEnv, make_route_bank
-    from cadre_tpu_torch.ops import dual_attention, paint
     from cadre_tpu_torch.rl.agent import CadreAgent, preprocess_obs
     from cadre_tpu_torch.rl.device_rollout import make_device_rollout
 
@@ -582,14 +636,11 @@ def phase_slice():
     print(f"[4] set-up (agent, bank, env, warm-up) "
           f"{time.perf_counter() - t0:.2f} s; obs_dim {agent.obs_dim}")
 
-    paint.launches = 0
-    dual_attention.launches = 0
     t0 = time.perf_counter()
-    carry, steer, throttle, next_values, m = rollout(carry)
+    (carry, steer, throttle, next_values, m), launches = _counted(
+        lambda: rollout(carry))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"paint": paint.launches,
-                "dual_attention": dual_attention.launches}
 
     require(launches["paint"] == 2 * T_STEPS
             and launches["dual_attention"] == T_STEPS + 1,
@@ -634,10 +685,11 @@ def phase_slice():
     return train_iteration(agent, env, carry, (steer, throttle))
 
 
-def profile(fn, what: str, per: int, unit: str):
+def profile(fn, what: str, per: int, unit: str, tag: str = "4"):
     """Run fn() once under torch.profiler; print the wall time, the
     device's busy time and idle share, its op count per `unit` (`per` of
-    them in the run) and the top ops. Returns fn()'s result."""
+    them in the run) and the top ops, each line tagged `[tag]`. Returns
+    fn()'s result."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -655,13 +707,13 @@ def profile(fn, what: str, per: int, unit: str):
     busy_us = sum(e.self_device_time_total for e in rows)
     kernels = sum(e.count for e in rows)
     require(busy_us > 0, f"profile of {what}: no device time")
-    print(f"[4] profile of {what}: wall {wall * 1e3:.1f} ms, "
+    print(f"[{tag}] profile of {what}: wall {wall * 1e3:.1f} ms, "
           f"device busy {busy_us / 1e3:.1f} ms "
           f"({100.0 * (1 - busy_us / 1e6 / wall):.1f}% idle), "
           f"{kernels} device ops, {kernels / per:.0f} per {unit}")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:12]:
-        print(f"[4]   {e.self_device_time_total / 1e3:9.3f} ms "
+        print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x {e.key[:80]}")
     return out
 
@@ -693,7 +745,6 @@ def train_iteration(agent, env, carry, bufs):
         RolloutConfig,
         TrainConfig,
     )
-    from cadre_tpu_torch.ops import dual_attention, paint
     from cadre_tpu_torch.rl.device_rollout import make_device_iteration
     from cadre_tpu_torch.rl.fused_update import (
         make_fused_iteration_update,
@@ -715,14 +766,10 @@ def train_iteration(agent, env, carry, bufs):
     before = [p.detach().clone() for p in agent.policy_parameters()]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    paint.launches = 0
-    dual_attention.launches = 0
     t0 = time.perf_counter()
-    carry, m = iteration(opt, carry)
+    (carry, m), launches = _counted(lambda: iteration(opt, carry))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"paint": paint.launches,
-                "dual_attention": dual_attention.launches}
     peak = torch.cuda.max_memory_allocated()
 
     require(launches["paint"] == 2 * T_TRAIN
@@ -757,13 +804,11 @@ def train_iteration(agent, env, carry, bufs):
     steer, throttle = (_tile_buffer(b, T_TRAIN) for b in bufs)
     zeros = torch.zeros(N_ENVS, device=steer.obs.device)
     n_steps = train_cfg.ppo_epoch * eff_mb
-    paint.launches = 0
-    dual_attention.launches = 0
-    aux = profile(lambda: update(opt, steer, throttle, (zeros, zeros)),
-                  f"one update (T={T_TRAIN}, {n_steps} minibatch steps)",
-                  n_steps, "minibatch step")
-    require(paint.launches == 0 and dual_attention.launches == 0,
-            "the update launched a kernel")
+    aux, launched = _counted(lambda: profile(
+        lambda: update(opt, steer, throttle, (zeros, zeros)),
+        f"one update (T={T_TRAIN}, {n_steps} minibatch steps)", n_steps,
+        "minibatch step"))
+    require(not any(launched.values()), "the update launched a kernel")
     for name, t in aux._asdict().items():
         _finite(f"update {name}", t)
     return launches
@@ -798,7 +843,8 @@ def phase_cpu_agreement():
                                     2, device=dev)
 
     def to_gpu(d):
-        return StepDraws(ResetDraws(*(t.to(gpu) for t in d.reset)),
+        return StepDraws(ResetDraws(*(None if t is None else t.to(gpu)
+                                       for t in d.reset)),
                          d.noise.to(gpu))
 
     draws = envs["cpu"].draw_step()
@@ -960,6 +1006,338 @@ def phase_cli():
           f"{seconds:.1f} s; {os.path.relpath(path, root)} loads back equal")
 
 
+# ---------------------------------------------------------------- phase 7
+
+def _smoke_dir(name: str) -> str:
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def eval_routes() -> str:
+    """The eval's route XML, written under build/ (see
+    town_maps.write_lane_routes)."""
+    import os
+
+    from cadre_tpu_torch.envs.town_maps import write_lane_routes
+
+    return write_lane_routes(os.path.join(_smoke_dir("smoke_eval"),
+                                          "town01.xml"), EVAL_ENVS,
+                             n_short=EVAL_SHORT)
+
+
+def eval_bank(device):
+    """The eval bank: the EVAL_ENVS routes of `eval_routes()` traced over
+    Town01, as scripts/run_nocrash_eval.py banks its eval XMLs."""
+    from cadre_tpu_torch.envs.torch_env import make_route_bank
+
+    return make_route_bank(EVAL_ENVS, seed=1000, routes_file=eval_routes(),
+                           map_name="Town01", device=device)
+
+
+def eval_env_config():
+    """The NoCrash "regular" tier of scripts/run_nocrash_eval.py (Town01
+    [20, 50] town-wide -> 3 vehicles and 6 walkers on the route), in eval
+    mode."""
+    from cadre_tpu_torch.envs.torch_env import EnvConfig
+
+    return EnvConfig(training=False, n_vehicles=3, n_walkers=6)
+
+
+def member_snapshots(agent, k: int, what: str):
+    """k random member snapshots of `agent`'s banks (seeds 0..k-1), saved
+    with save_snapshot under build/; returns their paths."""
+    import os
+
+    import torch
+
+    from cadre_tpu_torch.models.policy import PolicyBank
+
+    cfg, f = agent.agent_cfg, agent.obs_dim
+    paths = []
+    for seed in range(k):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            banks = {s: PolicyBank(cfg.command_num, a, f).state_dict()
+                     for s, a in (("steer", cfg.num_steer_outputs),
+                                  ("throttle", cfg.num_throttle_outputs))}
+        paths.append(os.path.join(_smoke_dir(what), f"member_{seed}.pt"))
+        torch.save(banks, paths[-1])
+    return paths
+
+
+def _check_rows(rows, what):
+    for r in rows:
+        require(0.0 <= r["completion"] <= 1.0
+                and 0.0 <= r["driving_score"] <= 100.0
+                and r["error"] != "exceed speed", f"{what}: bad row {r}")
+
+
+def phase_eval():
+    """The eval path at full width; returns its launch counts."""
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.envs.torch_env import DrivingEnv
+    from cadre_tpu_torch.rl.agent import CadreAgent, Ensemble
+    from cadre_tpu_torch.rl.device_eval import (
+        evaluate_device,
+        evaluate_ensemble,
+    )
+
+    t0 = time.perf_counter()
+    bank = eval_bank("cuda")
+    lens = bank.route_len.tolist()
+    print(f"[7a] bank of {len(lens)} Town01 routes traced from "
+          f"{eval_routes()} in {time.perf_counter() - t0:.2f} s: "
+          f"{min(lens)}-{max(lens)} m, "
+          f"{int((bank.lights[..., 0] < 1e7).sum())} lights")
+    short = list(range(EVAL_ENVS - EVAL_SHORT, EVAL_ENVS))
+    require(len(lens) == EVAL_ENVS
+            and min(lens[:EVAL_ENVS - EVAL_SHORT]) > 20
+            and all(lens[i] <= 13 for i in short), f"eval bank {lens}")
+
+    agent = CadreAgent.create(danet_params(), bf16_encoder=True,
+                              device="cuda")
+    paths = member_snapshots(agent, EVAL_MEMBERS, "smoke_members")
+    env = DrivingEnv(bank, EVAL_ENVS, eval_env_config(), device="cuda")
+    ids = list(range(EVAL_ENVS))
+    evaluate_device(agent, env, paths, max_steps=2, seed=1, route_ids=ids)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows, launches = _counted(lambda: evaluate_device(
+        agent, env, paths, max_steps=EVAL_STEPS, seed=7, route_ids=ids))
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    ensemble = Ensemble.load(agent, paths)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want = {"paint": 2 + 2 * EVAL_STEPS, "dual_attention": 1 + EVAL_STEPS}
+    require(launches == want, f"eval launches {launches}, not {want}")
+    _check_rows(rows, "eval")
+    require(all(r["route_id"] in ids for r in rows)
+            and len({r["route_id"] for r in rows}) == len(rows),
+            "eval: more than one row for a route")
+    require(set(short) <= {r["route_id"] for r in rows},
+            f"eval: the short routes {short} scored no row")
+    run_s = seconds - load_s
+    errors = {}
+    for r in rows:
+        errors[r["error"]] = errors.get(r["error"], 0) + 1
+    print(f"[7b] eval K={EVAL_MEMBERS} N={EVAL_ENVS} {EVAL_STEPS} steps "
+          f"(bf16 encoder, regular tier): {seconds:.3f} s with the "
+          f"snapshot load (timed alone after it: {load_s:.3f} s); without "
+          f"it "
+          f"{EVAL_ENVS * EVAL_STEPS / run_s:.1f} eval env-steps/s, "
+          f"{EVAL_MEMBERS * EVAL_ENVS * EVAL_STEPS / run_s:.1f} "
+          f"member-steps/s; peak memory allocated {peak / 2**30:.2f} GiB; "
+          f"{len(rows)} routes finished: {errors}; launches {launches}")
+    if rows:
+        print(f"[7b] mean completion {sum(r['completion'] for r in rows) / len(rows):.4f}, "
+              f"mean driving score "
+              f"{sum(r['driving_score'] for r in rows) / len(rows):.3f}")
+    prof_steps = 5
+    profile(lambda: evaluate_ensemble(agent, env, ensemble,
+                                      max_steps=prof_steps, seed=8,
+                                      route_ids=ids),
+            f"an eval of {prof_steps} steps (members loaded)", prof_steps,
+            "eval step", tag="7b")
+    nocrash_train(agent)
+    eval_cpu_agreement()
+    expert_on_eval_bank(bank)
+    return launches
+
+
+def nocrash_train(agent):
+    """One training iteration with the NoCrash options at N_ENVS x
+    T_STEPS on a bank of Town01 traces (scripts/run_nocrash_eval.py's
+    training env plus hazards and stop signs)."""
+    import numpy as np
+    import torch
+
+    from cadre_tpu_torch.configs.agent_config import RolloutConfig
+    from cadre_tpu_torch.envs.route_parser import parse_routes_file
+    from cadre_tpu_torch.envs.torch_env import (
+        DrivingEnv,
+        EnvConfig,
+        make_route_bank,
+    )
+    from cadre_tpu_torch.envs.town_maps import town_map, trace_dense_route
+    from cadre_tpu_torch.rl.device_rollout import make_device_iteration
+    from cadre_tpu_torch.rl.ppo import make_optimizer
+
+    town = town_map("Town01")
+    dense = [trace_dense_route(town, np.asarray([w.xy for w in r.trajectory]))
+             for r in parse_routes_file(eval_routes())]
+    bank = make_route_bank(len(dense), seed=3, dense_routes=dense,
+                           stop_sign_prob=0.5, device="cuda")
+    cfg = EnvConfig(n_vehicles=8, n_walkers=0, priority_routes=True,
+                    n_hazards=2, n_junction_hazards=1)
+    env = DrivingEnv(bank, N_ENVS, cfg, seed=3, device="cuda")
+    iteration, init_carry = make_device_iteration(
+        agent, env, RolloutConfig(num_steps=T_STEPS), seed=3)
+    opt = make_optimizer(agent.policy_parameters(), agent.ppo_cfg)
+    carry = init_carry()
+    pinned = list(range(NOCRASH_PINNED))
+    carry = carry._replace(env_state=_midway_timed_out(
+        carry.env_state, bank, pinned))
+    t0 = time.perf_counter()
+    (carry, m), launches = _counted(lambda: iteration(opt, carry))
+    float(m.checksum)
+    seconds = time.perf_counter() - t0
+    want = {"paint": 2 * T_STEPS, "dual_attention": T_STEPS + 1}
+    require(launches == want, f"NoCrash iteration launches {launches}, "
+            f"not {want}")
+    for name, t in m._asdict().items():
+        if isinstance(t, torch.Tensor):
+            _finite(f"NoCrash iteration {name}", t)
+    for name, t in carry.env_state._asdict().items():
+        _finite(f"NoCrash env state {name}", t)
+    for i, p in enumerate(agent.policy_parameters()):
+        _finite(f"NoCrash policy parameter {i}", p.detach())
+    moved = (carry.env_state.route_prio < 100).any(1)
+    require(float(m.episodes_done) >= len(pinned)
+            and bool(moved[pinned].all()),
+            f"NoCrash iteration: {float(m.episodes_done):.0f} episodes "
+            f"ended, priority moved in envs "
+            f"{moved.nonzero().flatten().tolist()}, not in all of {pinned}")
+    n_signs = int((bank.stop_signs[..., 0] < 1e7).sum())
+    print(f"[7c] NoCrash training iteration N={N_ENVS} T={T_STEPS} "
+          f"(8 vehicles, 2 + 1 hazards, priority routes, {n_signs} stop "
+          f"signs in {len(dense)} traced routes): {seconds:.3f} s, "
+          f"episodes_done {float(m.episodes_done):.0f}, routes below "
+          f"priority 100: "
+          f"{int((carry.env_state.route_prio < 100).any(0).sum())}, envs "
+          f"with a moved priority: {int(moved.sum())}; launches "
+          f"{launches}")
+
+
+def _midway_timed_out(state, bank, envs):
+    """`state` with each env of `envs` halfway along its route, facing
+    along it, and past its route timeout, so that its episode ends on the
+    next step at about half completion (the env tests' way of forcing an
+    end)."""
+    import torch
+
+    state = state._replace(**{k: getattr(state, k).clone() for k in
+                              ("pos", "yaw", "head", "progress", "step")})
+    for i in envs:
+        r = int(state.route_id[i])
+        j = int(bank.route_len[r]) // 2
+        d = bank.routes[r, j + 1] - bank.routes[r, j]
+        state.pos[i] = bank.routes[r, j]
+        state.yaw[i] = torch.rad2deg(torch.atan2(d[1], d[0]))
+        state.head[i] = j - 1
+        state.progress[i] = j
+        state.step[i] = 100000
+    return state
+
+
+def eval_cpu_agreement():
+    """A small f32 agent, K=2 members, N=3 envs, 8 eval steps on the card
+    and on the CPU from the same draws, on a bank whose two short routes
+    end their episodes: equal rows (error, steps, infractions, route),
+    completion within 1e-3, driving score within 0.1."""
+    import numpy as np
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.envs.route_parser import interpolate_route
+    from cadre_tpu_torch.envs.synthetic import synthetic_route
+    from cadre_tpu_torch.envs.torch_env import (
+        DrivingEnv,
+        EnvConfig,
+        draw_step,
+        make_route_bank,
+    )
+    from cadre_tpu_torch.rl.agent import CadreAgent
+    from cadre_tpu_torch.rl.device_eval import EvalDraws, evaluate_device
+    from cadre_tpu_torch.rl.device_rollout import ActDraws
+    from cadre_tpu_torch.rl.distributions import gumbel
+
+    k, n, steps = 2, 3, 8
+    small = danet_params(da_feature_channel=32, inter_att_dims=24, z_dims=16)
+    cfg = EnvConfig(n_vehicles=2, n_walkers=2, n_hazards=1,
+                    n_junction_hazards=1, training=False)
+    dense = [np.asarray([[0.0, 0.0], [1.0, 0.0], [2.0, 0.0]]),
+             np.asarray([[0.0, 0.0], [0.0, 1.5], [0.0, 3.0]]),
+             interpolate_route(synthetic_route(np.random.RandomState(4)))]
+    gen = torch.Generator()
+    gen.manual_seed(9)
+    cpu = torch.device("cpu")
+    draws = EvalDraws(draw_step(cfg, 3, n, gen, cpu), [
+        ActDraws(gumbel((k, n, 33), gen, cpu), gumbel((k, n, 3), gen, cpu),
+                 draw_step(cfg, 3, n, gen, cpu)) for _ in range(steps)])
+
+    def on(dev, x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        if isinstance(x, (tuple, list)):
+            items = [on(dev, y) for y in x]
+            return type(x)(*items) if hasattr(x, "_fields") else \
+                type(x)(items)
+        return x
+
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        agent = CadreAgent.create(small, seed=1, device=dev)
+        with torch.no_grad():
+            agent.encoder.da_head.sa.gamma.fill_(0.5)
+            agent.encoder.da_head.sc.gamma.fill_(0.3)
+        paths = member_snapshots(agent, k, f"smoke_small_members_{dev}")
+        env = DrivingEnv(make_route_bank(3, seed=5, dense_routes=dense,
+                                         device=dev), n, cfg, device=dev)
+        rows[dev] = evaluate_device(agent, env, paths, draws=on(dev, draws))
+    c, g = rows["cpu"], rows["cuda"]
+    require(len(c) == len(g) >= 2, f"eval cuda vs cpu: {len(g)} rows on "
+            f"the card, {len(c)} on the CPU")
+    worst = [0.0, 0.0]
+    for a, b in zip(g, c):
+        for key in ("error", "steps", "red_lights", "stops"):
+            require(a[key] == b[key], f"eval cuda vs cpu: {a} vs {b}")
+        worst[0] = max(worst[0], abs(a["completion"] - b["completion"]))
+        worst[1] = max(worst[1], abs(a["driving_score"] - b["driving_score"]))
+    require(worst[0] <= 1e-3 and worst[1] <= 0.1,
+            f"eval cuda vs cpu: completion {worst[0]:.3g}, driving score "
+            f"{worst[1]:.3g}")
+    print(f"[7d] eval cuda vs cpu, small f32 agent, K={k} N={n} {steps} "
+          f"steps, same draws: {len(g)} rows, errors and steps equal; "
+          f"completion within {worst[0]:.3g} (bound 1e-3), driving score "
+          f"within {worst[1]:.3g} (bound 0.1)")
+
+
+def expert_on_eval_bank(bank):
+    """The scripted expert on the card over the eval bank: no traffic, no
+    rendering, EVAL_ENVS envs for 300 steps."""
+    import numpy as np
+    import torch
+
+    from cadre_tpu_torch.envs.torch_env import EnvConfig
+    from cadre_tpu_torch.envs.torch_expert import expert_episode_stats
+
+    steps = 300
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comp, err = expert_episode_stats(
+        bank, num_envs=EVAL_ENVS, steps=steps, seed=0, device="cuda",
+        config=EnvConfig(render=False, n_vehicles=0, n_walkers=0))
+    seconds = time.perf_counter() - t0
+    require(np.isfinite(comp).all() and ((comp >= 0) & (comp <= 1)).all(),
+            "expert: completion out of [0, 1]")
+    share = float(np.mean(err == 6)) if len(err) else float("nan")
+    mean = float(np.mean(comp)) if len(comp) else float("nan")
+    print(f"[7e] expert over the eval bank, N={EVAL_ENVS}, {steps} steps "
+          f"(no traffic, no rendering): {seconds:.3f} s, "
+          f"{EVAL_ENVS * steps / seconds:.1f} env-steps/s; {len(comp)} "
+          f"episodes finished, mean completion {mean:.4f}, success share "
+          f"{share:.3f}")
+
+
 # ------------------------------------------- kernel times of checkouts
 
 def _timing_inputs(device):
@@ -1098,11 +1476,13 @@ def main(argv) -> int:
         launches = phase_slice()
         phase_cpu_agreement()
         phase_cli()
+        eval_launches = phase_eval()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
+        entry["launches_eval"] = eval_launches[name]
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

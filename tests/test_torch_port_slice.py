@@ -166,11 +166,21 @@ def test_route_bank_equals_jax():
 
 
 def _reset_draws_one(cfg, n_routes, key):
-    """_reset_one's draws from its key, as the JAX env makes them."""
+    """_reset_one's draws from its key, as the JAX env makes them
+    (`jax.random.categorical(k, prio)` is argmax(gumbel(k, (K,)) + prio))."""
     k_route, k_obs, k_weather, k_state = jax.random.split(key, 4)
-    ks = jax.random.split(k_obs, 7)
-    m = max(cfg.n_vehicles + cfg.n_walkers, 1)
+    ks = list(jax.random.split(k_obs, 7)) + [jax.random.fold_in(k_obs, 101),
+                                             jax.random.fold_in(k_obs, 102)]
+    m = max(cfg.n_vehicles + cfg.n_walkers + cfg.n_hazards
+            + cfg.n_junction_hazards, 1)
     u = jax.random.uniform
+    if cfg.priority_routes:
+        k_eps, k_soft, k_route = jax.random.split(k_route, 3)
+        prio = dict(prio_eps=u(k_eps),
+                    prio_gumbel=jax.random.gumbel(k_soft, (n_routes,)))
+    else:
+        prio = dict(prio_eps=jnp.zeros(()),
+                    prio_gumbel=jnp.zeros((n_routes,)))
     return k_state, dict(
         route=jax.random.randint(k_route, (), 0, n_routes),
         spawn=jax.random.randint(ks[0], (m,), 0, 1 << 30),
@@ -180,7 +190,13 @@ def _reset_draws_one(cfg, n_routes, key):
         cruise=u(ks[6], (m,), minval=cfg.npc_cruise[0],
                  maxval=cfg.npc_cruise[1]),
         weather=jax.random.randint(k_weather, (), 0,
-                                   len(jax_env._WNAMES)))
+                                   len(jax_env._WNAMES)),
+        side=jax.random.bernoulli(ks[4], shape=(m,)),
+        hazard_speed=u(ks[5], (m,), minval=1.2, maxval=2.0),
+        junction_light=jax.random.randint(ks[7], (m,), 0, 1 << 30),
+        junction_speed=u(ks[8], (m,), minval=cfg.junction_hazard_speed[0],
+                         maxval=cfg.junction_hazard_speed[1]),
+        **prio)
 
 
 def _noise(key):
@@ -193,13 +209,21 @@ def _torch_draws(reset, noise):
     return torch_env.StepDraws(reset, torch.from_numpy(np.array(noise)))
 
 
+@functools.lru_cache(maxsize=None)
+def _reset_draws_fn(cfg, n_routes, n):
+    def draws(key):
+        k_state, reset = jax.vmap(
+            lambda k: _reset_draws_one(cfg, n_routes, k))(
+                jax.random.split(key, n))
+        return reset, jax.vmap(lambda k: _noise(jax.random.split(k)[1]))(
+            k_state)
+
+    return jax.jit(draws)
+
+
 def jax_reset_draws(cfg, n_routes, key, n):
     """Port draws equal to what JaxDrivingEnv.reset(key) uses."""
-    keys = jax.random.split(key, n)
-    k_state, reset = jax.vmap(
-        lambda k: _reset_draws_one(cfg, n_routes, k))(keys)
-    noise = jax.vmap(lambda k: _noise(jax.random.split(k)[1]))(k_state)
-    return _torch_draws(reset, noise)
+    return _torch_draws(*_reset_draws_fn(cfg, n_routes, n)(key))
 
 
 @functools.lru_cache(maxsize=None)
@@ -233,9 +257,16 @@ def _state_dict(state):
     return {k: np.asarray(v) for k, v in state._asdict().items()}
 
 
-def _assert_state_close(ours, ref, what):
+def _assert_state_close(ours, ref, what, prio=True):
+    """Every field of the port's EnvState against the JAX state's. With
+    `prio` False the port's route priorities must be the untouched table
+    of 100s instead: without priority routes the port leaves the table as
+    reset made it, where the JAX env updates it at every episode's end."""
     ref = _state_dict(ref)
     for name in torch_env.EnvState._fields:
+        if name == "route_prio" and not prio:
+            assert (ours.route_prio == 100.0).all(), what
+            continue
         a, b = getattr(ours, name).numpy(), ref[name]
         if np.issubdtype(b.dtype, np.integer):
             np.testing.assert_array_equal(a, b, err_msg=f"{what} {name}")
@@ -295,7 +326,7 @@ def test_env_reset_and_steps_match_jax(variant):
                                        np.asarray(getattr(jout, name)),
                                        atol=1e-3, err_msg=f"{what} {name}")
         _assert_obs_close(tout._asdict(), jout._asdict(), what)
-        _assert_state_close(tstate, jstate, what)
+        _assert_state_close(tstate, jstate, what, prio=cfg.priority_routes)
         done_any |= np.asarray(jout.done)
     assert done_any[0]
     assert done_any[1] == cfg.training     # overspeed ends training only

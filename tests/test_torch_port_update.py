@@ -505,9 +505,7 @@ def test_cli_trains_and_saves_a_snapshot(tmp_path):
             torch.testing.assert_close(v, saved[name][k], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("flag", ["--routes=r.xml", "--hazards=2",
-                                  "--priority-routes",
-                                  "--danet-checkpoint=d.pt",
+@pytest.mark.parametrize("flag", ["--danet-checkpoint=d.pt",
                                   "--config=c.py"])
 def test_cli_unported_flag_raises(flag):
     from cadre_tpu_torch import main
