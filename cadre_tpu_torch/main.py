@@ -7,7 +7,10 @@ snapshot of both policy banks is saved at the end to
 <work-dir>/models/ppo_model_<iterations>.pt. `--routes` banks the routes
 of a route XML instead of synthetic ones, `--hazards` arms that many
 crossing pedestrians per episode and `--priority-routes` turns on the
-route curriculum. It runs on the GPU unless given `--device cpu`.
+route curriculum. `--danet-checkpoint` freezes a trained encoder (a
+`python -m cadre_tpu_torch.train_perception` checkpoint or a
+reference-format .pt) in the agent instead of a random one: the cascade's
+second stage. It runs on the GPU unless given `--device cpu`.
 """
 from __future__ import annotations
 
@@ -18,7 +21,6 @@ import os
 # flags of the JAX CLI whose features the port does not have yet, by the
 # ROADMAP.md queue A item that ports them
 UNPORTED = {
-    "danet_checkpoint": "encoder checkpoints, ROADMAP.md queue A item 15",
     "config": "experiment config files, ROADMAP.md queue A item 15",
 }
 
@@ -46,8 +48,9 @@ def parse_args(argv=None):
                    help="Scenario-3 crossing pedestrians per episode")
     p.add_argument("--priority-routes", action="store_true",
                    help="priority route curriculum (per-env route table)")
-    # not ported yet: each raises (see UNPORTED)
-    p.add_argument("--danet-checkpoint", default=None)
+    p.add_argument("--danet-checkpoint", default=None,
+                   help="trained encoder (.pt) to freeze in the agent")
+    # not ported yet: raises (see UNPORTED)
     p.add_argument("--config", default=None)
     return p.parse_args(argv)
 
@@ -78,7 +81,14 @@ def main(argv=None) -> str:
         "result", now.strftime("%Y-%m-%d"), now.strftime("%H-%M-%S"))
     danet_cfg = danet_params() if not args.small else danet_params(
         da_feature_channel=64, inter_att_dims=48, z_dims=32)
-    agent = CadreAgent.create(danet_cfg, seed=args.seed, device=args.device)
+    encoder_state = None
+    if args.danet_checkpoint:
+        from cadre_tpu_torch.utils.checkpoint import load_danet_checkpoint
+
+        encoder_state = load_danet_checkpoint(args.danet_checkpoint,
+                                              danet_cfg)
+    agent = CadreAgent.create(danet_cfg, seed=args.seed, device=args.device,
+                              encoder_state=encoder_state)
     rollout_cfg = RolloutConfig(num_steps=args.num_steps,
                                 seq_length=args.seq_length,
                                 feature_dims=agent.obs_dim)

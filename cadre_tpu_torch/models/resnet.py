@@ -3,13 +3,16 @@
 PyTorch counterpart of cadre_tpu.models.resnet. Module names follow the
 reference's torch checkpoints (backbone.conv1, backbone.layer1.0.conv1,
 backbone.layer1.0.downsample.0, ...). Torch defaults already give what the
-JAX package's torch_compat helpers emulate: symmetric integer padding,
-max pooling padded with -inf, BatchNorm eps 1e-5.
+JAX package's torch_compat helpers emulate: symmetric integer padding and
+max pooling padded with -inf. BatchNorm is `torch_compat.BatchNorm2d`
+(eps 1e-5, flax's running-variance update in train mode).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from cadre_tpu_torch.models.torch_compat import BatchNorm2d
 
 _STAGE_PLANES = (64, 128, 256, 512)
 RESNET_SPECS = {"resnet18": (2, 2, 2, 2)}
@@ -19,14 +22,14 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes, 1, stride, bias=False),
-                nn.BatchNorm2d(planes))
+                BatchNorm2d(planes))
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -43,7 +46,7 @@ class ResNetBackbone(nn.Module):
         if arch not in RESNET_SPECS:
             raise NotImplementedError(f"backbone {arch!r} is not ported")
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=True)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         inplanes = 64
         for stage, (planes, blocks) in enumerate(
                 zip(_STAGE_PLANES, RESNET_SPECS[arch])):

@@ -10,9 +10,18 @@ input type before it is applied, and the branch output is rounded to the
 input type before the gamma residual. `fused_dual_attention` computes both
 branches with the hand-written kernel (`csrc/dual_attention.cu`: several
 blocks per batch row, bf16 products on the tensor cores) for CUDA tensors
-and with the plain versions for CPU tensors. The kernel adds the
-residual in f32 and rounds once, as the TPU kernel did, so in bf16 the two
-differ by about one unit in the last place.
+and with the plain versions, under ordinary autograd, for CPU tensors. The
+kernel adds the residual in f32 and rounds once, as the TPU kernel did, so
+in bf16 the two differ by about one unit in the last place.
+
+On CUDA tensors that need a gradient, `fused_dual_attention` is the
+autograd function `DualAttention`: its forward is that kernel and its
+backward the hand-written backward kernel (`csrc/dual_attention_bwd.cu`,
+f32; `dual_attention_backward`). The JAX package has no backward kernel:
+its gradient is XLA's autodiff of the plain functions, which
+`dual_attention_backward_ref` (autograd through pam_apply / cam_apply) is
+here. A call in another type that needs a gradient raises: a kernel never
+returns outputs detached from inputs that require one.
 All tensors are NHWC: x, v [B, H, W, C]; q, k [B, H, W, Cqk].
 """
 from __future__ import annotations
@@ -25,11 +34,13 @@ import torch
 
 from cadre_tpu_torch.ops import _build
 
-launches = 0                       # kernel launches made by fused_dual_attention
+launches = 0              # forward kernel launches (fused_dual_attention)
+backward_launches = 0     # backward kernel launches (dual_attention_backward)
 
 _ENTRY = {torch.float32: "dual_attention_f32",
           torch.bfloat16: "dual_attention_bf16"}
-_MAX_P, _MAX_C, _MAX_D = 64, 128, 32    # what the kernel takes (with C % 32)
+_BWD_ENTRY = {torch.float32: "dual_attention_bwd_f32"}
+_MAX_P, _MAX_C, _MAX_D = 64, 128, 32    # what the kernels take (with C % 32)
 
 
 def pam_apply(x, q, k, v, gamma) -> torch.Tensor:
@@ -122,11 +133,105 @@ def _dual_attention_cuda(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam):
     return out_p, out_c
 
 
-def fused_dual_attention(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(PAM(x_pam), CAM(x_cam)): the CUDA kernel for CUDA tensors, the plain
-    versions for CPU tensors."""
-    if x_pam.is_cuda:
+@functools.lru_cache(maxsize=None)
+def _bwd_entry(dtype: torch.dtype):
+    """The backward kernel's C entry for `dtype`, loaded and typed once."""
+    fn = getattr(_build.load("dual_attention_bwd"), _BWD_ENTRY[dtype])
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dual_attention_backward(q, k, v, gamma_pam, x_cam, gamma_cam, dy_pam,
+                            dy_cam):
+    """Gradients of (PAM(x_pam), CAM(x_cam)) given the upstream gradients,
+    by the backward kernel (CUDA tensors, f32): (dx_pam, dq, dk, dv,
+    dgamma_pam, dx_cam, dgamma_cam), each gamma's gradient shaped and typed
+    as the gamma. x_pam is not an input: its gradient is dy_pam. The
+    attention matrices are recomputed from the inputs, not saved. Each
+    gamma's gradient is a sum over B * P * C terms, taken in a fixed order
+    (per batch row in the kernel, then over the rows), so it is the same
+    from run to run."""
+    global backward_launches
+    dtype = x_cam.dtype
+    if dtype not in _BWD_ENTRY:
+        raise TypeError(f"dual_attention: no backward kernel for {dtype}; "
+                        "train in float32")
+    b, h, w, c = x_cam.shape
+    p, d = h * w, q.shape[-1]
+    dy_pam, dy_cam = dy_pam.contiguous(), dy_cam.contiguous()
+    tensors = (q, k, v, x_cam, dy_pam, dy_cam)
+    if any(t.dtype != dtype or t.device != x_cam.device for t in tensors):
+        raise TypeError("dual_attention backward: inputs differ in dtype "
+                        "or device")
+    if (tuple(v.shape) != (b, h, w, c) or tuple(dy_pam.shape) != (b, h, w, c)
+            or tuple(dy_cam.shape) != (b, h, w, c)
+            or tuple(q.shape) != (b, h, w, d)
+            or tuple(k.shape) != (b, h, w, d)):
+        raise ValueError("dual_attention backward: shapes disagree")
+    _check_shape(p, c, d)
+    if not all(t.is_contiguous() for t in (q, k, v, x_cam)):
+        raise ValueError("dual_attention backward: inputs must be contiguous")
+    gp = _gamma(gamma_pam, dtype, x_cam.device)
+    gc = _gamma(gamma_cam, dtype, x_cam.device)
+    dq, dk = torch.empty_like(q), torch.empty_like(k)
+    dv, dx_cam = torch.empty_like(v), torch.empty_like(x_cam)
+    # per batch row: [0, B) PAM's share of dgamma_pam, [B, 2B) CAM's
+    part = torch.empty(2, b, dtype=torch.float32, device=x_cam.device)
+    if b:
+        _build.check(_bwd_entry(dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), gp.data_ptr(),
+            x_cam.data_ptr(), gc.data_ptr(), dy_pam.data_ptr(),
+            dy_cam.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dx_cam.data_ptr(), part.data_ptr(), b, p, c, d,
+            _build.cuda_stream(x_cam)), "dual_attention backward")
+        backward_launches += 1
+    sums = part.sum(dim=1)
+    return (dy_pam, dq, dk, dv,
+            sums[0].reshape(gamma_pam.shape).to(gamma_pam.dtype), dx_cam,
+            sums[1].reshape(gamma_cam.shape).to(gamma_cam.dtype))
+
+
+def dual_attention_backward_ref(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam,
+                                dy_pam, dy_cam):
+    """The plain version of `dual_attention_backward`: autograd through
+    pam_apply and cam_apply (the JAX package's gradient is XLA's autodiff
+    of the same functions). Same outputs, in the same order."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (x_pam, q, k, v, gamma_pam, x_cam, gamma_cam)]
+        out_p = pam_apply(*ins[:5])
+        out_c = cam_apply(ins[5], ins[6])
+        return torch.autograd.grad((out_p, out_c), ins, (dy_pam, dy_cam))
+
+
+class DualAttention(torch.autograd.Function):
+    """Both branches on CUDA tensors: forward kernel, backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x_pam, q, k, v, gamma_pam, x_cam, gamma_cam):
+        ctx.save_for_backward(q, k, v, gamma_pam, x_cam, gamma_cam)
         return _dual_attention_cuda(x_pam, q, k, v, gamma_pam, x_cam,
                                     gamma_cam)
-    return pam_apply(x_pam, q, k, v, gamma_pam), cam_apply(x_cam, gamma_cam)
+
+    @staticmethod
+    def backward(ctx, dy_pam, dy_cam):
+        return dual_attention_backward(*ctx.saved_tensors, dy_pam, dy_cam)
+
+
+def fused_dual_attention(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(PAM(x_pam), CAM(x_cam)): the CUDA kernels for CUDA tensors (through
+    `DualAttention` when a gradient is needed, which only f32 has), the
+    plain versions for CPU tensors."""
+    args = (x_pam, q, k, v, gamma_pam, x_cam, gamma_cam)
+    if not x_pam.is_cuda:
+        return pam_apply(*args[:5]), cam_apply(x_cam, gamma_cam)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        if x_pam.dtype not in _BWD_ENTRY:
+            raise TypeError(f"dual_attention: a gradient is needed, but "
+                            f"there is no backward kernel for "
+                            f"{x_pam.dtype}; train in float32")
+        return DualAttention.apply(*args)
+    return _dual_attention_cuda(*args)

@@ -2,8 +2,10 @@
 steer and throttle policy banks.
 
 PyTorch counterpart of the device-path pieces of cadre_tpu.rl.agent:
-`preprocess_obs`, `latent_features`, `CadreAgent.create` and
-`act_from_hist` (the JAX package's `_act_from_hist`), the PPO
+`preprocess_obs`, `latent_features`, `CadreAgent.create` (random
+encoder weights, or a trained encoder's: the cascade's handoff from
+perception pretraining) and `act_from_hist` (the JAX package's
+`_act_from_hist`), the PPO
 configuration, the policy snapshots (native torch files; reading the JAX
 package's msgpack snapshots is not ported yet, nor are the host-env act
 loops) and an ensemble of snapshots acting as one (`Ensemble`, the
@@ -70,20 +72,29 @@ class CadreAgent:
     def create(cls, danet_cfg: Optional[DANetParams] = None,
                agent_cfg: Optional[AgentConfig] = None,
                ppo_cfg: Optional[PPOConfig] = None, *, seed: int = 0,
-               bf16_encoder: bool = False, device="cuda") -> "CadreAgent":
+               bf16_encoder: bool = False, device="cuda",
+               encoder_state: Optional[dict] = None) -> "CadreAgent":
         """Random weights from `seed` (the global torch generator is left
-        untouched); `bf16_encoder` casts the whole encoder to bf16."""
+        untouched); `encoder_state`, a DANet state_dict (a trained
+        encoder's, `utils.checkpoint.load_danet_checkpoint`), replaces the
+        encoder's: every key of the latent path must be there, decoder and
+        head keys are ignored. `bf16_encoder` casts the whole encoder to
+        bf16."""
         agent_cfg = agent_cfg or AgentConfig()
         danet_cfg = danet_cfg or danet_params()
         dev = resolve_device(device)
         f = danet_cfg.latent_dim + agent_cfg.measurement_dim
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            encoder = DANet(danet_cfg)
+            encoder = DANet(danet_cfg, latent_only=True)
             steer = PolicyBank(agent_cfg.command_num,
                                agent_cfg.num_steer_outputs, f)
             throttle = PolicyBank(agent_cfg.command_num,
                                   agent_cfg.num_throttle_outputs, f)
+        if encoder_state is not None:
+            keys = encoder.state_dict().keys()
+            encoder.load_state_dict({k: v for k, v in encoder_state.items()
+                                     if k in keys})
         encoder = encoder.eval().to(dev, memory_format=torch.channels_last)
         if bf16_encoder:     # parameters and buffers, BN statistics too
             encoder = encoder.to(torch.bfloat16)

@@ -6,10 +6,13 @@ Every function takes plain numpy data (nested dicts of arrays, as
   policy_from_flax      one stacked policy bank -> PolicyBank state_dict
   env_state_from_numpy  a JaxEnvState's fields -> EnvState
   route_bank_from_numpy a RouteBank's fields -> RouteBank
-Layouts: conv HWIO -> OIHW, Dense [in, out] -> Linear [out, in], BatchNorm
-scale/bias/mean/var -> weight/bias/running_mean/running_var. The flax
-InterTaskAtt flattens NCHW-first (`flatten_nchw`), as the port's
-`nn.Flatten` on NCHW does, so its fc1 needs no permutation.
+Layouts: conv HWIO -> OIHW, ConvTranspose HWIO -> torch's [I, O, kh, kw]
+by transpose(2, 3, 0, 1) with no flip (the JAX `conv_transpose_torch`
+flips at apply time; `checkpoint._convT_w` is the inverse), Dense
+[in, out] -> Linear [out, in], BatchNorm scale/bias/mean/var ->
+weight/bias/running_mean/running_var. Every flax Dense that reads a map
+reads it `flatten_nchw`-ordered, as the port's flatten of an NCHW map is,
+so none needs a permutation.
 """
 from __future__ import annotations
 
@@ -49,10 +52,32 @@ def _bn(out: StateDict, key: str, p: Mapping[str, Any],
     out[key + ".num_batches_tracked"] = torch.tensor(0)
 
 
+def _conv_transpose(out: StateDict, key: str, p: Mapping[str, Any]) -> None:
+    out[key + ".weight"] = _t(np.transpose(p["kernel"], (2, 3, 0, 1)))
+    out[key + ".bias"] = _t(p["bias"])
+
+
+def _decoder(out: StateDict, key: str, p: Mapping[str, Any],
+             s: Mapping[str, Any]) -> None:
+    """A ReverseDecoder: up{i}_conv / up{i}_bn -> Sequential indices 3i and
+    3i + 1, out_conv -> 12."""
+    for i in range(4):
+        _conv_transpose(out, f"{key}.{3 * i}", p[f"up{i}_conv"])
+        _bn(out, f"{key}.{3 * i + 1}", p[f"up{i}_bn"], s[f"up{i}_bn"])
+    _conv_transpose(out, f"{key}.12", p["out_conv"])
+
+
+def _mlp(out: StateDict, key: str, p: Mapping[str, Any], names,
+         indices) -> None:
+    for name, i in zip(names, indices):
+        _dense(out, f"{key}.{i}", p[name])
+
+
 def danet_from_flax(variables: Mapping[str, Any],
                     cfg: DANetParams) -> StateDict:
     """Flax DANet variables {'params', 'batch_stats'} -> the state_dict of
-    the port's DANet (latent path; decoder heads are skipped)."""
+    the port's DANet: every module the variables hold (those of
+    `DANet.latent` alone give a `latent_only` DANet's)."""
     p, s = variables["params"], variables["batch_stats"]
     out: StateDict = {}
     bb, bbs = p["backbone"], s["backbone"]
@@ -79,10 +104,40 @@ def danet_from_flax(variables: Mapping[str, Any],
     out["da_head.sc.gamma"] = _t(dh["sc"]["gamma"])
     _conv(out, "da_head.conv8.1", dh["conv8_conv"])
     _conv(out, "visual_conv", p["visual_conv"])
-    _conv(out, "bc_conv", p["bc_conv"])
-    for name, mlp in p["inter_task_att"].items():
-        _dense(out, f"inter_task_att.{name}_layer.1", mlp["fc1"])
-        _dense(out, f"inter_task_att.{name}_layer.3", mlp["fc2"])
+    if "bc_conv" in p:
+        _conv(out, "bc_conv", p["bc_conv"])
+    for name, sub in p.get("inter_task_att", {}).items():
+        key = f"inter_task_att.{name}"
+        if name.endswith("_gamma"):                      # 'position'
+            out[key] = _t(sub)
+        elif "fc1" in sub:                 # 'transformer' / 'invaild' MLPs
+            _mlp(out, key + "_layer", sub, ("fc1", "fc2"), (1, 3))
+        else:                                            # 'position' conv
+            _conv(out, key, sub)
+    vb, vbs = p.get("visual_branch"), s.get("visual_branch", {})
+    if vb is not None:
+        _mlp(out, "visual_branch.reverse_feature", vb,
+             ("reverse_feature_fc1", "reverse_feature_fc2"), (0, 2))
+        for name, sub in vb.items():
+            if name.startswith("reverse_") and "out_conv" in sub:
+                _decoder(out, f"visual_branch.{name}", sub, vbs[name])
+        for head in ("reverse_lightState", "reverse_lightDist"):
+            if f"{head}_fc1" in vb:
+                _mlp(out, f"visual_branch.{head}", vb,
+                     tuple(f"{head}_fc{i}" for i in (1, 2, 3)), (1, 3, 5))
+    if "bc_branch" in p:
+        _mlp(out, "bc_branch.bc_model", p["bc_branch"], ("fc1", "fc2"),
+             (1, 3))
+    if "in_bc_speed_fc1" in p:
+        _mlp(out, "in_bc_speed_fc", p, ("in_bc_speed_fc1",
+                                        "in_bc_speed_fc2"), (1, 3))
+    for name in ("visual_fc1", "visual_fc2"):
+        if name in p:
+            _dense(out, name, p[name])
+    if "route_geom_branch" in p:
+        for name in ("fc1", "fc2"):
+            _dense(out, f"route_geom_branch.{name}",
+                   p["route_geom_branch"][name])
     return out
 
 

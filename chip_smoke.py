@@ -11,8 +11,11 @@ Phases, each of which must pass:
   3. each kernel against its plain PyTorch version on the card: paint
      bit-equal on random, tile-edge and main-path tables and on those of
      an eval-tier env and a hazard env, dual attention at every shape the
-     port calls it with (the eval's B=25 among them); timings against each
-     kernel's bound and, for dual attention, a one-call PyTorch yardstick;
+     port calls it with (the eval's B=25 and the trainer's B=48 f32 among
+     them), its backward kernel at B=48 and at phase 5's small head with
+     non-zero gammas, and a bf16 call that needs a gradient refused;
+     timings against each kernel's bound and, for dual attention, a
+     one-call PyTorch yardstick;
   4. the main path: a bf16 CoPM agent at production width drives 32 device
      envs for a 20-step rollout, then trains one whole iteration at
      production size (T=200, 4 PPO epochs of 2 minibatches) after a T=2
@@ -32,7 +35,19 @@ Phases, each of which must pass:
      four envs started halfway along past their route timeout so that
      their episodes end and their routes' priorities move; (d) the eval
      on the card against the eval on the CPU from the same draws; (e) the
-     scripted expert over the eval bank.
+     scripted expert over the eval bank;
+  8. perception pretraining and the cascade handoff: (a) 4 shards of 48
+     frames in the loader's format, from a seed, under
+     build/smoke_perception/; (b) the full-width DANet (output mode 12,
+     f32) trained at B=48 through PerceptionTrainer.solve for one epoch of
+     4 steps, then 20 steps on one repeated batch, with launch counts (one
+     forward and one backward kernel per step), a falling loss, the
+     backbone, conv5a and both gammas moved, peak memory, frames/s and a
+     profile of a few steps; (c) one train step of a small model on the
+     card against the CPU; (d) `python -m cadre_tpu_torch.train_perception`
+     on the shards; (e) `python -m cadre_tpu_torch.main --danet-checkpoint`
+     on (b)'s checkpoint, and an agent built from it giving the trainer's
+     latent bit for bit.
 
 It prints one JSON line of kernel figures, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -40,7 +55,8 @@ result, without a CUDA GPU or without the package beside it.
 
     python3 chip_smoke.py --kernel-times ROOT [ROOT ...]
 
-times the paint and dual-attention wrappers of each checkout ROOT (a
+times the paint, dual-attention and (where a checkout has it) the
+dual-attention backward wrappers of each checkout ROOT (a
 directory holding `cadre_tpu_torch/`, built there at first use) on the same
 inputs, one process per ROOT in the order given, two ways: a CUDA graph of
 200 calls, and 200 calls issued one by one. Give the checkouts to compare
@@ -99,9 +115,11 @@ def _counted(fn):
 
     paint.launches = 0
     dual_attention.launches = 0
+    dual_attention.backward_launches = 0
     out = fn()
     return out, {"paint": paint.launches,
-                 "dual_attention": dual_attention.launches}
+                 "dual_attention": dual_attention.launches,
+                 "dual_attention_bwd": dual_attention.backward_launches}
 
 
 def device_ms(fn, iters: int = 200) -> float:
@@ -503,10 +521,14 @@ def _attention_library(x, q, k, v, gp, xc, gc):
 
 
 # (B, C, Cqk) of every call the port makes: the production head at the
-# main path's batch (N_ENVS), at B=256 and at the eval's B=EVAL_ENVS, and
-# phase 5's small head
+# main path's batch (N_ENVS), at B=256, at the eval's B=EVAL_ENVS and at
+# the perception trainer's B=PERCEPTION_BATCH, and phase 5's small head
+PERCEPTION_BATCH = 48
 ATTENTION_SHAPES = ((32, 128, 16), (256, 128, 16), (25, 128, 16),
-                    (2, 32, 4))
+                    (PERCEPTION_BATCH, 128, 16), (2, 32, 4))
+# the backward kernel's shapes (f32 only): the trainer's and the small
+# head's
+BACKWARD_SHAPES = ((PERCEPTION_BATCH, 128, 16), (2, 32, 4))
 
 
 def check_dual_attention(gen, device):
@@ -559,7 +581,10 @@ def check_dual_attention(gen, device):
                                         da.cam_apply(args[5], args[6])), 20)
             elem = 2 if bf16 else 4
             nbytes = b * (5 * p * c + 2 * p * d) * elem + 8
-            flops = b * 2.0 * (p * p * d + p * p * c + 2 * p * c * c)
+            # E = q k^T, A v, the symmetric gram x^T x (one product per
+            # pair) and x B^T, each 2 FLOP a multiply-add
+            flops = b * 2.0 * (p * p * d + p * p * c + p * c * (c + 1) // 2
+                               + p * c * c)
             peak = BF16_TC_FLOPS if bf16 else FP32_FLOPS
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / peak * 1e3
@@ -589,7 +614,119 @@ def check_dual_attention(gen, device):
                              f"call_ms_b{b}": call_ms,
                              f"library_call_ms_b{b}": lib_call_ms,
                              f"bound_ms_b{b}": max(t_bytes, t_ops)})
+            elif b == PERCEPTION_BATCH and not bf16:
+                require(main is not None, "dual_attention: B=32 not run")
+                main.update({"ms_b48_f32": ms, "library_ms_b48_f32": lib_ms,
+                             "call_ms_b48_f32": call_ms,
+                             "plain_ms_b48_f32": plain_ms,
+                             "bound_ms_b48_f32": max(t_bytes, t_ops)})
     return main
+
+
+def _backward_inputs(b, c, d, gen, device):
+    """Backward kernel inputs (q, k, v, gamma_pam, x_cam, gamma_cam,
+    dy_pam, dy_cam) with non-zero gammas, and x_pam for the plain
+    version."""
+    import torch
+
+    x, q, k, v, _, xc, _ = _attention_inputs(b, c, d, torch.float32, gen,
+                                             device)
+    dyp = torch.randn(x.shape, generator=gen, device=device)
+    dyc = torch.randn(x.shape, generator=gen, device=device)
+    gp = torch.tensor([0.7], device=device)
+    gc = torch.tensor([-0.4], device=device)
+    return (q, k, v, gp, xc, gc, dyp, dyc), x
+
+
+# tolerance of the backward kernel against its plain version, as a share
+# of each gradient's largest magnitude: PAM (dq, dk, dv, dgamma_pam) and
+# CAM (dx_cam, dgamma_cam), whose C x C gram sums run in another order
+BWD_TOL = {"dx_pam": 1e-4, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4,
+           "dgamma_pam": 1e-4, "dx_cam": 1e-3, "dgamma_cam": 1e-3}
+
+
+def _backward_work(b, c, d, p=40):
+    """(bytes, fp32 FLOP) the backward must move and do: it reads q, k,
+    v, x_cam and both upstream gradients and writes dq, dk, dv, dx_cam and
+    a value per row for each gamma (dx_pam is dy_pam itself); the products
+    are E = q k^T, dy v^T, A^T dy, dE k, dE^T q (PAM) and x^T x, dy^T x,
+    dy Bm, x S (CAM), each 2 FLOP a multiply-add; the gram x^T x is
+    symmetric, so it needs one product per pair, c (c + 1) / 2 of them."""
+    nbytes = b * p * (4 * d + 6 * c) * 4 + 2 * b * 4
+    macs = b * (3 * p * p * d + 2 * p * p * c + 3 * p * c * c
+                + p * c * (c + 1) // 2)
+    return nbytes, 2.0 * macs
+
+
+def check_dual_attention_backward(gen, device):
+    """The backward kernel against autograd through the plain versions, at
+    every shape of BACKWARD_SHAPES; timings at the trainer's shape; a bf16
+    call that needs a gradient must raise."""
+    import ctypes
+
+    import torch
+
+    from cadre_tpu_torch.ops import _build
+    from cadre_tpu_torch.ops import dual_attention as da
+
+    smem_fn = _build.load("dual_attention_bwd").dual_attention_bwd_smem_bytes
+    smem_fn.argtypes = [ctypes.c_int] * 3
+    smem_fn.restype = ctypes.c_longlong
+    entry = None
+    for b, c, d in BACKWARD_SHAPES:
+        args, x = _backward_inputs(b, c, d, gen, device)
+        got = da.dual_attention_backward(*args)
+        want = da.dual_attention_backward_ref(x, *args)
+        torch.cuda.synchronize()
+        worst = {}
+        for (name, tol), g, w in zip(BWD_TOL.items(), got, want):
+            scale = float(w.abs().max())
+            rel = float((g - w).abs().max()) / max(scale, 1e-30)
+            require(scale > 0, f"dual_attention_bwd B={b} C={c}: {name} is "
+                    f"zero (gammas must be non-zero)")
+            require(rel <= tol, f"dual_attention_bwd B={b} C={c}: {name} "
+                    f"{rel:.3g} of its scale > {tol}")
+            worst[name] = rel
+        tag = f"B={b} C={c} Cqk={d} f32"
+        ms = device_ms(lambda: da.dual_attention_backward(*args))
+        call_ms = time_ms(lambda: da.dual_attention_backward(*args), 200)
+        plain_ms = time_ms(lambda: da.dual_attention_backward_ref(x, *args),
+                           20)
+        nbytes, flops = _backward_work(b, c, d)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        print(f"[3] dual_attention_bwd {tag}: max error / scale "
+              + ", ".join(f"{k} {v:.2g}" for k, v in worst.items())
+              + f" (bounds 1e-4 PAM / 1e-3 CAM); kernel {ms:.4f} ms "
+              f"(graph of 200), {call_ms:.4f} ms issued one by one, plain "
+              f"{plain_ms:.4f} ms; bound {max(t_bytes, t_ops):.5f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+              f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); "
+              f"{smem_fn(40, c, d)} B shared memory per block")
+        if b == PERCEPTION_BATCH:
+            entry = dict(
+                name="dual_attention_bwd", route="cuda",
+                source="cadre_tpu_torch/csrc/dual_attention_bwd.cu",
+                replaces="none: XLA autodiff of cadre_tpu/ops/"
+                         "dual_attention.py:22-58 (pam_apply, cam_apply)",
+                max_abs_err=max(float((g - w).abs().max())
+                                for g, w in zip(got, want)),
+                max_rel_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None, call_ms=call_ms,
+                shapes=f"B={b} P=40 C={c} Cqk={d} f32")
+    x, q, k, v, gp, xc, gc = _attention_inputs(2, 32, 4, torch.bfloat16,
+                                               gen, device)
+    try:
+        da.fused_dual_attention(x.requires_grad_(True), q, k, v, gp, xc, gc)
+        refused = False
+    except TypeError:
+        refused = True
+    require(refused, "a bf16 dual attention that needs a gradient ran")
+    print("[3] dual_attention bf16 with a gradient needed: refused "
+          "(no bf16 backward kernel)")
+    return entry
 
 
 def phase_kernels():
@@ -599,7 +736,8 @@ def phase_kernels():
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     return {"paint": check_paint(gen, device),
-            "dual_attention": check_dual_attention(gen, device)}
+            "dual_attention": check_dual_attention(gen, device),
+            "dual_attention_bwd": check_dual_attention_backward(gen, device)}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -643,7 +781,8 @@ def phase_slice():
     seconds = time.perf_counter() - t0
 
     require(launches["paint"] == 2 * T_STEPS
-            and launches["dual_attention"] == T_STEPS + 1,
+            and launches["dual_attention"] == T_STEPS + 1
+            and launches["dual_attention_bwd"] == 0,
             f"rollout launches {launches}, not {2 * T_STEPS} / "
             f"{T_STEPS + 1}")
     f = agent.obs_dim
@@ -701,9 +840,11 @@ def profile(fn, what: str, per: int, unit: str, tag: str = "4"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only (kernels, copies): the aten ops that launch
-    # them carry the same time again
+    # them carry the same time again, and so does a user-annotated range
+    # (Optimizer.step's) that the profiler also reports on the device
     cuda = torch.autograd.DeviceType.CUDA
-    rows = [e for e in prof.key_averages() if e.device_type == cuda]
+    rows = [e for e in prof.key_averages() if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in rows)
     kernels = sum(e.count for e in rows)
     require(busy_us > 0, f"profile of {what}: no device time")
@@ -773,7 +914,8 @@ def train_iteration(agent, env, carry, bufs):
     peak = torch.cuda.max_memory_allocated()
 
     require(launches["paint"] == 2 * T_TRAIN
-            and launches["dual_attention"] == T_TRAIN + 1,
+            and launches["dual_attention"] == T_TRAIN + 1
+            and launches["dual_attention_bwd"] == 0,
             f"iteration launches {launches}, not {2 * T_TRAIN} / "
             f"{T_TRAIN + 1}")
     for name, t in m._asdict().items():
@@ -1117,7 +1259,8 @@ def phase_eval():
     ensemble = Ensemble.load(agent, paths)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    want = {"paint": 2 + 2 * EVAL_STEPS, "dual_attention": 1 + EVAL_STEPS}
+    want = {"paint": 2 + 2 * EVAL_STEPS, "dual_attention": 1 + EVAL_STEPS,
+            "dual_attention_bwd": 0}
     require(launches == want, f"eval launches {launches}, not {want}")
     _check_rows(rows, "eval")
     require(all(r["route_id"] in ids for r in rows)
@@ -1190,7 +1333,8 @@ def nocrash_train(agent):
     (carry, m), launches = _counted(lambda: iteration(opt, carry))
     float(m.checksum)
     seconds = time.perf_counter() - t0
-    want = {"paint": 2 * T_STEPS, "dual_attention": T_STEPS + 1}
+    want = {"paint": 2 * T_STEPS, "dual_attention": T_STEPS + 1,
+            "dual_attention_bwd": 0}
     require(launches == want, f"NoCrash iteration launches {launches}, "
             f"not {want}")
     for name, t in m._asdict().items():
@@ -1338,6 +1482,324 @@ def expert_on_eval_bank(bank):
           f"{share:.3f}")
 
 
+# ---------------------------------------------------------------- phase 8
+
+PERCEPTION_SHARDS = 4
+PERCEPTION_STEPS = 20           # steps on one repeated batch
+# parameters that must move in training: the backbone's stem and first
+# block, the head's conv before PAM, the PAM projection and both gammas
+PERCEPTION_WATCH = ("backbone.conv1.weight", "backbone.layer1.0.conv1.weight",
+                    "da_head.conv5a.0.weight", "da_head.sa.query_conv.weight",
+                    "da_head.sa.gamma", "da_head.sc.gamma")
+
+
+def perception_shards(n_shards: int = PERCEPTION_SHARDS,
+                      frames: int = PERCEPTION_BATCH, seed: int = 0) -> str:
+    """`n_shards` shards of `frames` frames in the loader's .npz format,
+    made from `seed` under build/smoke_perception/: a class map of sky and
+    road split at a horizon with three boxes of other classes, the camera
+    its palette colours with a per-frame brightness, a route raster
+    ribbon of 255s, and labels drawn in their ranges. Returns the
+    directory."""
+    import glob
+    import os
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = _smoke_dir("smoke_perception")
+    for old in glob.glob(os.path.join(out, "*.npz")):
+        os.remove(old)
+    palette = rng.randint(0, 256, (8, 3))
+    rows = np.arange(144)[None, :, None]
+    for i in range(n_shards):
+        horizon = rng.randint(50, 90, frames)
+        seg = np.where(rows < horizon[:, None, None], 0, 1) \
+            .repeat(256, 2).astype(np.uint8)
+        route = np.zeros((frames, 256, 144), np.uint8)
+        for f in range(frames):
+            for cls in rng.randint(2, 8, 3):
+                y, x = rng.randint(0, 120), rng.randint(0, 220)
+                seg[f, y:y + rng.randint(8, 24), x:x + rng.randint(8, 36)] = cls
+            c = rng.randint(40, 100)
+            route[f, 100:, c:c + 8] = 255
+        light = rng.uniform(0.8, 1.2, (frames, 1, 1, 1))
+        rgb = np.clip(palette[seg] * light, 0, 255).astype(np.uint8)
+        np.savez_compressed(
+            os.path.join(out, f"shard_{i:05d}.npz"), camera_rgb=rgb,
+            camera_seg=seg, route_fig=route,
+            speed=rng.uniform(0, 8, frames),
+            target_speed=np.full(frames, 7.0),
+            steer=rng.uniform(-0.5, 0.5, frames),
+            throttle=rng.uniform(0, 1, frames),
+            command=rng.randint(0, 4, frames),
+            light_state=rng.randint(0, 4, frames),
+            light_dist=rng.uniform(-1, 30, frames),
+            dis=rng.uniform(0, 1, frames), theta=rng.uniform(0, 1, frames))
+    return out
+
+
+def phase_perception():
+    """Perception pretraining at full width and the handoff to PPO;
+    returns the launch counts of the 20 repeated-batch steps."""
+    import os
+
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import (
+        PerceptionTrainParams,
+        danet_params,
+    )
+    from cadre_tpu_torch.perception.data import (
+        PerceptionDataLoader,
+        compute_stats,
+    )
+    from cadre_tpu_torch.perception.trainer import PerceptionTrainer
+
+    t0 = time.perf_counter()
+    data_dir = perception_shards()
+    loader = PerceptionDataLoader(data_dir, batch_size=PERCEPTION_BATCH,
+                                  seed=0, packed=True, cache_in_memory=True)
+    stats = compute_stats(loader.paths)
+    print(f"[8a] {PERCEPTION_SHARDS} shards x {PERCEPTION_BATCH} frames "
+          f"written to {os.path.relpath(data_dir)} in "
+          f"{time.perf_counter() - t0:.2f} s; seg class weights "
+          f"{[round(float(w), 4) for w in stats.seg_class_weight]}")
+
+    cfg = danet_params()
+    trainer = PerceptionTrainer(
+        cfg, PerceptionTrainParams(batch_size=PERCEPTION_BATCH),
+        steps_per_epoch=len(loader), seed=0,
+        seg_class_weight=stats.seg_class_weight,
+        light_class_weight=stats.light_class_weight, device="cuda")
+    params = dict(trainer.model.named_parameters())
+    before = {n: params[n].detach().clone() for n in PERCEPTION_WATCH}
+    work = _smoke_dir("smoke_perception_work")
+    t0 = time.perf_counter()
+    epoch, launches = _counted(lambda: trainer.solve(
+        loader, epochs=1, work_dir=work,
+        log_fn=lambda line: print(f"[8b]   {line}")))
+    seconds = time.perf_counter() - t0
+    steps = len(loader)
+    want = {"paint": 0, "dual_attention": steps, "dual_attention_bwd": steps}
+    require(launches == want, f"perception epoch launches {launches}, "
+            f"not {want}")
+    require(all(v == v and abs(v) < float("inf") for v in epoch.values()),
+            f"perception epoch losses {epoch}")
+    require(os.path.exists(os.path.join(work, "net_epoch0.pt")),
+            "solve wrote no net_epoch0.pt")
+    print(f"[8b] solve: 1 epoch of {steps} steps at B={PERCEPTION_BATCH} "
+          f"(full width, f32, prefetched packed batches) in {seconds:.2f} "
+          f"s with first-call set-up; launches {launches}")
+
+    batch = {k: torch.as_tensor(v).cuda() for k, v in next(iter(loader))
+             .items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, launches = _counted(lambda: [
+        trainer.train_step(batch, sync=False)
+        for _ in range(PERCEPTION_STEPS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    totals = [float(l["total"]) for l in losses]
+    want = {"paint": 0, "dual_attention": PERCEPTION_STEPS,
+            "dual_attention_bwd": PERCEPTION_STEPS}
+    require(launches == want, f"perception launches {launches}, not {want}")
+    for step in losses:
+        for name, v in step.items():
+            _finite(f"perception loss {name}", v)
+    require(totals[-1] < totals[0], f"perception total did not fall over "
+            f"{PERCEPTION_STEPS} steps: {totals[0]:.1f} -> {totals[-1]:.1f}")
+    moved = {n: float((params[n].detach() - before[n]).abs().max())
+             for n in PERCEPTION_WATCH}
+    require(all(v > 0 for v in moved.values()), f"not moved: {moved}")
+    for name, p in params.items():
+        _finite(f"perception parameter {name}", p.detach())
+    print(f"[8b] {PERCEPTION_STEPS} steps on one batch at B="
+          f"{PERCEPTION_BATCH}: {seconds:.3f} s, "
+          f"{PERCEPTION_STEPS * PERCEPTION_BATCH / seconds:.1f} train "
+          f"frames/s ({seconds / PERCEPTION_STEPS * 1e3:.2f} ms per step); "
+          f"peak memory allocated {peak / 2**30:.2f} GiB; total loss "
+          f"{totals[0]:.1f} -> {totals[-1]:.1f} ("
+          + ", ".join(f"{k} {float(v):.3f}" for k, v in losses[-1].items())
+          + f"); largest moves {moved}; launches {launches}")
+    prof_steps = 3
+    profile(lambda: [trainer.train_step(batch, sync=False)
+                     for _ in range(prof_steps)],
+            f"{prof_steps} train steps (B={PERCEPTION_BATCH})", prof_steps,
+            "train step", tag="8b")
+    ckpt = os.path.join(work, "smoke_trained.pt")
+    trainer.save(ckpt)
+    perception_cpu_agreement(batch)
+    perception_cli(data_dir)
+    perception_handoff(trainer, ckpt, batch)
+    return launches
+
+
+def perception_cpu_agreement(batch):
+    """One train step of a small f32 model on the card and on the CPU
+    from the same weights, batch (4 frames) and dropout masks, at the
+    schedule's peak rate. Losses within 1e-4 relative. Gradients against
+    the CPU's own float64 gradient: each tensor on the card within
+    max(1e-3 of its scale, 3x the CPU f32 gradient's own distance) (f32
+    rounding of this h*w-scaled loss moves some tensors by percents).
+    Parameters: within 1% of the largest change on the CPU, at every
+    element whose float64 gradient (with weight decay) is ten times above
+    that tensor's f32 rounding noise; below it Adam's first step takes the
+    rounding's sign."""
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import (
+        PerceptionTrainParams,
+        danet_params,
+    )
+    from cadre_tpu_torch.models.danet import draw_dropout_masks
+    from cadre_tpu_torch.perception.trainer import PerceptionTrainer
+
+    cfg = danet_params(da_feature_channel=32, inter_att_dims=24, z_dims=16)
+    tp = PerceptionTrainParams(warmup_epochs=1)
+    small = {k: v[:4].cpu() for k, v in batch.items()}
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    masks = draw_dropout_masks(cfg, 4, gen)
+    runs = {}
+    for dev in ("cpu", "cuda", "cpu64"):
+        trainer = PerceptionTrainer(cfg, tp, steps_per_epoch=1, seed=4,
+                                    device="cuda" if dev == "cuda"
+                                    else "cpu")
+        trainer.step = 1                    # lr(1) = tp.lr: the peak
+        m = type(masks)(*(t.to(trainer.device) for t in masks))
+        init = {n: p.detach().cpu().double().clone()
+                for n, p in trainer.model.named_parameters()}
+        if dev == "cpu64":
+            trainer.model.double()
+            tb = {k: v.double() if v.is_floating_point() else v
+                  for k, v in trainer._to_device(small).items()}
+            total, _ = trainer._losses(trainer._apply(tb, m), tb)
+            total.backward()
+            loss = float(total.detach())
+        else:
+            loss = trainer.train_step(small, masks=m)["total"]
+        named = dict(trainer.model.named_parameters())
+        runs[dev] = (loss, init,
+                     {n: p.grad.detach().cpu().double() for n, p in
+                      named.items()},
+                     {n: p.detach().cpu().double() for n, p in named.items()})
+    (l_c, init, g_c, p_c), (l_g, _, g_g, p_g), (_, _, g64, _) = (
+        runs["cpu"], runs["cuda"], runs["cpu64"])
+    rel = abs(l_g - l_c) / abs(l_c)
+    require(rel <= 1e-4, f"perception step cuda vs cpu: loss {l_g} vs {l_c}")
+    largest = max(float(g.abs().max()) for g in g64.values())
+    wd = tp.weight_decay
+    worst_g, worst_p, checked = 0.0, 0.0, 0
+    for n, exact in g64.items():
+        scale = max(float(exact.abs().max()), 1e-6 * largest)
+        noise = float((g_c[n] - exact).abs().max())
+        err = float((g_g[n] - exact).abs().max())
+        bound = max(1e-3 * scale, 3.0 * noise)
+        require(err <= bound, f"perception step cuda vs cpu: grad {n} "
+                f"{err:.3g} from float64 (cpu f32: {noise:.3g}, scale "
+                f"{scale:.3g})")
+        worst_g = max(worst_g, err / bound)
+        change = float((p_c[n] - init[n]).abs().max())
+        require(change > 0 and bool((p_g[n] != init[n]).any()),
+                f"perception step: {n} did not move")
+        firm = (exact + wd * init[n]).abs() > 10.0 * noise
+        checked += int(firm.sum())
+        if firm.any():
+            d = float((p_g[n] - p_c[n])[firm].abs().max())
+            require(d <= 0.01 * change, f"perception step cuda vs cpu: "
+                    f"{n} {d:.3g} > 1% of its largest change {change:.3g}")
+            worst_p = max(worst_p, d / change)
+    total = sum(g.numel() for g in g64.values())
+    print(f"[8c] one train step, small f32 model, B=4, cuda vs cpu: loss "
+          f"{rel:.3g} relative (bound 1e-4); each gradient's distance from "
+          f"the cpu's float64 one at most {worst_g:.3g} of its bound "
+          f"(max(1e-3 of its scale, 3x the cpu f32's distance)); "
+          f"parameters within {worst_p:.3g} of each "
+          f"tensor's largest change at the {checked} of {total} elements "
+          f"whose gradient is firm (bound 0.01)")
+
+
+def perception_cli(data_dir):
+    """`python -m cadre_tpu_torch.train_perception` on the shards, one
+    epoch at B=48 with a held-out shard, in its own process."""
+    import os
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "smoke_perception_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    cmd = [sys.executable, "-m", "cadre_tpu_torch.train_perception",
+           "--data-dir", data_dir, "--epochs", "1", "--batch-size",
+           str(PERCEPTION_BATCH), "--holdout", "--work-dir", work]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    seconds = time.perf_counter() - t0
+    require(out.returncode == 0, f"the perception CLI exited "
+            f"{out.returncode}: {out.stderr[-3000:]}")
+    for line in out.stdout.strip().splitlines():
+        print(f"[8d]   {line}")
+    require(os.path.exists(os.path.join(work, "net_epoch0.pt")),
+            "the perception CLI wrote no net_epoch0.pt")
+    print(f"[8d] python -m cadre_tpu_torch.train_perception --epochs 1 "
+          f"--batch-size {PERCEPTION_BATCH} --holdout: exit 0 in "
+          f"{seconds:.1f} s")
+
+
+def perception_handoff(trainer, ckpt, batch):
+    """PPO on the trained encoder: the training CLI with
+    --danet-checkpoint in its own process, then an agent built from the
+    checkpoint, whose latent must equal the trainer's bit for bit."""
+    import os
+    import shutil
+
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.perception.data import unpack_batch
+    from cadre_tpu_torch.rl.agent import CadreAgent
+    from cadre_tpu_torch.utils.checkpoint import load_danet_checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "smoke_handoff")
+    shutil.rmtree(work, ignore_errors=True)
+    cmd = [sys.executable, "-m", "cadre_tpu_torch.main", "--env", "jax",
+           "--danet-checkpoint", ckpt, "--num-envs", str(N_ENVS),
+           "--num-steps", str(T_STEPS), "--iterations", "1", "--work-dir",
+           work]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    seconds = time.perf_counter() - t0
+    require(out.returncode == 0, f"the CLI on the trained encoder exited "
+            f"{out.returncode}: {out.stderr[-3000:]}")
+    for line in out.stdout.strip().splitlines():
+        print(f"[8e]   {line}")
+    require(os.path.exists(os.path.join(work, "models", "ppo_model_1.pt")),
+            "the CLI on the trained encoder wrote no snapshot")
+    agent = CadreAgent.create(danet_params(), device="cuda",
+                              encoder_state=load_danet_checkpoint(
+                                  ckpt, danet_params()))
+    x = unpack_batch(batch)["x"]
+    trainer.model.eval()
+    with torch.no_grad():
+        want = trainer.model.latent(x)
+        got = agent.encoder.latent(x)
+    trainer.model.train()
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"agent latent differs from the "
+            f"trainer's by {float((got - want).abs().max()):.3g}")
+    print(f"[8e] python -m cadre_tpu_torch.main --env jax --danet-checkpoint "
+          f"{os.path.relpath(ckpt, root)} --num-envs {N_ENVS} --num-steps "
+          f"{T_STEPS} --iterations 1: exit 0 in {seconds:.1f} s; the agent's "
+          f"f32 latent of {x.shape[0]} frames equals the trainer's bit for "
+          f"bit")
+
+
 # ------------------------------------------- kernel times of checkouts
 
 def _timing_inputs(device):
@@ -1362,6 +1824,9 @@ def _timing_inputs(device):
             tag = f"dual_attention B={b} C={c} {str(dtype).split('.')[-1]}"
             cases[tag] = ("dual_attention",
                           _attention_inputs(b, c, d, dtype, gen, device))
+    for b, c, d in BACKWARD_SHAPES:
+        cases[f"dual_attention_bwd B={b} C={c} float32"] = (
+            "dual_attention_bwd", _backward_inputs(b, c, d, gen, device)[0])
     return cases
 
 
@@ -1381,9 +1846,14 @@ def time_kernels_of(root: str, inputs: str) -> int:
     require(where.startswith(os.path.abspath(root)),
             f"imported the port from {where}, not from {root}")
     fns = {"paint": paint.paint_shapes,
-           "dual_attention": dual_attention.fused_dual_attention}
+           "dual_attention": dual_attention.fused_dual_attention,
+           "dual_attention_bwd": getattr(dual_attention,
+                                         "dual_attention_backward", None)}
     times = {}
     for case, (kernel, args) in torch.load(inputs).items():
+        if fns[kernel] is None:           # a checkout without this kernel
+            times[case] = None
+            continue
         args = [a.cuda() for a in args]
 
         def call(fn=fns[kernel], args=args):
@@ -1424,7 +1894,8 @@ def compare_kernel_times(roots) -> int:
     print("[t] ms per call, graph of 200 / issued one by one, in run order: "
           + ", ".join(r["root"] for r in runs))
     for case in cases:
-        figs = "  ".join(f"{r['times'][case]['graph_ms']:.4f} / "
+        figs = "  ".join("n/a" if r["times"][case] is None else
+                         f"{r['times'][case]['graph_ms']:.4f} / "
                          f"{r['times'][case]['one_by_one_ms']:.4f}"
                          for r in runs)
         print(f"[t] {case:34s} {figs}")
@@ -1477,12 +1948,17 @@ def main(argv) -> int:
         phase_cpu_agreement()
         phase_cli()
         eval_launches = phase_eval()
+        perception_launches = phase_perception()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
         entry["launches_eval"] = eval_launches[name]
+        entry["launches_perception"] = perception_launches[name]
+    # the backward kernel's main path is perception pretraining
+    kernels["dual_attention_bwd"]["launches"] = \
+        perception_launches["dual_attention_bwd"]
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -353,8 +353,9 @@ def eval_setup(tmp_path_factory):
         jagent.save_snapshot(jpaths[-1])
         tpaths.append(str(tmp / f"member{m}.pt"))
         torch.save({s: policy_from_flax(pnp[s]) for s in pnp}, tpaths[-1])
-    agent = CadreAgent.create(danet_params(**SMALL), device="cpu")
-    agent.encoder.load_state_dict(danet_from_flax(vnp, agent.danet_cfg))
+    danet_cfg = danet_params(**SMALL)
+    agent = CadreAgent.create(danet_cfg, device="cpu",
+                              encoder_state=danet_from_flax(vnp, danet_cfg))
     rng = np.random.RandomState(4)
     dense = [np.asarray([[0.0, 0.0], [1.0, 0.0], [2.0, 0.0]]),
              np.asarray([[0.0, 0.0], [0.0, 1.5], [0.0, 3.0]]),

@@ -422,8 +422,9 @@ def port_agent_and_carry(r, rollout_cfg, make=make_device_rollout, **kw):
     (step fn, init_carry) with its carry started from the reference's
     reset and initial state."""
     n = r["done_prev"].shape[0]
-    agent = CadreAgent.create(danet_params(**SMALL), device="cpu")
-    agent.encoder.load_state_dict(danet_from_flax(r["vnp"], agent.danet_cfg))
+    cfg = danet_params(**SMALL)
+    agent = CadreAgent.create(cfg, device="cpu",
+                              encoder_state=danet_from_flax(r["vnp"], cfg))
     agent.steer.load_state_dict(policy_from_flax(r["pnp"]["steer"]))
     agent.throttle.load_state_dict(policy_from_flax(r["pnp"]["throttle"]))
     bank = route_bank_from_numpy(_np(r["jbank"]._asdict()))
