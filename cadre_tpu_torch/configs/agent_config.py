@@ -1,8 +1,9 @@
 """Agent, rollout and training configuration: the parts of
-cadre_tpu.configs.agent_config that the device iteration reads."""
+cadre_tpu.configs.agent_config that the training loops read."""
 from __future__ import annotations
 
 import dataclasses
+from typing import List
 
 import numpy as np
 
@@ -53,3 +54,11 @@ class TrainConfig:
     save_interval: int = 100
     log_interval: int = 10
     num_processes: int = 4
+
+
+def convert_action(steer_idx: int, throttle_idx: int) -> List[float]:
+    """Discrete (steer bin, throttle bin) -> [steer, throttle, brake]
+    (ppo_agent/agent.py:77-81)."""
+    steer = float(STEER_CONTROL[steer_idx])
+    throttle, brake = THROTTLE_CONTROL[throttle_idx]
+    return [steer, float(throttle), float(brake)]

@@ -16,3 +16,8 @@ class RoadOption(enum.Enum):
     LANEFOLLOW = 4
     CHANGELANELEFT = 5
     CHANGELANERIGHT = 6
+
+
+def command_index(option: RoadOption) -> int:
+    """RoadOption -> policy bank index (0..3)."""
+    return int(option.value) - 1

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import xml.etree.ElementTree as ET
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -31,15 +31,26 @@ class Waypoint:
 
 @dataclasses.dataclass
 class RouteConfig:
-    """One route: its name, town and sparse keypoint trajectory."""
+    """One route: its name, town and sparse keypoint trajectory. The host
+    env's indexers fill in the rest: `index`, the background traffic
+    (`vehicle_num`, `walker_num`) and `st`, the curriculum's resume
+    waypoint (priority_route_indexer.py:42-49)."""
 
     name: str
     town: str
     trajectory: List[Waypoint]
+    index: int = 0
+    vehicle_num: Optional[int] = None
+    walker_num: Optional[int] = None
+    st: Optional[int] = None
+    scenario_file: Optional[str] = None
 
 
-def parse_routes_file(routes_file: str) -> List[RouteConfig]:
-    """Every <route> of the file, in file order."""
+def parse_routes_file(routes_file: str,
+                      scenario_file: Optional[str] = None
+                      ) -> List[RouteConfig]:
+    """Every <route> of the file, in file order, each carrying
+    `scenario_file`."""
     configs = []
     for route in ET.parse(routes_file).iter("route"):
         wps = [Waypoint(x=float(w.attrib["x"]), y=float(w.attrib["y"]),
@@ -50,7 +61,8 @@ def parse_routes_file(routes_file: str) -> List[RouteConfig]:
                for w in route.iter("waypoint")]
         configs.append(RouteConfig(name="RouteScenario_" + route.attrib["id"],
                                    town=route.attrib.get("map", "Town01"),
-                                   trajectory=wps))
+                                   trajectory=wps,
+                                   scenario_file=scenario_file))
     return configs
 
 

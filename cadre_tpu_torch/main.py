@@ -1,13 +1,24 @@
 """Training entry point of the port: `python -m cadre_tpu_torch.main`.
 
-The `--env jax` path of the JAX package's `main.py`: the whole iteration
-(render, encode, act, step the batched device envs, then GAE and the PPO
-epochs) runs on one device through `rl.device_rollout.train_device`, and a
-snapshot of both policy banks is saved at the end to
-<work-dir>/models/ppo_model_<iterations>.pt. `--routes` banks the routes
-of a route XML instead of synthetic ones, `--hazards` arms that many
-crossing pedestrians per episode and `--priority-routes` turns on the
-route curriculum. `--danet-checkpoint` freezes a trained encoder (a
+The paths of the JAX package's `main.py`:
+  - `--env sim` (the default) trains on the kinematic host simulator
+    (`envs/sim_env.py`) and `--env fake` on the replay env: with
+    `--num-envs 1`, `rl.train.train`, one env, snapshots every
+    save_interval episodes to <work-dir>/0/models/ppo_model_<episode>.pt;
+    with `--num-envs N`, `rl.vec_train.train_vec` over N in-process envs,
+    snapshots every save_interval iterations to
+    <work-dir>/models/ppo_model_<iteration>.pt. The envs are numpy on the
+    host; the encoder, the banks, the buffers and the update live on the
+    device. `--vehicles` / `--walkers` set the background traffic of each
+    sim env and `--routes` drives it on a route XML's routes.
+  - `--env jax` runs the whole iteration (render, encode, act, step the
+    batched device envs, then GAE and the PPO epochs) on the device
+    through `rl.device_rollout.train_device`, and saves a snapshot at the
+    end to <work-dir>/models/ppo_model_<iterations>.pt. There `--routes`
+    banks a route XML's routes, `--hazards` arms that many crossing
+    pedestrians per episode and `--priority-routes` turns on the route
+    curriculum.
+`--danet-checkpoint` freezes a trained encoder (a
 `python -m cadre_tpu_torch.train_perception` checkpoint or a
 reference-format .pt) in the agent instead of a random one: the cascade's
 second stage. It runs on the GPU unless given `--device cpu`.
@@ -16,25 +27,38 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import functools
 import os
 
 # flags of the JAX CLI whose features the port does not have yet, by the
 # ROADMAP.md queue A item that ports them
 UNPORTED = {
     "config": "experiment config files, ROADMAP.md queue A item 15",
+    "scenarios": "the scenario runtime (envs/scenarios.py), ROADMAP.md "
+                 "queue A item 11(b)",
+    "proc_envs": "process-isolated envs (runtime/proc_vec_env.py, "
+                 "shm_ring.py), ROADMAP.md queue A item 12",
+    "mesh": "the sharded update, ROADMAP.md queue A item 16",
+    "town": "the CARLA env, ROADMAP.md queue A item 17",
 }
+CARLA_UNPORTED = "--env carla: the CARLA env, ROADMAP.md queue A item 17"
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="Train the cadre_tpu_torch port on one device")
-    p.add_argument("--env", default="jax", choices=["jax"],
-                   help="'jax': the batched device env; the whole iteration "
-                        "runs on the device (rl/device_rollout.py)")
+    p.add_argument("--env", default="sim",
+                   choices=["sim", "fake", "carla", "jax"],
+                   help="'sim': the kinematic host simulator; 'fake': the "
+                        "replay env; 'jax': the batched device env, the "
+                        "whole iteration on the device "
+                        "(rl/device_rollout.py)")
     p.add_argument("--episodes", type=int, default=3000,
-                   help="iteration count when --iterations is not given")
+                   help="episodes of --num-envs 1; iterations of the other "
+                        "paths when --iterations is not given")
     p.add_argument("--iterations", type=int, default=None)
-    p.add_argument("--num-envs", type=int, default=1)
+    p.add_argument("--num-envs", type=int, default=1,
+                   help="N > 1 trains N host envs behind one batched act")
     p.add_argument("--num-steps", type=int, default=200)
     p.add_argument("--seq-length", type=int, default=8)
     p.add_argument("--seed", type=int, default=0)
@@ -43,38 +67,72 @@ def parse_args(argv=None):
     p.add_argument("--work-dir", default=None)
     p.add_argument("--device", default="cuda")
     p.add_argument("--routes", default=None,
-                   help="route XML whose routes make the episode bank")
+                   help="route XML: the sim env's routes, or the episode "
+                        "bank of --env jax")
+    p.add_argument("--vehicles", type=int, default=0,
+                   help="background vehicles per sim episode")
+    p.add_argument("--walkers", type=int, default=0,
+                   help="walkers per sim episode")
     p.add_argument("--hazards", type=int, default=0,
-                   help="Scenario-3 crossing pedestrians per episode")
+                   help="--env jax: Scenario-3 crossing pedestrians per "
+                        "episode")
     p.add_argument("--priority-routes", action="store_true",
-                   help="priority route curriculum (per-env route table)")
+                   help="--env jax: priority route curriculum (per-env "
+                        "route table)")
     p.add_argument("--danet-checkpoint", default=None,
                    help="trained encoder (.pt) to freeze in the agent")
-    # not ported yet: raises (see UNPORTED)
+    # not ported yet: raise (see UNPORTED)
     p.add_argument("--config", default=None)
+    p.add_argument("--scenarios", default=None)
+    p.add_argument("--proc-envs", action="store_true")
+    p.add_argument("--mesh", default=None, choices=[None, "data"])
+    p.add_argument("--town", default=None)
     return p.parse_args(argv)
 
 
+def make_env(kind: str, rank: int, args, work_dir):
+    """The host env of worker `rank`: its seed is offset by the rank."""
+    if kind == "fake":
+        from cadre_tpu_torch.envs.fake_env import FakeDrivingEnv
+
+        return FakeDrivingEnv(episode_length=args.num_steps,
+                              seq_length=args.seq_length,
+                              seed=args.seed + rank)
+    from cadre_tpu_torch.envs.sim_env import SimDrivingEnv
+
+    return SimDrivingEnv(
+        routes_file=args.routes,
+        vehicle_num=(args.vehicles, args.walkers), seed=args.seed + rank,
+        seq_length=args.seq_length, work_dir=work_dir, rank=rank)
+
+
+def build_env(args, work_dir):
+    """The single env of `--num-envs 1` (the fake env at seed 0)."""
+    if args.env == "fake":
+        from cadre_tpu_torch.envs.fake_env import FakeDrivingEnv
+
+        return FakeDrivingEnv(episode_length=args.num_steps,
+                              seq_length=args.seq_length)
+    return make_env("sim", 0, args, work_dir)
+
+
 def main(argv=None) -> str:
-    """Train; returns the snapshot's path."""
+    """Train; returns the path of the last snapshot written."""
     args = parse_args(argv)
     for name, what in UNPORTED.items():
         if getattr(args, name):
             raise NotImplementedError(
                 f"--{name.replace('_', '-')}: {what}; not ported yet")
+    if args.env == "carla":
+        raise NotImplementedError(f"{CARLA_UNPORTED}; not ported yet")
 
     from cadre_tpu_torch.configs.agent_config import (
         RolloutConfig,
         TrainConfig,
     )
     from cadre_tpu_torch.configs.danet_config import danet_params
-    from cadre_tpu_torch.envs.torch_env import (
-        DrivingEnv,
-        EnvConfig,
-        make_route_bank,
-    )
     from cadre_tpu_torch.rl.agent import CadreAgent
-    from cadre_tpu_torch.rl.device_rollout import train_device
+    from cadre_tpu_torch.utils.logger import logger, setup_logger
 
     now = datetime.datetime.now()
     work_dir = args.work_dir or os.path.join(
@@ -93,19 +151,53 @@ def main(argv=None) -> str:
                                 seq_length=args.seq_length,
                                 feature_dims=agent.obs_dim)
     train_cfg = TrainConfig(max_episode=args.episodes)
-    bank = make_route_bank(max(args.num_envs * 2, 16), seed=args.seed,
-                           routes_file=args.routes, device=args.device)
-    env = DrivingEnv(bank, num_envs=max(args.num_envs, 1), seed=args.seed,
-                     config=EnvConfig(n_hazards=args.hazards,
-                                      priority_routes=args.priority_routes),
-                     device=args.device)
     iterations = args.iterations if args.iterations is not None else \
         args.episodes
-    train_device(agent, env, iterations=iterations, rollout_cfg=rollout_cfg,
-                 train_cfg=train_cfg, seed=args.seed,
-                 log_fn=lambda line: print(line, flush=True))
-    path = os.path.join(work_dir, "models", f"ppo_model_{iterations}.pt")
-    agent.save_snapshot(path)
+
+    if args.env == "jax":
+        from cadre_tpu_torch.envs.torch_env import (
+            DrivingEnv,
+            EnvConfig,
+            make_route_bank,
+        )
+        from cadre_tpu_torch.rl.device_rollout import train_device
+
+        bank = make_route_bank(max(args.num_envs * 2, 16), seed=args.seed,
+                               routes_file=args.routes, device=args.device)
+        env = DrivingEnv(bank, num_envs=max(args.num_envs, 1),
+                         seed=args.seed,
+                         config=EnvConfig(n_hazards=args.hazards,
+                                          priority_routes=args.priority_routes),
+                         device=args.device)
+        train_device(agent, env, iterations=iterations,
+                     rollout_cfg=rollout_cfg, train_cfg=train_cfg,
+                     seed=args.seed,
+                     log_fn=lambda line: print(line, flush=True))
+        path = os.path.join(work_dir, "models", f"ppo_model_{iterations}.pt")
+        agent.save_snapshot(path)
+    elif args.num_envs > 1:
+        from cadre_tpu_torch.envs.vec_env import VecDrivingEnv
+        from cadre_tpu_torch.rl.vec_train import train_vec
+
+        setup_logger(work_dir, rank=0)
+        vec = VecDrivingEnv([functools.partial(make_env, args.env, k, args,
+                                               work_dir)
+                             for k in range(args.num_envs)])
+        train_vec(vec, agent, rollout_cfg, train_cfg, iterations=iterations,
+                  seed=args.seed, work_dir=work_dir)
+        last = (iterations - 1) // train_cfg.save_interval \
+            * train_cfg.save_interval
+        path = os.path.join(work_dir, "models", f"ppo_model_{last}.pt")
+    else:
+        from cadre_tpu_torch.rl.train import train
+
+        setup_logger(work_dir, rank=0)
+        train(build_env(args, work_dir), agent, rollout_cfg, train_cfg,
+              rank=0, work_dir=work_dir, seed=args.seed)
+        last = (args.episodes - 1) // train_cfg.save_interval \
+            * train_cfg.save_interval
+        path = os.path.join(work_dir, "0", "models", f"ppo_model_{last}.pt")
+    logger.close()
     print(f"saved {path}", flush=True)
     return path
 

@@ -419,10 +419,11 @@ class DANet(nn.Module):
         route, ... [B, H, W, K] NHWC; light_state [B, L]; steer, throttle
         [B]; route_geom [B, 2]} as the flags say."""
         cfg = self.cfg
-        if cfg.att_type == "position":
-            raise ValueError("att_type 'position' gives NHWC maps, which "
-                             "the decoders and heads do not take (nor does "
-                             "the JAX package's DANet.__call__); use latent")
+        if cfg.pred_bc and cfg.att_type == "position":
+            raise ValueError("att_type 'position' with pred_bc gives NHWC "
+                             "maps, which the decoders and heads do not "
+                             "take (nor does the JAX package's "
+                             "DANet.__call__); use latent")
         att_visual, att_bc = self._zs(x, self._masks(x, masks, generator))
         z_ppo = (torch.cat([att_visual, att_bc], dim=-1) if cfg.pred_bc
                  else att_visual)

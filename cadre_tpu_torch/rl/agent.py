@@ -1,15 +1,26 @@
-"""Cascade agent for the acting path: frozen CoPM encoder -> per-command
-steer and throttle policy banks.
+"""Cascade agent: frozen CoPM encoder -> per-command steer and throttle
+policy banks.
 
-PyTorch counterpart of the device-path pieces of cadre_tpu.rl.agent:
-`preprocess_obs`, `latent_features`, `CadreAgent.create` (random
-encoder weights, or a trained encoder's: the cascade's handoff from
-perception pretraining) and `act_from_hist` (the JAX package's
-`_act_from_hist`), the PPO
-configuration, the policy snapshots (native torch files; reading the JAX
-package's msgpack snapshots is not ported yet, nor are the host-env act
-loops) and an ensemble of snapshots acting as one (`Ensemble`, the
-`EnsembleAgent` of the device eval).
+PyTorch counterpart of cadre_tpu.rl.agent: `preprocess_obs`,
+`latent_features`, `CadreAgent.create` (random encoder weights, or a
+trained encoder's: the cascade's handoff from perception pretraining),
+`act_from_hist` (the JAX package's `_act_from_hist`), the host-env act
+paths (`act`, `act_vec`, `act_vec_incremental`, the fused tick
+`act_vec_store` with `zero_pending`), the bootstrap value `get_value`,
+`update_policy` on the agent's own optimizer (global-norm clip at
+ppo_cfg.max_grad_norm, then Adam), the policy snapshots (native torch
+files; reading the JAX package's msgpack snapshots is not ported yet) and
+an ensemble of snapshots acting as one (`Ensemble`, the `EnsembleAgent` of
+the device eval).
+
+The host-env paths take numpy ticks: frames go to the agent's device as
+uint8, measurements as float32 and commands as int64 (JAX converts
+float64 to float32 and int64 to int32 where it takes them, with x64 off).
+Their sampling is argmax(logits + Gumbel noise): the noise is an argument
+(`gumbel`, a (steer [N, 33], throttle [N, 3]) pair) that the training
+loops draw (`rl.train.agent_gumbel`) or a test injects. As in the
+reference, the LSTM sees a stale zero carry on every act
+(ppo_agent/agent.py:38-40, 123-124).
 """
 from __future__ import annotations
 
@@ -17,14 +28,29 @@ import dataclasses
 import os
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from cadre_tpu_torch.configs.agent_config import AgentConfig
 from cadre_tpu_torch.configs.danet_config import DANetParams, danet_params
 from cadre_tpu_torch.models.danet import DANet
 from cadre_tpu_torch.models.policy import Carry, PolicyBank, PolicyOutput
-from cadre_tpu_torch.rl.ppo import PPOConfig
+from cadre_tpu_torch.rl.ppo import PPOConfig, make_optimizer, update_step
+from cadre_tpu_torch.rl.rollout import Minibatch, RolloutBuffer, insert
 from cadre_tpu_torch.utils.device import resolve_device
+
+Gumbel = Tuple[torch.Tensor, torch.Tensor]      # (steer [N, A], throttle)
+
+
+class ActResult(NamedTuple):
+    features: torch.Tensor         # [T, F] latent + measurements
+    steer_action: torch.Tensor     # scalar int64
+    throttle_action: torch.Tensor
+    steer_log_prob: torch.Tensor
+    throttle_log_prob: torch.Tensor
+    steer_value: torch.Tensor
+    throttle_value: torch.Tensor
+    hidden: Carry                  # ([1, F], [1, F]) steer carry
 
 
 def preprocess_obs(rgb: torch.Tensor, route_fig: torch.Tensor,
@@ -63,6 +89,16 @@ class CadreAgent:
     throttle: PolicyBank
     device: torch.device
     ppo_cfg: PPOConfig = dataclasses.field(default_factory=PPOConfig)
+
+    def __post_init__(self):
+        """The single-env carry (the reference's stale zeros, never
+        updated) and the one optimizer of the banks, which `update_policy`
+        and every training loop step."""
+        f = self.obs_dim
+        self.hidden_state: Carry = (
+            torch.zeros(1, f, device=self.device),
+            torch.zeros(1, f, device=self.device))
+        self.opt = make_optimizer(self.policy_parameters(), self.ppo_cfg)
 
     @property
     def obs_dim(self) -> int:
@@ -124,6 +160,162 @@ class CadreAgent:
             throttle_out, _ = self.throttle.act_batch(
                 feat_hist, commands, hidden, throttle_gumbel)
         return steer_out, throttle_out, hidden_s
+
+    # ---------------- host-env act paths ----------------
+
+    def _on_device(self, x, dtype: Optional[torch.dtype] = None
+                   ) -> torch.Tensor:
+        """A numpy array, number or tensor on the agent's device. A host
+        array is copied synchronously, so the caller may reuse it (the
+        env's history rings) as soon as this returns."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+        return x.to(self.device, dtype)
+
+    def _frames(self, tick: dict, last: bool) -> dict:
+        """The rgb, route_fig and measurements of a tick on the device: the
+        newest frame of each env ([N, ...]) or the whole window
+        ([N * T, ...] for a batch, [T, ...] for one env)."""
+        rgb, fig, meas = (np.asarray(tick[k]) for k in
+                          ("rgb", "route_fig", "measurements"))
+        if last:
+            rgb, fig, meas = rgb[:, -1], fig[:, -1], meas[:, -1]
+        elif rgb.ndim == 5:
+            rgb, fig, meas = (a.reshape((-1,) + a.shape[2:])
+                              for a in (rgb, fig, meas))
+        return dict(rgb=self._on_device(rgb), route_fig=self._on_device(fig),
+                    measurements=self._on_device(meas, torch.float32))
+
+    def _noise(self, gumbel: Gumbel) -> Gumbel:
+        return tuple(self._on_device(g, torch.float32) for g in gumbel)
+
+    def act(self, tick: dict, gumbel: Gumbel) -> ActResult:
+        """One env: tick 'rgb' [T,H,W,3], 'route_fig' [T,W,H],
+        'measurements' [T,3], 'command' int. All T frame features unroll
+        through the LSTM from `hidden_state` (ppo_agent/models.py:144-151)."""
+        feats = self.encode(self._frames(tick, last=False))      # [T, F]
+        cmd = self._on_device(np.asarray([tick["command"]]), torch.long)
+        s_out, t_out, hidden_s = self.act_from_hist(
+            feats[:, None], cmd, self.hidden_state, *self._noise(gumbel))
+        return ActResult(feats, s_out.action[0], t_out.action[0],
+                         s_out.log_prob[0], t_out.log_prob[0],
+                         s_out.value[0], t_out.value[0], hidden_s)
+
+    def act_vec(self, tick_batch: dict, hidden: Carry, gumbel: Gumbel):
+        """N envs: 'rgb' [N,T,H,W,3], 'route_fig' [N,T,W,H], 'measurements'
+        [N,T,3], 'command' [N]; hidden ([N,F], [N,F]). Returns (features
+        [N,T,F], steer out, throttle out, steer carry)."""
+        n, t = np.shape(tick_batch["rgb"])[:2]
+        feats = self.encode(self._frames(tick_batch, last=False))
+        feats = feats.reshape(n, t, -1)
+        commands = self._on_device(tick_batch["command"], torch.long)
+        s_out, t_out, hidden_s = self.act_from_hist(
+            feats.transpose(0, 1), commands, hidden, *self._noise(gumbel))
+        return feats, s_out, t_out, hidden_s
+
+    def act_vec_incremental(self, tick_batch: dict,
+                            feat_hist: Optional[torch.Tensor], hidden: Carry,
+                            gumbel: Gumbel, refresh: bool = False):
+        """N envs with the feature history [T, N, F] kept on the device:
+        only the newest frame of each env is encoded and shifted in, or,
+        with `refresh` or no history, the whole window is encoded (after an
+        env reset). Returns (steer out, throttle out, carry, history)."""
+        if feat_hist is None or refresh:
+            feats, s_out, t_out, hidden_s = self.act_vec(tick_batch, hidden,
+                                                         gumbel)
+            return s_out, t_out, hidden_s, feats.transpose(0, 1)
+        hist = torch.cat([feat_hist[1:],
+                          self.encode(self._frames(tick_batch,
+                                                     last=True))[None]])
+        commands = self._on_device(tick_batch["command"], torch.long)
+        s_out, t_out, hidden_s = self.act_from_hist(
+            hist, commands, hidden, *self._noise(gumbel))
+        return s_out, t_out, hidden_s, hist
+
+    def zero_pending(self, num_envs: int):
+        """The pending outputs of the first tick of an iteration (stored
+        by no one: act_vec_store's store=False)."""
+        n, dev, cfg = num_envs, self.device, self.agent_cfg
+
+        def zeros(outputs):
+            return PolicyOutput(torch.zeros(n, dtype=torch.long, device=dev),
+                                torch.zeros(n, device=dev),
+                                torch.zeros(n, device=dev),
+                                torch.zeros(n, outputs, device=dev))
+
+        f = self.obs_dim
+        return (zeros(cfg.num_steer_outputs), zeros(cfg.num_throttle_outputs),
+                torch.zeros(n, dtype=torch.long, device=dev),
+                torch.zeros(n, 2, device=dev), torch.ones(n, device=dev),
+                torch.ones(n, device=dev),
+                (torch.zeros(n, f, device=dev), torch.zeros(n, f, device=dev)))
+
+    def act_vec_store(self, tick_batch: dict,
+                      feat_hist: Optional[torch.Tensor], hidden: Carry,
+                      steer_buf: RolloutBuffer, throttle_buf: RolloutBuffer,
+                      pending, store: bool, gumbel: Gumbel,
+                      refresh: bool = False):
+        """The fused tick: store the PREVIOUS tick's transition, then act.
+
+        pending: (steer PolicyOutput, throttle PolicyOutput, commands [N],
+        rewards [N,2], steer mask [N], throttle mask [N], the act-input
+        carry (h [N,F], c [N,F])) of the previous tick, host arrays or
+        device tensors (`zero_pending(n)` with store=False on the first
+        tick of an iteration). The stored observation is the history that
+        tick acted on, `feat_hist` as given. Then the newest frames are
+        encoded and shifted in (the whole window with `refresh` or no
+        history) and the banks act. Returns (steer out, throttle out,
+        carry, history, steer_buf, throttle_buf)."""
+        s_pend, t_pend, pend_cmd, rewards, s_mask, t_mask, pend_hidden = \
+            pending
+        if store:
+            # every host array up before the first insert launches
+            cmd = self._on_device(pend_cmd, torch.long)
+            rewards, s_mask, t_mask = (self._on_device(x, torch.float32)
+                                       for x in (rewards, s_mask, t_mask))
+            feats_prev = feat_hist.transpose(0, 1)             # [N, T, F]
+            steer_buf = insert(
+                steer_buf, feats_prev, s_pend.action, s_pend.log_prob,
+                s_pend.value, rewards[:, 0], s_mask, pend_hidden, cmd)
+            throttle_buf = insert(
+                throttle_buf, feats_prev, t_pend.action, t_pend.log_prob,
+                t_pend.value, rewards[:, 1], t_mask, pend_hidden, cmd)
+        refresh = refresh or feat_hist is None
+        s_out, t_out, hidden_s, hist = self.act_vec_incremental(
+            tick_batch, feat_hist, hidden, gumbel, refresh=refresh)
+        return s_out, t_out, hidden_s, hist, steer_buf, throttle_buf
+
+    def _bootstrap_value(self, steer_obs, steer_cmd, throttle_obs,
+                         throttle_cmd, hidden: Carry):
+        """Next-state values for GAE (ppo_agent/agent.py:143-164): each
+        signal's stored [seq, F] observation unrolled through its command's
+        LSTM from `hidden`, the value of the last step."""
+        def one(bank, obs_seq, cmd):
+            cmd = self._on_device(np.asarray([cmd]).reshape(1), torch.long)
+            with torch.no_grad():
+                return bank.evaluate(
+                    self._on_device(obs_seq, torch.float32)[:, None], cmd,
+                    hidden)[1][0]
+
+        return (one(self.steer, steer_obs, steer_cmd),
+                one(self.throttle, throttle_obs, throttle_cmd))
+
+    def get_value(self, done: bool, steer_batch, throttle_batch):
+        """Bootstrap values: zeros when done, else `_bootstrap_value` of
+        the (obs [seq, F], command) pairs from `hidden_state`."""
+        if done:
+            zero = torch.zeros((), device=self.device)
+            return zero, zero.clone()
+        return self._bootstrap_value(*steer_batch, *throttle_batch,
+                                     self.hidden_state)
+
+    def update_policy(self, steer_mb: Minibatch,
+                      throttle_mb: Minibatch) -> Tuple[float, float, float]:
+        """One PPO minibatch step on the agent's optimizer; the (value,
+        action, entropy) losses, read back."""
+        aux = update_step(self.steer, self.throttle, self.opt, steer_mb,
+                          throttle_mb, self.ppo_cfg)
+        return tuple(float(x) for x in torch.stack(tuple(aux)).cpu())
 
     def save_snapshot(self, path: str,
                       opt: Optional[torch.optim.Optimizer] = None) -> None:

@@ -9,7 +9,7 @@ from a zero LSTM carry (the reference's behaviour), and step the envs; then
 one bootstrap evaluation whose values are zeroed where the last step ended
 an episode. It returns the [T+1, N, ...] buffers the update reads.
 `make_device_iteration` composes it with the fused PPO update
-(rl/fused_update.py), and `train_device` loops iterations with one
+(rl/fused_update.py), and `train_device` loops iterations on the agent's
 optimizer.
 """
 from __future__ import annotations
@@ -30,7 +30,6 @@ from cadre_tpu_torch.envs.torch_env import DrivingEnv, EnvState, StepDraws
 from cadre_tpu_torch.rl.agent import CadreAgent
 from cadre_tpu_torch.rl.distributions import gumbel
 from cadre_tpu_torch.rl.fused_update import Perms, make_fused_iteration_update
-from cadre_tpu_torch.rl.ppo import make_optimizer
 from cadre_tpu_torch.rl.rollout import RolloutBuffer
 
 
@@ -213,9 +212,8 @@ def make_device_iteration(agent: CadreAgent, env: DrivingEnv,
 
     init_carry(draws=None) -> DeviceCarry
     iteration(opt, carry, draws=None, perms=None) -> (carry,
-        IterationMetrics); the banks' parameters and `opt` (from
-        `make_optimizer(agent.policy_parameters(), agent.ppo_cfg)`) are
-        updated in place.
+        IterationMetrics); the banks' parameters and `opt` (the agent's
+        own, `agent.opt`) are updated in place.
 
     One iteration is a T-step rollout and the fused PPO update on its
     buffers. `draws` (T ActDraws) and `perms` ((steer, throttle) [E*M, B]
@@ -261,22 +259,20 @@ def make_device_iteration(agent: CadreAgent, env: DrivingEnv,
 def train_device(agent: CadreAgent, env: DrivingEnv, iterations: int = 10,
                  rollout_cfg: Optional[RolloutConfig] = None,
                  train_cfg: Optional[TrainConfig] = None,
-                 seed: int = 0, log_fn=print
-                 ) -> Tuple[torch.optim.Optimizer, List[dict]]:
-    """Train the agent's banks in place for `iterations` iterations with
-    one optimizer (Adam at agent.ppo_cfg.lr, clip at its max_grad_norm).
-    Returns (the optimizer, one metrics row per iteration); each row is
+                 seed: int = 0, log_fn=print) -> List[dict]:
+    """Train the agent's banks in place for `iterations` iterations on the
+    agent's optimizer (Adam at agent.ppo_cfg.lr, clip at its
+    max_grad_norm). Returns one metrics row per iteration; each row is
     timed to the device's end by reading the iteration's checksum."""
     rollout_cfg = rollout_cfg or RolloutConfig()
     iteration, init_carry = make_device_iteration(agent, env, rollout_cfg,
                                                   train_cfg, seed)
-    opt = make_optimizer(agent.policy_parameters(), agent.ppo_cfg)
     carry = init_carry()
     steps_per_iter = rollout_cfg.num_steps * env.num_envs
     out = []
     for i in range(iterations):
         t0 = time.perf_counter()
-        carry, m = iteration(opt, carry)
+        carry, m = iteration(agent.opt, carry)
         checksum = float(m.checksum)            # waits for the device
         dt = time.perf_counter() - t0
         episodes = float(m.episodes_done)
@@ -298,4 +294,4 @@ def train_device(agent: CadreAgent, env: DrivingEnv, iterations: int = 10,
                    f"env-steps/s, value {row['value_loss']:.4f}, "
                    f"eps {row['episodes_done']:.0f}, "
                    f"completion {row['mean_completion']:.2%}")
-    return opt, out
+    return out

@@ -16,8 +16,8 @@ import dataclasses
 # flags of the JAX CLI whose features the port does not have yet, by the
 # ROADMAP.md queue A item that ports them
 UNPORTED = {
-    "collect": "collecting expert frames needs the host env, ROADMAP.md "
-               "queue A item 12",
+    "collect": "collecting expert frames (collect_dataset), ROADMAP.md "
+               "queue A item 13",
     "experiment": "named experiments belong to the model zoo, ROADMAP.md "
                   "queue A item 14",
     "mesh": "data-parallel training, ROADMAP.md queue A item 16",

@@ -11,8 +11,9 @@ Phases, each of which must pass:
   3. each kernel against its plain PyTorch version on the card: paint
      bit-equal on random, tile-edge and main-path tables and on those of
      an eval-tier env and a hazard env, dual attention at every shape the
-     port calls it with (the eval's B=25 and the trainer's B=48 f32 among
-     them), its backward kernel at B=48 and at phase 5's small head with
+     port calls it with (the eval's B=25, the trainer's B=48 f32 and the
+     host-env trainer's f32 B=8 and B=64 among them), its backward kernel
+     at B=48 and at phase 5's small head with
      non-zero gammas, and a bf16 call that needs a gradient refused;
      timings against each kernel's bound and, for dual attention, a
      one-call PyTorch yardstick;
@@ -47,7 +48,19 @@ Phases, each of which must pass:
      card against the CPU; (d) `python -m cadre_tpu_torch.train_perception`
      on the shards; (e) `python -m cadre_tpu_torch.main --danet-checkpoint`
      on (b)'s checkpoint, and an agent built from it giving the trainer's
-     latent bit for bit.
+     latent bit for bit;
+  9. the host-env path (`--env sim`): the f32 production encoder trains one
+     train_vec iteration on 8 kinematic sim envs with traffic, T=200 fused
+     ticks, 4 PPO epochs of 2 minibatches, after a T=2 warm-up, with every
+     kernel's launch count read around it (one dual-attention launch per
+     tick and one for the bootstrap), the act / env / update split, peak
+     memory and a profile of a whole T=20 train_vec iteration; one episode
+     of `train` (`--num-envs 1`) on one sim env, T=20, its launches counted
+     (one per act, each encoding the 8-frame window, and one for the
+     bootstrap unless the episode ends on its last step); then `python -m
+     cadre_tpu_torch.main --env sim` with 8 envs for two iterations of 20
+     steps and with one env for one episode, and both snapshots read
+     back.
 
 It prints one JSON line of kernel figures, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -65,6 +78,7 @@ as A B B A to see the spread between runs.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -526,6 +540,11 @@ def _attention_library(x, q, k, v, gp, xc, gc):
 PERCEPTION_BATCH = 48
 ATTENTION_SHAPES = ((32, 128, 16), (256, 128, 16), (25, 128, 16),
                     (PERCEPTION_BATCH, 128, 16), (2, 32, 4))
+# the host-env trainer's calls (phase 9, f32 encoder): the newest frame of
+# each of N_HOST envs on an incremental tick, their 8-frame windows on a
+# refresh tick
+N_HOST = 8
+HOST_ATTENTION_SHAPES = ((N_HOST, 128, 16), (8 * N_HOST, 128, 16))
 # the backward kernel's shapes (f32 only): the trainer's and the small
 # head's
 BACKWARD_SHAPES = ((PERCEPTION_BATCH, 128, 16), (2, 32, 4))
@@ -543,8 +562,10 @@ def check_dual_attention(gen, device):
     smem_fn.argtypes = [ctypes.c_int] * 4
     smem_fn.restype = ctypes.c_longlong
     main = None
-    for b, c, d in ATTENTION_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+    for b, c, d in ATTENTION_SHAPES + HOST_ATTENTION_SHAPES:
+        host = (b, c, d) in HOST_ATTENTION_SHAPES
+        for dtype in (torch.float32,) if host else (torch.float32,
+                                                     torch.bfloat16):
             bf16 = dtype == torch.bfloat16
             p = 40
             smem = smem_fn(p, c, d, int(bf16))
@@ -614,6 +635,16 @@ def check_dual_attention(gen, device):
                              f"call_ms_b{b}": call_ms,
                              f"library_call_ms_b{b}": lib_call_ms,
                              f"bound_ms_b{b}": max(t_bytes, t_ops)})
+            elif host:
+                require(main is not None, "dual_attention: B=32 not run")
+                main.update({f"ms_b{b}_f32": ms,
+                             f"library_ms_b{b}_f32": lib_ms,
+                             f"call_ms_b{b}_f32": call_ms,
+                             f"library_call_ms_b{b}_f32": lib_call_ms,
+                             f"plain_ms_b{b}_f32": plain_ms,
+                             f"bound_ms_b{b}_f32": max(t_bytes, t_ops),
+                             f"bound_by_b{b}_f32": "bytes" if t_bytes >= t_ops
+                             else "operations"})
             elif b == PERCEPTION_BATCH and not bf16:
                 require(main is not None, "dual_attention: B=32 not run")
                 main.update({"ms_b48_f32": ms, "library_ms_b48_f32": lib_ms,
@@ -790,7 +821,8 @@ def phase_slice():
             f"steer buffer obs {tuple(steer.obs.shape)}")
     for sig, buf in (("steer", steer), ("throttle", throttle)):
         for name, t in buf._asdict().items():
-            _finite(f"{sig}.{name}", t)
+            if name != "step":              # the host ring pointer
+                _finite(f"{sig}.{name}", t)
     for name, t in m._asdict().items():
         _finite(name, t)
     for name in ("rgb", "route_fig", "measurements"):
@@ -869,7 +901,8 @@ def _tile_buffer(buf, t):
         x = x[:-1].repeat(reps, *([1] * (x.dim() - 1)))[:t]
         return torch.cat([x, torch.zeros_like(x[:1])])
 
-    return type(buf)(*(tile(x) for x in buf))
+    return buf._replace(**{k: tile(x) for k, x in buf._asdict().items()
+                           if isinstance(x, torch.Tensor)})
 
 
 def train_iteration(agent, env, carry, bufs):
@@ -891,10 +924,9 @@ def train_iteration(agent, env, carry, bufs):
         make_fused_iteration_update,
         minibatch_layout,
     )
-    from cadre_tpu_torch.rl.ppo import make_optimizer
 
     train_cfg, rollout_cfg = TrainConfig(), RolloutConfig(num_steps=T_TRAIN)
-    opt = make_optimizer(agent.policy_parameters(), agent.ppo_cfg)
+    opt = agent.opt
     warm, _ = make_device_iteration(agent, env, RolloutConfig(num_steps=2),
                                     train_cfg, seed=3)
     t0 = time.perf_counter()
@@ -1312,7 +1344,6 @@ def nocrash_train(agent):
     )
     from cadre_tpu_torch.envs.town_maps import town_map, trace_dense_route
     from cadre_tpu_torch.rl.device_rollout import make_device_iteration
-    from cadre_tpu_torch.rl.ppo import make_optimizer
 
     town = town_map("Town01")
     dense = [trace_dense_route(town, np.asarray([w.xy for w in r.trajectory]))
@@ -1324,7 +1355,7 @@ def nocrash_train(agent):
     env = DrivingEnv(bank, N_ENVS, cfg, seed=3, device="cuda")
     iteration, init_carry = make_device_iteration(
         agent, env, RolloutConfig(num_steps=T_STEPS), seed=3)
-    opt = make_optimizer(agent.policy_parameters(), agent.ppo_cfg)
+    opt = agent.opt
     carry = init_carry()
     pinned = list(range(NOCRASH_PINNED))
     carry = carry._replace(env_state=_midway_timed_out(
@@ -1800,6 +1831,197 @@ def perception_handoff(trainer, ckpt, batch):
           f"bit")
 
 
+# ---------------------------------------------------------------- phase 9
+
+T_HOST = 200            # RolloutConfig's default steps, as `--env sim` runs
+HOST_PROFILE_TICKS = 20
+T_SINGLE = 20           # steps of the `train` episode (`--num-envs 1`)
+
+
+def _host_vec_env():
+    from cadre_tpu_torch.envs.sim_env import SimDrivingEnv
+    from cadre_tpu_torch.envs.vec_env import VecDrivingEnv
+
+    return VecDrivingEnv([lambda k=k: SimDrivingEnv(seed=k, vehicle_num=(2, 2))
+                          for k in range(N_HOST)])
+
+
+def phase_host_env():
+    """The host-env path of `--env sim --num-envs N_HOST` at production
+    width (the f32 encoder root main.py builds): one counted train_vec
+    iteration of T_HOST fused ticks after a T=2 warm-up, the act / env /
+    update split, a profile of a short train_vec iteration, the counted
+    `train` episode of `--num-envs 1`, then the CLI with N_HOST envs and
+    with one. Returns the launch counts of the train_vec iteration and of
+    the `train` episode."""
+    import torch
+
+    from cadre_tpu_torch.configs.agent_config import (
+        RolloutConfig,
+        TrainConfig,
+    )
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.rl.agent import CadreAgent
+    from cadre_tpu_torch.rl.vec_train import train_vec
+
+    t0 = time.perf_counter()
+    agent = CadreAgent.create(danet_params(), device="cuda")
+    vec = _host_vec_env()
+    f, train_cfg = agent.obs_dim, TrainConfig()
+    train_vec(vec, agent, RolloutConfig(num_steps=2, feature_dims=f),
+              train_cfg, iterations=1, seed=1)
+    torch.cuda.synchronize()
+    print(f"[9] set-up (agent, {N_HOST} sim envs, warm-up iteration T=2) "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    before = [p.detach().clone() for p in agent.policy_parameters()]
+    rollout_cfg = RolloutConfig(num_steps=T_HOST, feature_dims=f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats, launches = _counted(lambda: train_vec(
+        vec, agent, rollout_cfg, train_cfg, iterations=1, seed=2))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    s = stats[0]
+    # one encoder call, so one launch, per tick and one for the bootstrap;
+    # `refreshes` of them encode whole windows (B = 8 * N_HOST)
+    require(launches == {"paint": 0, "dual_attention": T_HOST + 1,
+                         "dual_attention_bwd": 0},
+            f"host iteration launches {launches}, not 0 / {T_HOST + 1} / 0")
+    losses = [s.value_loss, s.policy_loss, s.entropy_loss]
+    require(all(map(math.isfinite, losses)), f"losses {losses}")
+    params = agent.policy_parameters()
+    for i, p in enumerate(params):
+        _finite(f"policy parameter {i}", p.detach())
+    moved = sum(not torch.equal(a, b.detach()) for a, b in zip(before, params))
+    require(moved == len(params),
+            f"only {moved} of {len(params)} policy tensors moved")
+    steps = T_HOST * N_HOST
+    split = ", ".join(f"{k} {v:.3f} s ({100 * v / seconds:.1f}%)"
+                      for k, v in s.phase_seconds.items())
+    print(f"[9] train_vec N={N_HOST} T={T_HOST} E={train_cfg.ppo_epoch} "
+          f"M={rollout_cfg.mini_batch_num}, f32 encoder: {seconds:.3f} s, "
+          f"{steps / seconds:.1f} env-steps/s; {split}; {s.refreshes} "
+          f"refresh ticks (B={8 * N_HOST}), {T_HOST + 1 - s.refreshes} "
+          f"incremental (B={N_HOST}); {s.episodes_finished} episodes ended; "
+          f"peak memory allocated {peak / 2**30:.2f} GiB; losses value "
+          f"{s.value_loss:.5f} policy {s.policy_loss:.5f} entropy "
+          f"{s.entropy_loss:.5f}; launches {launches}")
+
+    prof = profile(lambda: train_vec(
+        vec, agent, RolloutConfig(num_steps=HOST_PROFILE_TICKS,
+                                  feature_dims=f),
+        train_cfg, iterations=1, seed=3)[0],
+        f"one train_vec iteration of {HOST_PROFILE_TICKS} ticks (its update "
+        f"included)", HOST_PROFILE_TICKS, "tick", tag="9")
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in prof.phase_seconds.items())
+    print(f"[9]   its split under the profiler: {split}")
+    single = host_single(agent)
+    host_cli()
+    return launches, single
+
+
+class _LastDone:
+    """A host env that remembers whether its last step ended the
+    episode."""
+
+    def __init__(self, env):
+        self.env, self.done = env, False
+
+    def reset(self):
+        return self.env.reset()
+
+    def step(self, control):
+        obs, reward, self.done, info = self.env.step(control)
+        return obs, reward, self.done, info
+
+
+def host_single(agent):
+    """One episode of `rl.train.train` (the `--num-envs 1` loop) on one sim
+    env, T_SINGLE steps, launches counted: each act encodes the whole
+    8-frame window in one launch, and the bootstrap is one more unless the
+    episode ended on its last step. Returns the launch counts."""
+    import torch
+
+    from cadre_tpu_torch.configs.agent_config import (
+        RolloutConfig,
+        TrainConfig,
+    )
+    from cadre_tpu_torch.envs.sim_env import SimDrivingEnv
+    from cadre_tpu_torch.rl.train import train
+
+    env = _LastDone(SimDrivingEnv(seed=0, vehicle_num=(2, 2)))
+    cfg = RolloutConfig(num_steps=T_SINGLE, feature_dims=agent.obs_dim)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats, launches = _counted(lambda: train(
+        env, agent, cfg, TrainConfig(), max_episode=1, seed=4))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    acts = T_SINGLE + (0 if env.done else 1)
+    require(launches == {"paint": 0, "dual_attention": acts,
+                         "dual_attention_bwd": 0},
+            f"train episode launches {launches}, not 0 / {acts} / 0")
+    s = stats[0]
+    losses = [s.value_loss, s.policy_loss, s.entropy_loss]
+    require(all(map(math.isfinite, losses)), f"train losses {losses}")
+    boot = ("skipped: the last step ended the episode" if env.done
+            else "included")
+    print(f"[9] train (--num-envs 1) T={T_SINGLE}, one episode: "
+          f"{seconds:.3f} s, {T_SINGLE / seconds:.1f} env-steps/s; "
+          f"{acts} acts of B=8 (bootstrap {boot}); "
+          f"losses value {s.value_loss:.5f} policy {s.policy_loss:.5f} "
+          f"entropy {s.entropy_loss:.5f}; launches {launches}")
+    return launches
+
+
+def host_cli():
+    """`python -m cadre_tpu_torch.main --env sim` at production width, with
+    N_HOST envs for two iterations of 20 steps and with one env for one
+    episode of 20 steps, each in its own process; each snapshot must load
+    into a fresh agent."""
+    import os
+    import shutil
+
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.rl.agent import CadreAgent
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = {"vec": (["--num-envs", str(N_HOST), "--iterations", "2"],
+                    os.path.join("models", "ppo_model_0.pt")),
+            "one": (["--num-envs", "1", "--episodes", "1"],
+                    os.path.join("0", "models", "ppo_model_0.pt"))}
+    agent = CadreAgent.create(danet_params(), seed=1, device="cuda")
+    for name, (flags, snapshot) in runs.items():
+        work = _smoke_dir(f"smoke_host_{name}")
+        shutil.rmtree(work, ignore_errors=True)
+        cmd = [sys.executable, "-m", "cadre_tpu_torch.main", "--env", "sim",
+               *flags, "--num-steps", "20", "--work-dir", work]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                             timeout=600)
+        seconds = time.perf_counter() - t0
+        require(out.returncode == 0, f"the {name} CLI exited "
+                f"{out.returncode}: {out.stderr[-3000:]}")
+        for line in (out.stderr + out.stdout).strip().splitlines()[-3:]:
+            print(f"[9]   {line}")
+        path = os.path.join(work, snapshot)
+        require(os.path.exists(path), f"the CLI wrote no {path}")
+        agent.load_snapshot(path)
+        saved = torch.load(path, map_location="cuda", weights_only=True)
+        for sig in ("steer", "throttle"):
+            for k, v in getattr(agent, sig).state_dict().items():
+                require(torch.equal(v, saved[sig][k]),
+                        f"snapshot {sig}.{k} did not load back equal")
+        print(f"[9] python -m cadre_tpu_torch.main --env sim "
+              f"{' '.join(flags)} --num-steps 20: exit 0 in {seconds:.1f} s; "
+              f"{os.path.relpath(path, root)} loads back equal")
+
+
 # ------------------------------------------- kernel times of checkouts
 
 def _timing_inputs(device):
@@ -1949,6 +2171,7 @@ def main(argv) -> int:
         phase_cli()
         eval_launches = phase_eval()
         perception_launches = phase_perception()
+        host_launches, single_launches = phase_host_env()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1956,6 +2179,8 @@ def main(argv) -> int:
         entry["launches"] = launches[name]
         entry["launches_eval"] = eval_launches[name]
         entry["launches_perception"] = perception_launches[name]
+        entry["launches_host"] = host_launches[name]
+        entry["launches_host_single"] = single_launches[name]
     # the backward kernel's main path is perception pretraining
     kernels["dual_attention_bwd"]["launches"] = \
         perception_launches["dual_attention_bwd"]

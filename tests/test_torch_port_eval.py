@@ -7,6 +7,7 @@ As in test_torch_port_slice.py, every random number is JAX's own, handed
 to the port through its draw seams, and weights go through
 cadre_tpu_torch.utils.convert. Tolerances are stated per test.
 """
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -495,6 +496,7 @@ def test_cli_trains_with_routes_hazards_and_priority(tmp_path, routes_xml):
          "--hazards", "1", "--priority-routes", "--num-envs", "2",
          "--num-steps", "3", "--iterations", "1",
          "--work-dir", str(tmp_path)],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
+        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="2"),
+        capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert (tmp_path / "models" / "ppo_model_1.pt").exists()

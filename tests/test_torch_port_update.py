@@ -446,10 +446,10 @@ def test_train_device_two_iterations(tmp_path):
     for _ in range(2):
         agent, env = _small_setup()
         before = [p.detach().clone() for p in agent.policy_parameters()]
-        opt, rows = train_device(agent, env, iterations=2,
-                                 rollout_cfg=RolloutConfig(num_steps=4),
-                                 train_cfg=TrainConfig(ppo_epoch=2), seed=5,
-                                 log_fn=None)
+        rows = train_device(agent, env, iterations=2,
+                            rollout_cfg=RolloutConfig(num_steps=4),
+                            train_cfg=TrainConfig(ppo_epoch=2), seed=5,
+                            log_fn=None)
         runs.append([row["checksum"] for row in rows])
         assert len(rows) == 2
         for row in rows:
@@ -462,7 +462,7 @@ def test_train_device_two_iterations(tmp_path):
     assert runs[0] == runs[1]
 
     path = str(tmp_path / "snap.pt")
-    agent.save_snapshot(path, opt)
+    agent.save_snapshot(path, agent.opt)
     fresh, _ = _small_setup(seed=8)
     fresh_opt = ppo.make_optimizer(fresh.policy_parameters(), fresh.ppo_cfg)
     fresh.load_snapshot(path, fresh_opt)
@@ -473,7 +473,7 @@ def test_train_device_two_iterations(tmp_path):
     agent, env = _small_setup()
     iteration, init_carry = make_device_iteration(
         agent, env, RolloutConfig(num_steps=2), TrainConfig(ppo_epoch=1))
-    opt = ppo.make_optimizer(agent.policy_parameters(), agent.ppo_cfg)
+    opt = agent.opt
     carry = init_carry()
     steps = [carry.env_state.step.clone()]
     for _ in range(2):
@@ -491,7 +491,8 @@ def test_cli_trains_and_saves_a_snapshot(tmp_path):
         [sys.executable, "-m", "cadre_tpu_torch.main", "--env", "jax",
          "--small", "--num-envs", "2", "--num-steps", "4", "--iterations",
          "1", "--device", "cpu", "--work-dir", str(tmp_path)],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
+        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="2"),
+        capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     path = tmp_path / "models" / "ppo_model_1.pt"
     assert path.exists()
