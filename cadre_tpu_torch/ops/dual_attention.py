@@ -17,10 +17,12 @@ in bf16 the two differ by about one unit in the last place.
 On CUDA tensors that need a gradient, `fused_dual_attention` is the
 autograd function `DualAttention`: its forward is that kernel and its
 backward the hand-written backward kernel (`csrc/dual_attention_bwd.cu`,
-f32; `dual_attention_backward`). The JAX package has no backward kernel:
-its gradient is XLA's autodiff of the plain functions, which
+f32, a thread-block cluster per batch row, products in 3xTF32 on the
+tensor cores; `dual_attention_backward`). The JAX package has no backward
+kernel: its gradient is XLA's autodiff of the plain functions, which
 `dual_attention_backward_ref` (autograd through pam_apply / cam_apply) is
-here. A call in another type that needs a gradient raises: a kernel never
+here. `dual_attention_backward_blocked` spells out the kernel's algebra in
+its order, for the tests. A call in another type that needs a gradient raises: a kernel never
 returns outputs detached from inputs that require one.
 All tensors are NHWC: x, v [B, H, W, C]; q, k [B, H, W, Cqk].
 """
@@ -149,10 +151,16 @@ def dual_attention_backward(q, k, v, gamma_pam, x_cam, gamma_cam, dy_pam,
     by the backward kernel (CUDA tensors, f32): (dx_pam, dq, dk, dv,
     dgamma_pam, dx_cam, dgamma_cam), each gamma's gradient shaped and typed
     as the gamma. x_pam is not an input: its gradient is dy_pam. The
-    attention matrices are recomputed from the inputs, not saved. Each
-    gamma's gradient is a sum over B * P * C terms, taken in a fixed order
-    (per batch row in the kernel, then over the rows), so it is the same
-    from run to run."""
+    attention matrices are recomputed from the inputs, not saved. One
+    launch: per batch row a cluster of C / 32 CAM blocks, each owning 32
+    rows of the C x C Gram and exchanging its share of dx_cam through
+    distributed shared memory, and one PAM block; every product in 3xTF32
+    on the tensor cores (as accurate as f32 at these shapes;
+    `dual_attention_backward_blocked` is the same algebra on the CPU).
+    Each gamma's gradient is a sum over B * P * C terms, taken in a fixed
+    order (per block in the kernel, one share per block, then the shares
+    summed here over a fixed axis), so two calls on the same inputs give
+    bit-equal outputs."""
     global backward_launches
     dtype = x_cam.dtype
     if dtype not in _BWD_ENTRY:
@@ -173,12 +181,18 @@ def dual_attention_backward(q, k, v, gamma_pam, x_cam, gamma_cam, dy_pam,
     _check_shape(p, c, d)
     if not all(t.is_contiguous() for t in (q, k, v, x_cam)):
         raise ValueError("dual_attention backward: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (v, x_cam, dy_pam, dy_cam)):
+        raise ValueError("dual_attention backward: v, x_cam and the upstream "
+                         "gradients must be 16-byte aligned")
     gp = _gamma(gamma_pam, dtype, x_cam.device)
     gc = _gamma(gamma_cam, dtype, x_cam.device)
     dq, dk = torch.empty_like(q), torch.empty_like(k)
     dv, dx_cam = torch.empty_like(v), torch.empty_like(x_cam)
-    # per batch row: [0, B) PAM's share of dgamma_pam, [B, 2B) CAM's
-    part = torch.empty(2, b, dtype=torch.float32, device=x_cam.device)
+    # one share per block, C / 32 per batch row in each row of part: row
+    # 0 the PAM block's of dgamma_pam (padded with zeros), row 1 the CAM
+    # ranks' of dgamma_cam; one reduction over the last axis sums both
+    part = torch.empty(2, b * (c // 32), dtype=torch.float32,
+                       device=x_cam.device)
     if b:
         _build.check(_bwd_entry(dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gp.data_ptr(),
@@ -204,6 +218,94 @@ def dual_attention_backward_ref(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam,
         out_p = pam_apply(*ins[:5])
         out_c = cam_apply(ins[5], ins[6])
         return torch.autograd.grad((out_p, out_c), ins, (dy_pam, dy_cam))
+
+
+def _tf32(t: torch.Tensor, rna: bool = True) -> torch.Tensor:
+    """t's float32 values as tf32 (10 mantissa bits), in t's dtype: rounded
+    to nearest, ties away from zero (cvt.rna.tf32.f32), or with `rna`
+    False truncated, which is what the tensor cores do with the low 13 bits
+    of an f32 operand."""
+    bits = t.float().view(torch.int32)
+    if rna:
+        bits = bits + 0x1000
+    return (bits & -0x2000).view(torch.float32).to(t.dtype)
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor, products: str) -> torch.Tensor:
+    """a @ b as the backward kernel's tensor cores form it: with "3xtf32"
+    each operand is split into hi, a rounded to tf32, and lo = a - hi,
+    which the tensor cores truncate to tf32; the product is lo·hi + hi·lo +
+    hi·hi (lo·lo dropped). "f32" is a @ b."""
+    if products == "f32":
+        return a @ b
+    if products != "3xtf32":
+        raise ValueError(f"products must be 'f32' or '3xtf32', got {products}")
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah, rna=False), _tf32(b - bh, rna=False)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def dual_attention_backward_blocked(q, k, v, gamma_pam, x_cam, gamma_cam,
+                                    dy_pam, dy_cam, products="f32"):
+    """The backward kernel's algebra, in its order, on any device and
+    dtype: the outputs of `dual_attention_backward`. CAM rank r owns the
+    Gram rows I_r = [32 r, 32 r + 32): G_r = x[:, I_r]^T x and
+    H_r = dy[:, I_r]^T x, Bm_r and dN_r from their rows, its partial
+    T_r = dy[:, I_r] (gc Bm_r) - x[:, I_r] dN_r and its own
+    L_r = x dN_r^T; dx_cam[:, I_r] = dy[:, I_r] + (T_0 + T_1 + ...)[:, I_r]
+    - L_r, the partials summed in rank order. One share of dgamma_pam (the
+    PAM block's) and one of dgamma_cam per rank, per batch row, summed as
+    the wrapper sums them ([2, B C / 32], PAM's share padded with zeros).
+    `products` is "f32" or "3xtf32" (see `_matmul`).
+    Used by the tests only."""
+    b, h, w, c = x_cam.shape
+    p, d = h * w, q.shape[-1]
+    gp = gamma_pam.reshape(()).to(x_cam.dtype)
+    gc = gamma_cam.reshape(()).to(x_cam.dtype)
+
+    def mm(a, bb):
+        return _matmul(a, bb, products)
+
+    qf, kf = q.reshape(b, p, d), k.reshape(b, p, d)
+    vf, dyp = v.reshape(b, p, c), dy_pam.reshape(b, p, c)
+    att = torch.softmax(mm(qf, kf.transpose(1, 2)), dim=-1)
+    g_pam = mm(dyp, vf.transpose(1, 2))
+    share_pam = (att * g_pam).sum(dim=(1, 2))
+    da = gp * g_pam
+    de = att * (da - (da * att).sum(dim=-1, keepdim=True))
+    dv = gp * mm(att.transpose(1, 2), dyp)
+    dq = mm(de, kf)
+    dk = mm(de.transpose(1, 2), qf)
+
+    x, dy = x_cam.reshape(b, p, c), dy_cam.reshape(b, p, c)
+    partials, local, shares = [], [], []
+    for r in range(c // 32):
+        rows = slice(32 * r, 32 * r + 32)
+        xr, dyr = x[:, :, rows], dy[:, :, rows]
+        g_r = mm(xr.transpose(1, 2), x)
+        h_r = mm(dyr.transpose(1, 2), x)
+        bm = torch.softmax(g_r.amax(dim=-1, keepdim=True) - g_r, dim=-1)
+        shares.append((bm * h_r).sum(dim=(1, 2)))
+        db = gc * h_r
+        dn = bm * (db - (db * bm).sum(dim=-1, keepdim=True))
+        partials.append(mm(dyr, gc * bm) + mm(-xr, dn))
+        local.append(mm(x, dn.transpose(1, 2)))
+    total = partials[0]
+    for t in partials[1:]:
+        total = total + t
+    dx = torch.cat([dy[:, :, 32 * r:32 * r + 32]
+                    + total[:, :, 32 * r:32 * r + 32] - local[r]
+                    for r in range(c // 32)], dim=-1)
+    pad = torch.zeros(b, c // 32 - 1, dtype=share_pam.dtype,
+                      device=share_pam.device)
+    part = torch.stack([torch.cat([share_pam[:, None], pad], dim=1),
+                        torch.stack(shares, dim=1)]).reshape(2, -1)
+    sums = part.sum(dim=1)
+    return (dy_pam, dq.reshape(q.shape), dk.reshape(k.shape),
+            dv.reshape(v.shape),
+            sums[0].reshape(gamma_pam.shape).to(gamma_pam.dtype),
+            dx.reshape(x_cam.shape),
+            sums[1].reshape(gamma_cam.shape).to(gamma_cam.dtype))
 
 
 class DualAttention(torch.autograd.Function):

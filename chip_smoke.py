@@ -13,10 +13,11 @@ Phases, each of which must pass:
      an eval-tier env and a hazard env, dual attention at every shape the
      port calls it with (the eval's B=25, the trainer's B=48 f32 and the
      host-env trainer's f32 B=8 and B=64 among them), its backward kernel
-     at B=48 and at phase 5's small head with
-     non-zero gammas, and a bf16 call that needs a gradient refused;
-     timings against each kernel's bound and, for dual attention, a
-     one-call PyTorch yardstick;
+     at B=48, at phase 5's small head and at every cluster size (C = 32 to
+     128), P = 49 and 64 and Cqk = 32, with non-zero gammas, two calls
+     bit-equal, and a bf16 call that needs a gradient refused; timings
+     against each kernel's bound and, for dual attention and its backward,
+     a PyTorch yardstick;
   4. the main path: a bf16 CoPM agent at production width drives 32 device
      envs for a 20-step rollout, then trains one whole iteration at
      production size (T=200, 4 PPO epochs of 2 minibatches) after a T=2
@@ -84,10 +85,11 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, FLOP/s of
-# fp32 outside the tensor cores and of bf16 in the tensor cores.
+# fp32 outside the tensor cores and of bf16 and tf32 in the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
+TF32_TC_FLOPS = 495e12
 
 N_ENVS = 32
 T_STEPS = 20
@@ -496,10 +498,8 @@ def check_paint(gen, device):
                f"+ {main[1]['bytes'] / 1e6:.2f} MB)")
 
 
-def _attention_inputs(b, c, d, dtype, gen, device):
+def _attention_inputs(b, c, d, dtype, gen, device, h=5, w=8):
     import torch
-
-    h, w = 5, 8
 
     def r(*shape):
         return torch.randn(*shape, generator=gen, device=device).to(dtype)
@@ -546,8 +546,13 @@ ATTENTION_SHAPES = ((32, 128, 16), (256, 128, 16), (25, 128, 16),
 N_HOST = 8
 HOST_ATTENTION_SHAPES = ((N_HOST, 128, 16), (8 * N_HOST, 128, 16))
 # the backward kernel's shapes (f32 only): the trainer's and the small
-# head's
+# head's, timed; and (B, C, Cqk, H, W) held to the plain version only: every
+# cluster size (C = 32-128), P = 49 (K not a multiple of 8) and P = 64
+# (the most the kernel takes), odd Cqk and Cqk = 32
 BACKWARD_SHAPES = ((PERCEPTION_BATCH, 128, 16), (2, 32, 4))
+BACKWARD_EDGE_SHAPES = ((3, 64, 8, 5, 8), (3, 96, 12, 5, 8),
+                        (3, 32, 5, 7, 7), (3, 128, 32, 7, 7),
+                        (3, 128, 32, 8, 8), (3, 64, 17, 8, 8))
 
 
 def check_dual_attention(gen, device):
@@ -654,14 +659,14 @@ def check_dual_attention(gen, device):
     return main
 
 
-def _backward_inputs(b, c, d, gen, device):
+def _backward_inputs(b, c, d, gen, device, h=5, w=8):
     """Backward kernel inputs (q, k, v, gamma_pam, x_cam, gamma_cam,
     dy_pam, dy_cam) with non-zero gammas, and x_pam for the plain
     version."""
     import torch
 
     x, q, k, v, _, xc, _ = _attention_inputs(b, c, d, torch.float32, gen,
-                                             device)
+                                             device, h, w)
     dyp = torch.randn(x.shape, generator=gen, device=device)
     dyc = torch.randn(x.shape, generator=gen, device=device)
     gp = torch.tensor([0.7], device=device)
@@ -689,64 +694,119 @@ def _backward_work(b, c, d, p=40):
     return nbytes, 2.0 * macs
 
 
+def _library_grads(x, q, k, v, gp, xc, gc, dyp, dyc):
+    """The gradients of `_attention_library` (SDPA's backward for PAM, bmm
+    and softmax for CAM) by autograd, its forward included: the yardstick
+    of the backward kernel. Timed here only; the port never calls it."""
+    import torch
+
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (x, q, k, v, gp, xc, gc)]
+        return torch.autograd.grad(_attention_library(*ins), ins, (dyp, dyc))
+
+
+def _bwd_lib_fn(name, argtypes, restype):
+    import ctypes
+
+    from cadre_tpu_torch.ops import _build
+
+    fn = getattr(_build.load("dual_attention_bwd"), name)
+    fn.argtypes = [ctypes.c_int] * argtypes
+    fn.restype = restype
+    return fn
+
+
 def check_dual_attention_backward(gen, device):
     """The backward kernel against autograd through the plain versions, at
-    every shape of BACKWARD_SHAPES; timings at the trainer's shape; a bf16
-    call that needs a gradient must raise."""
+    every shape of BACKWARD_SHAPES and BACKWARD_EDGE_SHAPES, twice with
+    bit-equal outputs; its cluster size, shared memory and active clusters;
+    timings at BACKWARD_SHAPES; a bf16 call that needs a gradient must
+    raise."""
     import ctypes
 
     import torch
 
-    from cadre_tpu_torch.ops import _build
     from cadre_tpu_torch.ops import dual_attention as da
 
-    smem_fn = _build.load("dual_attention_bwd").dual_attention_bwd_smem_bytes
-    smem_fn.argtypes = [ctypes.c_int] * 3
-    smem_fn.restype = ctypes.c_longlong
+    smem_fn = _bwd_lib_fn("dual_attention_bwd_smem_bytes", 3,
+                          ctypes.c_longlong)
+    size_fn = _bwd_lib_fn("dual_attention_bwd_cluster_size", 1, ctypes.c_int)
+    active_fn = _bwd_lib_fn("dual_attention_bwd_active_clusters", 3,
+                            ctypes.c_int)
     entry = None
-    for b, c, d in BACKWARD_SHAPES:
-        args, x = _backward_inputs(b, c, d, gen, device)
+    shapes = [(b, c, d, 5, 8) for b, c, d in BACKWARD_SHAPES]
+    for b, c, d, h, w in shapes + list(BACKWARD_EDGE_SHAPES):
+        p = h * w
+        tag = f"B={b} P={p} C={c} Cqk={d} f32"
+        args, x = _backward_inputs(b, c, d, gen, device, h, w)
         got = da.dual_attention_backward(*args)
+        again = da.dual_attention_backward(*args)
         want = da.dual_attention_backward_ref(x, *args)
         torch.cuda.synchronize()
+        require(all(torch.equal(g, a) for g, a in zip(got, again)),
+                f"dual_attention_bwd {tag}: two calls differ")
         worst = {}
-        for (name, tol), g, w in zip(BWD_TOL.items(), got, want):
-            scale = float(w.abs().max())
-            rel = float((g - w).abs().max()) / max(scale, 1e-30)
-            require(scale > 0, f"dual_attention_bwd B={b} C={c}: {name} is "
-                    f"zero (gammas must be non-zero)")
-            require(rel <= tol, f"dual_attention_bwd B={b} C={c}: {name} "
+        for (name, tol), g, w_ in zip(BWD_TOL.items(), got, want):
+            scale = float(w_.abs().max())
+            rel = float((g - w_).abs().max()) / max(scale, 1e-30)
+            require(scale > 0, f"dual_attention_bwd {tag}: {name} is zero "
+                    f"(gammas must be non-zero)")
+            require(rel <= tol, f"dual_attention_bwd {tag}: {name} "
                     f"{rel:.3g} of its scale > {tol}")
             worst[name] = rel
-        tag = f"B={b} C={c} Cqk={d} f32"
+        active = active_fn(p, c, d)
+        require(active > 0, f"dual_attention_bwd {tag}: no cluster can be "
+                f"active ({active})")
+        layout = (f"clusters of {size_fn(c)} CAM blocks and one PAM block "
+                  f"per row, {smem_fn(p, c, d)} B shared memory per block, "
+                  f"{active} clusters active at once")
+        errs = ", ".join(f"{k} {v:.2g}" for k, v in worst.items())
+        if (b, c, d) not in BACKWARD_SHAPES:
+            print(f"[3] dual_attention_bwd {tag}: max error / scale {errs} "
+                  f"(bounds 1e-4 PAM / 1e-3 CAM), two calls bit-equal; "
+                  f"{layout}")
+            continue
         ms = device_ms(lambda: da.dual_attention_backward(*args))
         call_ms = time_ms(lambda: da.dual_attention_backward(*args), 200)
         plain_ms = time_ms(lambda: da.dual_attention_backward_ref(x, *args),
                            20)
+        lib_in = (x, *args[:6])
+        lib_both_ms = device_ms(lambda: _library_grads(*lib_in, *args[6:]))
+        lib_fwd_ms = device_ms(lambda: _attention_library(*lib_in))
+        lib_ms = lib_both_ms - lib_fwd_ms
         nbytes, flops = _backward_work(b, c, d)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOPS * 1e3
-        print(f"[3] dual_attention_bwd {tag}: max error / scale "
-              + ", ".join(f"{k} {v:.2g}" for k, v in worst.items())
-              + f" (bounds 1e-4 PAM / 1e-3 CAM); kernel {ms:.4f} ms "
-              f"(graph of 200), {call_ms:.4f} ms issued one by one, plain "
-              f"{plain_ms:.4f} ms; bound {max(t_bytes, t_ops):.5f} ms "
-              f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
-              f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); "
-              f"{smem_fn(40, c, d)} B shared memory per block")
+        t_tc = 3 * flops / TF32_TC_FLOPS * 1e3
+        print(f"[3] dual_attention_bwd {tag}: max error / scale {errs} "
+              f"(bounds 1e-4 PAM / 1e-3 CAM), two calls bit-equal; kernel "
+              f"{ms:.4f} ms (graph of 200), {call_ms:.4f} ms issued one by "
+              f"one, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+              f"(graphs: autograd forward + backward {lib_both_ms:.4f} less "
+              f"forward {lib_fwd_ms:.4f}); bound {max(t_bytes, t_ops):.5f} "
+              f"ms ({'bytes' if t_bytes >= t_ops else 'operations'}: "
+              f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP of f32 FMA at "
+              f"67 TFLOP/s); in 3xTF32 on the tensor cores "
+              f"{max(t_bytes, t_tc):.5f} ms (3 x {flops / 1e9:.3f} GFLOP at "
+              f"495 TFLOP/s {t_tc:.5f} ms, bytes {t_bytes:.5f} ms); "
+              f"{layout}")
         if b == PERCEPTION_BATCH:
             entry = dict(
                 name="dual_attention_bwd", route="cuda",
                 source="cadre_tpu_torch/csrc/dual_attention_bwd.cu",
                 replaces="none: XLA autodiff of cadre_tpu/ops/"
                          "dual_attention.py:22-58 (pam_apply, cam_apply)",
-                max_abs_err=max(float((g - w).abs().max())
-                                for g, w in zip(got, want)),
+                max_abs_err=max(float((g - w_).abs().max())
+                                for g, w_ in zip(got, want)),
                 max_rel_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None, call_ms=call_ms,
-                shapes=f"B={b} P=40 C={c} Cqk={d} f32")
+                bound_ms_3xtf32=max(t_bytes, t_tc),
+                library_ms=lib_ms, call_ms=call_ms,
+                cluster_blocks=size_fn(c), smem_bytes=smem_fn(p, c, d),
+                active_clusters=active,
+                shapes=f"B={b} P={p} C={c} Cqk={d} f32")
     x, q, k, v, gp, xc, gc = _attention_inputs(2, 32, 4, torch.bfloat16,
                                                gen, device)
     try:
