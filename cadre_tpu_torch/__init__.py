@@ -5,6 +5,9 @@ driving env (rendered through a hand-written CUDA paint kernel), the frozen
 CoPM encoder (whose dual attention is a hand-written CUDA kernel) and the
 per-command policy banks act for T steps, then GAE and the PPO epochs train
 the banks (`rl.device_rollout.train_device`, `python -m
-cadre_tpu_torch.main`). It imports torch and numpy only; `cadre_tpu` (the
+cadre_tpu_torch.main`). It also runs perception pretraining, the host
+simulator with its scenario runtime, the host-env PPO loops (in process
+or in env worker processes) and the ensemble evals (`python -m
+cadre_tpu_torch.eval`). It imports torch and numpy only; `cadre_tpu` (the
 JAX package) is its reference and is never imported here.
 """

@@ -1,9 +1,10 @@
-"""Agent, rollout and training configuration: the parts of
-cadre_tpu.configs.agent_config that the training loops read."""
+"""Agent, rollout, training and eval configuration: the parts of
+cadre_tpu.configs.agent_config that the training loops and the host-env
+eval read."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -56,9 +57,32 @@ class TrainConfig:
     num_processes: int = 4
 
 
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """eval_cfg (config_files/eval_agent_config.py:51-57)."""
+
+    eval_episode: int = 25
+    load_episodes: Tuple[int, ...] = (2400, 2500, 2600, 2700, 2800, 2900)
+    vehicle_num: int = 20
+    walker_num: int = 50
+    brake_threshold: float = 0.5
+
+
 def convert_action(steer_idx: int, throttle_idx: int) -> List[float]:
     """Discrete (steer bin, throttle bin) -> [steer, throttle, brake]
     (ppo_agent/agent.py:77-81)."""
     steer = float(STEER_CONTROL[steer_idx])
     throttle, brake = THROTTLE_CONTROL[throttle_idx]
     return [steer, float(throttle), float(brake)]
+
+
+def avg_action(action_list: Sequence[Sequence[int]],
+               brake_threshold: float = 0.5) -> List[float]:
+    """Ensemble average of discrete actions as [steer, throttle, brake]; a
+    mean brake below `brake_threshold` is zeroed when K > 1
+    (ppo_agent/agent.py:83-95)."""
+    controls = np.array([convert_action(a[0], a[1]) for a in action_list])
+    mean = controls.mean(axis=0).tolist()
+    if len(action_list) > 1 and mean[-1] < brake_threshold:
+        mean[-1] = 0.0
+    return mean

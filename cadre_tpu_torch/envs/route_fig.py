@@ -11,7 +11,8 @@ contracts):
     vector and the route vector, arccos of the normalised dot product,
     with the route_len == 2 supplementary-angle case.
 
-The rasterizer is the numpy distance-to-segment ribbon; the canvas and
+The rasterizer is native (runtime/raster.cpp), held bit-equal to the
+numpy ribbon kept beside it as its plain version; the canvas and
 lane-envelope constants are `envs.synthetic`'s.
 """
 from __future__ import annotations
@@ -30,6 +31,7 @@ from cadre_tpu_torch.envs.synthetic import (
     SIZE_X,
     SIZE_Y,
 )
+from cadre_tpu_torch.runtime.native_raster import rasterize_polyline_native
 
 
 @dataclasses.dataclass
@@ -53,11 +55,18 @@ def _rotation(compass: float) -> np.ndarray:
 def rasterize_polyline(points_px: np.ndarray, height: int = SIZE_Y,
                        width: int = SIZE_X,
                        line_width: float = LINE_WIDTH) -> np.ndarray:
-    """Distance-to-segment ribbon raster: uint8 {0,255} [height, width].
+    """Ribbon raster: uint8 {0,255} [height, width] of the polyline
+    points_px ([N,2] (x, y) pixel coordinates), drawn by the native
+    rasterizer (runtime/raster.cpp), which gives the numpy version's
+    image bit for bit."""
+    return rasterize_polyline_native(points_px, height, width, line_width)
 
-    points_px: [N,2] (x, y) pixel coordinates. A disk of the line's width
-    is stamped at centres sampled every ~1.5 px along the polyline.
-    """
+
+def rasterize_polyline_numpy(points_px: np.ndarray, height: int = SIZE_Y,
+                             width: int = SIZE_X,
+                             line_width: float = LINE_WIDTH) -> np.ndarray:
+    """The plain version of `rasterize_polyline`: a disk of the line's
+    width stamped at centres sampled every ~1.5 px along the polyline."""
     fig = np.zeros((height, width), np.uint8)
     pts = np.asarray(points_px, np.float64)
     if len(pts) < 2:

@@ -1,16 +1,25 @@
-"""Route XML parsing and straight-line route densification.
+"""Route XML and scenario JSON parsing, and straight-line route
+densification.
 
-numpy copy of the route-file half of the JAX package's host route parser
+numpy copy of the JAX package's host route parser
 (leaderboard/utils/route_parser.py:23-90 contract): route files are
 
   <routes><route id=".." map=".."><waypoint x=".." y=".." z=".." .../>
   </route></routes>
+
+and scenario files the leaderboard's available_scenarios JSON:
+
+  {"available_scenarios": [{"<town>": [{"scenario_type": "Scenario3",
+    "available_event_configurations": [{"transform": {"x": .., "y": ..,
+    "z": .., "yaw": ..}, "other_actors": ..}, ...]}, ...]}]}
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import xml.etree.ElementTree as ET
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -64,6 +73,42 @@ def parse_routes_file(routes_file: str,
                                    trajectory=wps,
                                    scenario_file=scenario_file))
     return configs
+
+
+def parse_scenario_file(scenario_file: str, town: Optional[str] = None
+                        ) -> List[Dict[str, Any]]:
+    """Flatten an available_scenarios JSON into one dict per event
+    configuration: type, town, x, y, z, yaw and other_actors. A directory
+    reads every `.json` in it, in name order; `town` keeps that town's
+    scenarios only."""
+    if os.path.isdir(scenario_file):
+        out = []
+        for fn in sorted(os.listdir(scenario_file)):
+            if fn.endswith(".json"):
+                out.extend(parse_scenario_file(
+                    os.path.join(scenario_file, fn), town))
+        return out
+    with open(scenario_file) as f:
+        blob = json.load(f)
+    out = []
+    for town_blob in blob.get("available_scenarios", []):
+        for town_name, scenarios in town_blob.items():
+            if town is not None and town_name != town:
+                continue
+            for sc in scenarios:
+                stype = sc.get("scenario_type")
+                for cfg in sc.get("available_event_configurations", []):
+                    tf = cfg.get("transform", {})
+                    out.append({
+                        "type": stype,
+                        "town": town_name,
+                        "x": float(tf.get("x", 0)),
+                        "y": float(tf.get("y", 0)),
+                        "z": float(tf.get("z", 0)),
+                        "yaw": float(tf.get("yaw", 0)),
+                        "other_actors": cfg.get("other_actors"),
+                    })
+    return out
 
 
 def interpolate_route(points: np.ndarray, resolution: float = 1.0

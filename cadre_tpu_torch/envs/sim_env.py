@@ -10,8 +10,12 @@ package's env.
 Control mapping at 10 Hz: steer in [-1,1] -> wheel angle up to 35 degrees
 on a 2.9 m wheelbase, throttle -> 3.5 m/s^2, brake -> 8 m/s^2.
 
-Scenario files and the in-episode sun animation need the scenario runtime
-(ROADMAP.md queue A item 11(b)) and raise NotImplementedError.
+A scenario file (`scenario_file`, route_parser.parse_scenario_file's
+JSON) arms the adversarial behaviours of envs/scenarios.py at the trigger
+points on each episode's route; `animate_weather` moves the sun through
+the episode. Both draw from the env's own rng at the JAX package's points:
+the manager is built after the planner on reset and ticks first on every
+step.
 """
 from __future__ import annotations
 
@@ -30,7 +34,16 @@ from cadre_tpu_torch.envs.route_fig import (
     outside_route_lanes,
     signed_route_lateral,
 )
-from cadre_tpu_torch.envs.route_parser import RouteConfig, interpolate_route
+from cadre_tpu_torch.envs.route_parser import (
+    RouteConfig,
+    interpolate_route,
+    parse_scenario_file,
+)
+from cadre_tpu_torch.envs.scenarios import (
+    ScenarioManager,
+    ScenarioTrigger,
+    WeatherBehavior,
+)
 from cadre_tpu_torch.envs.synthetic import (
     PROP_BUILDING,
     PROP_POLE,
@@ -50,18 +63,15 @@ from cadre_tpu_torch.envs.traffic_lights import (
     nearest_light_ahead,
 )
 
-SCENARIOS_UNPORTED = ("the scenario runtime (envs/scenarios.py), ROADMAP.md "
-                      "queue A item 11(b); not ported yet")
-
-
 @dataclasses.dataclass
 class SimObstacle:
     pos: np.ndarray
     radius: float = 1.0
-    kind: str = "vehicle"  # 'vehicle' | 'walker' | 'static'
+    kind: str = "vehicle"  # 'vehicle' | 'walker' | 'cyclist' | 'static'
     speed: float = 0.0
     heading: float = 0.0
-    # True when a scenario behaviour moves this actor itself
+    # True when a scenario behaviour moves this actor itself; the env's
+    # own integrators then leave it alone
     managed: bool = False
     # route-driving background vehicle: arc position (m) along the dense
     # route (-1 = not route-bound) and its cruise speed
@@ -97,11 +107,6 @@ class SimDrivingEnv(BaseDrivingEnv):
                  light_times: Optional[Tuple[float, float, float]] = None,
                  npc_cruise: Tuple[float, float] = (3.0, 6.5),
                  **kwargs):
-        if scenario_file is not None:
-            raise NotImplementedError(f"scenario_file: {SCENARIOS_UNPORTED}")
-        if animate_weather:
-            raise NotImplementedError(
-                f"animate_weather: {SCENARIOS_UNPORTED}")
         super().__init__(training=training, **kwargs)
         self._rng = np.random.RandomState(seed)
         # synthetic-route shape when no routes_file is given
@@ -130,7 +135,9 @@ class SimDrivingEnv(BaseDrivingEnv):
         self._obstacles: List[SimObstacle] = []
         self._route_xy = np.zeros((2, 2))
         self._with_traffic_lights = with_traffic_lights
+        self._animate_weather = animate_weather
         self._sun_altitude = sun_altitude
+        self._sun_altitude0 = sun_altitude
         self._lights: List[TrafficLightInfo] = []
         self._with_props = with_props
         # collection-time override of the forced light cycle (green,
@@ -140,6 +147,19 @@ class SimDrivingEnv(BaseDrivingEnv):
         self._props = np.zeros((0, 6), np.float32)
         self._collision = {"static": False, "vehicle": False, "walker": False}
         self._current_config: Optional[RouteConfig] = None
+        # ego control offsets of the ControlLoss / AddNoiseToVehicle
+        # behaviours
+        self._control_noise = 0.0
+        self._throttle_noise = 0.0
+        self._scenario_manager: Optional[ScenarioManager] = None
+        self._scenario_annotations = None
+        if scenario_file is not None:
+            try:
+                self._scenario_annotations = parse_scenario_file(
+                    scenario_file)
+            except (OSError, ValueError):
+                # as the JAX env: an unreadable file arms no scenario
+                self._scenario_annotations = None
 
     # ---------------- world interface ----------------
 
@@ -210,13 +230,50 @@ class SimDrivingEnv(BaseDrivingEnv):
         planner.set_route_meters(dense, cmds)
         self._planner = planner
 
+        # adversarial scenario triggers along the route
+        self._control_noise = 0.0
+        self._throttle_noise = 0.0
+        if self._scenario_annotations:
+            self._scenario_manager = ScenarioManager.from_annotations(
+                self._scenario_annotations, dense, rng=self._rng)
+        else:
+            self._scenario_manager = None
+
+        # in-episode sun animation (the reference's WeatherBehavior sits in
+        # every scenario tree, basic_scenario.py:204-303)
+        self._sun_altitude = self._sun_altitude0
+        if self._animate_weather:
+            if self._scenario_manager is None:
+                self._scenario_manager = ScenarioManager([])
+            self._scenario_manager.triggers.append(ScenarioTrigger(
+                kind="weather", at_tick=1,
+                builder=lambda env, rng: WeatherBehavior(
+                    sun_altitude_deg=self._sun_altitude0)))
+
     def _planner_step(self, gps):
         return self._planner.run_step(gps)
+
+    def spawn_scenario_actor(self, kind: str, pos: np.ndarray,
+                             heading: float = 0.0, speed: float = 0.0,
+                             radius: Optional[float] = None) -> SimObstacle:
+        """The actor factory of the scenario behaviours: a new obstacle
+        at `pos`, sized by kind unless `radius` is given."""
+        if radius is None:
+            radius = {"walker": 0.4, "cyclist": 0.6,
+                      "static": 0.6}.get(kind, 1.2)
+        ob = SimObstacle(pos=np.asarray(pos, float).copy(), radius=radius,
+                         kind=kind, speed=speed, heading=heading)
+        self._obstacles.append(ob)
+        return ob
 
     def _world_step(self, control: Sequence[float]) -> None:
         steer, throttle, brake = float(control[0]), float(control[1]), \
             float(control[2])
+        if self._scenario_manager is not None:
+            self._scenario_manager.tick(self)
+        steer = steer + self._control_noise          # ControlLoss
         steer = max(-1.0, min(1.0, steer))
+        throttle = throttle + self._throttle_noise   # AddNoiseToVehicle
         throttle = max(0.0, min(1.0, throttle))
         brake = max(0.0, min(1.0, brake))
 

@@ -6,11 +6,14 @@ The paths of the JAX package's `main.py`:
     `--num-envs 1`, `rl.train.train`, one env, snapshots every
     save_interval episodes to <work-dir>/0/models/ppo_model_<episode>.pt;
     with `--num-envs N`, `rl.vec_train.train_vec` over N in-process envs,
-    snapshots every save_interval iterations to
-    <work-dir>/models/ppo_model_<iteration>.pt. The envs are numpy on the
-    host; the encoder, the banks, the buffers and the update live on the
-    device. `--vehicles` / `--walkers` set the background traffic of each
-    sim env and `--routes` drives it on a route XML's routes.
+    or, with `--proc-envs`, N env worker processes behind shared-memory
+    rings (`runtime/proc_vec_env.py`), snapshots every save_interval
+    iterations to <work-dir>/models/ppo_model_<iteration>.pt. The envs are
+    numpy on the host; the encoder, the banks, the buffers and the update
+    live on the device. `--vehicles` / `--walkers` set the background
+    traffic of each sim env, `--routes` drives it on a route XML's routes
+    and `--scenarios` arms a scenario JSON's adversarial behaviours on
+    them.
   - `--env jax` runs the whole iteration (render, encode, act, step the
     batched device envs, then GAE and the PPO epochs) on the device
     through `rl.device_rollout.train_device`, and saves a snapshot at the
@@ -34,10 +37,6 @@ import os
 # ROADMAP.md queue A item that ports them
 UNPORTED = {
     "config": "experiment config files, ROADMAP.md queue A item 15",
-    "scenarios": "the scenario runtime (envs/scenarios.py), ROADMAP.md "
-                 "queue A item 11(b)",
-    "proc_envs": "process-isolated envs (runtime/proc_vec_env.py, "
-                 "shm_ring.py), ROADMAP.md queue A item 12",
     "mesh": "the sharded update, ROADMAP.md queue A item 16",
     "town": "the CARLA env, ROADMAP.md queue A item 17",
 }
@@ -81,17 +80,22 @@ def parse_args(argv=None):
                         "route table)")
     p.add_argument("--danet-checkpoint", default=None,
                    help="trained encoder (.pt) to freeze in the agent")
+    p.add_argument("--scenarios", default=None,
+                   help="scenario JSON (or a directory of them) whose "
+                        "triggers arm on the sim env's routes")
+    p.add_argument("--proc-envs", action="store_true",
+                   help="--num-envs N > 1: each env in a worker process "
+                        "of its own, behind shared-memory rings")
     # not ported yet: raise (see UNPORTED)
     p.add_argument("--config", default=None)
-    p.add_argument("--scenarios", default=None)
-    p.add_argument("--proc-envs", action="store_true")
     p.add_argument("--mesh", default=None, choices=[None, "data"])
     p.add_argument("--town", default=None)
     return p.parse_args(argv)
 
 
 def make_env(kind: str, rank: int, args, work_dir):
-    """The host env of worker `rank`: its seed is offset by the rank."""
+    """The host env of worker `rank`: its seed is offset by the rank.
+    Picklable as a functools.partial, for the process envs."""
     if kind == "fake":
         from cadre_tpu_torch.envs.fake_env import FakeDrivingEnv
 
@@ -101,7 +105,7 @@ def make_env(kind: str, rank: int, args, work_dir):
     from cadre_tpu_torch.envs.sim_env import SimDrivingEnv
 
     return SimDrivingEnv(
-        routes_file=args.routes,
+        routes_file=args.routes, scenario_file=args.scenarios,
         vehicle_num=(args.vehicles, args.walkers), seed=args.seed + rank,
         seq_length=args.seq_length, work_dir=work_dir, rank=rank)
 
@@ -180,11 +184,23 @@ def main(argv=None) -> str:
         from cadre_tpu_torch.rl.vec_train import train_vec
 
         setup_logger(work_dir, rank=0)
-        vec = VecDrivingEnv([functools.partial(make_env, args.env, k, args,
-                                               work_dir)
-                             for k in range(args.num_envs)])
-        train_vec(vec, agent, rollout_cfg, train_cfg, iterations=iterations,
-                  seed=args.seed, work_dir=work_dir)
+        env_fns = [functools.partial(make_env, args.env, k, args, work_dir)
+                   for k in range(args.num_envs)]
+        if args.proc_envs:
+            from cadre_tpu_torch.runtime.proc_vec_env import (
+                ProcVecDrivingEnv,
+            )
+
+            vec = ProcVecDrivingEnv(env_fns, seq_length=args.seq_length)
+        else:
+            vec = VecDrivingEnv(env_fns)
+        try:
+            train_vec(vec, agent, rollout_cfg, train_cfg,
+                      iterations=iterations, seed=args.seed,
+                      work_dir=work_dir)
+        finally:
+            if args.proc_envs:
+                vec.close()
         last = (iterations - 1) // train_cfg.save_interval \
             * train_cfg.save_interval
         path = os.path.join(work_dir, "models", f"ppo_model_{last}.pt")

@@ -4,7 +4,8 @@ Each source under `cadre_tpu_torch/csrc/` becomes one shared library with a
 plain C interface in `build/kernels/` at the root of the checkout, built at
 first use. A library is named after a hash of what it is built from (its
 `.cu`, every `csrc/*.cuh` and `NVCC_FLAGS`), so a changed source, header
-or flag always builds a new one and a stale library is never loaded.
+or flag always builds a new one and a stale library is never loaded
+(the scheme of `utils/libbuild.py`, shared with the host libraries).
 Sources are built in parallel, one nvcc per source. Nothing here runs at
 import time: the CPU tests import every module on a machine without nvcc
 or a GPU.
@@ -12,16 +13,15 @@ or a GPU.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
 
 import torch
+
+from cadre_tpu_torch.utils import libbuild
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -30,8 +30,6 @@ SOURCES = ("paint", "dual_attention", "dual_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}
 
 
@@ -50,11 +48,8 @@ def source_hash(name: str, csrc: Path = CSRC,
                 flags: Sequence[str] = NVCC_FLAGS) -> str:
     """12 hex digits of a hash of `csrc/<name>.cu`, every `csrc/*.cuh`
     (by name, in name order) and `flags`: what the library is built from."""
-    h = hashlib.sha256()
-    for path in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
-        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
-    h.update("\0".join(flags).encode())
-    return h.hexdigest()[:12]
+    return libbuild.content_hash(
+        [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))], flags)
 
 
 def lib_path(name: str) -> Path:
@@ -66,41 +61,30 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
     once; returns the wall seconds of the whole build per compiled name
     (0.0 when it was there). Raises with nvcc's output if any compile
     fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {n: lib_path(n) for n in names}
     todo = {n: p for n, p in todo.items() if not p.exists()}
     t0 = time.perf_counter()
-    procs = {}
-    for name, lib in todo.items():
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    results = libbuild.compile_all(
+        {n: ([nvcc(), *NVCC_FLAGS, str(CSRC / f"{n}.cu")], lib)
+         for n, lib in todo.items()})
     failed = []
-    for name, (lib, tmp, proc) in procs.items():
-        out, _ = proc.communicate()
+    for name, (rc, out) in results.items():
         build_log[name] = out
-        if proc.returncode != 0:
+        if rc != 0:
             failed.append(f"{name}.cu:\n{out}")
-        else:
-            os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     seconds = time.perf_counter() - t0
-    return {n: (seconds if n in procs else 0.0) for n in names}
+    return {n: (seconds if n in todo else 0.0) for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `name`, built first if needed."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            path = lib_path(name)
-            if not path.exists():
-                build([name])
-            lib = ctypes.CDLL(str(path))
-            _libs[name] = lib
-        return lib
+    """The loaded library of `name`, built first if needed; one load per
+    process."""
+    def built() -> Path:
+        build([name])
+        return lib_path(name)
+    return libbuild.load_once(f"kernels/{name}", built)
 
 
 def cuda_stream(tensor: torch.Tensor) -> int:

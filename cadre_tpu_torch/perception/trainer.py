@@ -39,7 +39,7 @@ from cadre_tpu_torch.configs.danet_config import (
 from cadre_tpu_torch.models.danet import DANet, DropoutMasks, draw_dropout_masks
 from cadre_tpu_torch.perception.data import blank_route_plane, unpack_batch
 from cadre_tpu_torch.perception.losses import total_danet_loss
-from cadre_tpu_torch.perception.prefetch import DevicePrefetcher
+from cadre_tpu_torch.rl.pipeline import DevicePrefetcher
 from cadre_tpu_torch.utils.checkpoint import (
     load_danet_checkpoint,
     save_danet_checkpoint,

@@ -9,9 +9,10 @@ paths (`act`, `act_vec`, `act_vec_incremental`, the fused tick
 `act_vec_store` with `zero_pending`), the bootstrap value `get_value`,
 `update_policy` on the agent's own optimizer (global-norm clip at
 ppo_cfg.max_grad_norm, then Adam), the policy snapshots (native torch
-files; reading the JAX package's msgpack snapshots is not ported yet) and
-an ensemble of snapshots acting as one (`Ensemble`, the `EnsembleAgent` of
-the device eval).
+files; reading the JAX package's msgpack snapshots and the reference's
+policy files is not ported yet) and an ensemble of snapshots acting as
+one: `Ensemble`, which the device eval drives, and `EnsembleAgent`, the
+JAX package's EnsembleAgent on one host env's tick.
 
 The host-env paths take numpy ticks: frames go to the agent's device as
 uint8, measurements as float32 and commands as int64 (JAX converts
@@ -26,7 +27,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+import pickle
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,11 +37,16 @@ from cadre_tpu_torch.configs.agent_config import AgentConfig
 from cadre_tpu_torch.configs.danet_config import DANetParams, danet_params
 from cadre_tpu_torch.models.danet import DANet
 from cadre_tpu_torch.models.policy import Carry, PolicyBank, PolicyOutput
+from cadre_tpu_torch.rl.distributions import gumbel as draw_gumbel
 from cadre_tpu_torch.rl.ppo import PPOConfig, make_optimizer, update_step
 from cadre_tpu_torch.rl.rollout import Minibatch, RolloutBuffer, insert
 from cadre_tpu_torch.utils.device import resolve_device
 
 Gumbel = Tuple[torch.Tensor, torch.Tensor]      # (steer [N, A], throttle)
+SNAPSHOT_UNPORTED = ("the port reads the snapshots of its own "
+                     "CadreAgent.save_snapshot only; the JAX package's "
+                     ".msgpack snapshots and the reference's policy .pt "
+                     "files are ROADMAP.md queue A item 15, not ported yet")
 
 
 class ActResult(NamedTuple):
@@ -352,9 +359,9 @@ class Ensemble(NamedTuple):
     def load(cls, agent: CadreAgent, snapshot_paths: Sequence[str]
              ) -> "Ensemble":
         """The `save_snapshot` files at `snapshot_paths`, stacked on the
-        host and then copied to the agent's device once."""
-        trees = [torch.load(p, map_location="cpu", weights_only=True)
-                 for p in snapshot_paths]
+        host and then copied to the agent's device once. Any other file
+        raises NotImplementedError."""
+        trees = [_load_snapshot(p) for p in snapshot_paths]
         if not trees:
             raise ValueError("an ensemble needs at least one snapshot")
         k, cfg, f = len(trees), agent.agent_cfg, agent.obs_dim
@@ -380,3 +387,56 @@ class Ensemble(NamedTuple):
                     self.throttle.sample_members(self.members, feat_hist,
                                                  commands, hidden,
                                                  throttle_gumbel))
+
+
+def _load_snapshot(path: str) -> dict:
+    """A `CadreAgent.save_snapshot` file's tree, on the CPU."""
+    if path.endswith(".msgpack"):
+        raise NotImplementedError(f"{path}: {SNAPSHOT_UNPORTED}")
+    try:
+        tree = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as exc:    # pickled modules: not ours
+        raise NotImplementedError(f"{path}: {SNAPSHOT_UNPORTED}") from exc
+    if not (isinstance(tree, dict) and {"steer", "throttle"} <= tree.keys()):
+        raise NotImplementedError(f"{path}: {SNAPSHOT_UNPORTED}")
+    return tree
+
+
+class EnsembleAgent:
+    """K member snapshots driving one host env: the host-env twin of the
+    JAX package's EnsembleAgent (eval.py's K agents as one).
+
+    `act` encodes the tick's T frames once through the frozen encoder (one
+    dual-attention call at B = T), samples all K members in one pass of
+    the folded banks, and returns the K (steer, throttle) index pairs
+    after one device-to-host copy. As in the JAX package, every member
+    acts from the agent's stale zero carry, which the ensemble never
+    advances."""
+
+    def __init__(self, agent: CadreAgent, snapshot_paths: Sequence[str]):
+        self.agent = agent
+        self.ensemble = Ensemble.load(agent, snapshot_paths)
+        self.k = self.ensemble.members
+
+    def gumbel(self, gen: torch.Generator) -> Gumbel:
+        """One act's noise from `gen`: (steer [K, 1, 33], throttle
+        [K, 1, 3]) on the agent's device."""
+        cfg, dev = self.agent.agent_cfg, self.agent.device
+        return (draw_gumbel((self.k, 1, cfg.num_steer_outputs), gen, dev),
+                draw_gumbel((self.k, 1, cfg.num_throttle_outputs), gen, dev))
+
+    def act(self, tick_data: dict,
+            noise: Union[torch.Generator, Gumbel]) -> List[Tuple[int, int]]:
+        """tick_data: 'rgb' [T,H,W,3], 'route_fig' [T,W,H], 'measurements'
+        [T,3], 'command' int. `noise`: a generator on the agent's device,
+        or the (steer, throttle) Gumbel arrays [K, 1, A] themselves."""
+        agent = self.agent
+        if isinstance(noise, torch.Generator):
+            noise = self.gumbel(noise)
+        feats = agent.encode(agent._frames(tick_data, last=False))  # [T, F]
+        cmd = agent._on_device(np.asarray([tick_data["command"]]), torch.long)
+        steer, throttle = self.ensemble.act(feats[:, None], cmd,
+                                            agent.hidden_state,
+                                            *agent._noise(noise))
+        pairs = torch.stack([steer[:, 0], throttle[:, 0]], dim=1).cpu()
+        return [(int(s), int(t)) for s, t in pairs.tolist()]

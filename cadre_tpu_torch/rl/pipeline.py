@@ -1,21 +1,24 @@
-"""Overlap host batching and host-to-device copies with the device's work
-(the counterpart of cadre_tpu.rl.pipeline.DevicePrefetcher).
+"""Overlap host batching and host-to-device copies with the device's work:
+the counterpart of cadre_tpu.rl.pipeline.DevicePrefetcher, for iterators
+of numpy batches (dicts of arrays; its one caller is the perception
+trainer).
 
-A background thread runs the loader (shard decompression, host
-augmentation) and puts each numpy batch into page-locked (pinned) host
+A background thread runs the iterator (shard decompression, host
+augmentation) and puts each batch's arrays into page-locked (pinned) host
 memory. The caller's thread keeps `depth` batches' copies in flight: each
-is issued with non_blocking=True on a side stream, and the batch is
-handed out only after the caller's current stream has been made to wait
-for that copy (an event), so the compute stream never reads a batch
-before it has landed and never waits on the host. On the CPU the batches
-are handed out as tensors, without pinning or streams.
+is issued with non_blocking=True on a side stream to the explicit
+`device`, and the batch is handed out only after the caller's current
+stream has been made to wait for that copy (an event), so the compute
+stream never reads a batch before it has landed and never waits on the
+host. On the CPU the batches are handed out as tensors, without pinning
+or streams.
 """
 from __future__ import annotations
 
 import collections
 import queue
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -75,7 +78,7 @@ class DevicePrefetcher:
             done.record(self._stream)
         self._ready.append((dev, done))
 
-    def __iter__(self):
+    def __iter__(self) -> Iterator[Batch]:
         return self
 
     def __next__(self) -> Batch:
@@ -87,7 +90,8 @@ class DevicePrefetcher:
         if done is not None:
             current = torch.cuda.current_stream(self.device)
             current.wait_event(done)
-            for t in batch.values():       # allocated on the side stream
+            for t in batch.values():   # allocated on the side stream
                 t.record_stream(current)
         self._issue()
         return batch
+

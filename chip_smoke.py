@@ -61,7 +61,21 @@ Phases, each of which must pass:
      bootstrap unless the episode ends on its last step); then `python -m
      cadre_tpu_torch.main --env sim` with 8 envs for two iterations of 20
      steps and with one env for one episode, and both snapshots read
-     back.
+     back;
+ 10. the host-env eval and the process envs at production width (f32
+     encoder): (a) `rl.evaluate.evaluate` of 4 member snapshots over 2
+     sim episodes of at most 200 ticks on two routes the script writes
+     with town_maps.write_lane_routes, each armed with Scenario1, 3, 7 and
+     10 triggers, its launches counted (one dual-attention launch per
+     tick), ticks/s, mean completion, driving score and the criteria
+     CSV's rows; (b) that eval on the card against the CPU from the same
+     draws (small agent); (c) `python -m cadre_tpu_torch.eval --env sim`
+     on a 12 m route with the scenarios; (d) the native route rasterizer
+     bit-equal to numpy; (e) one train_vec iteration of 8 sim envs in
+     worker processes (`--proc-envs`), T=200, launches counted, its
+     env-steps/s and act / env / update split beside phase 9's in-process
+     iteration, with the card's name and power limit, and the 8 envs
+     stepped alone, in process and in workers.
 
 It prints one JSON line of kernel figures, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -1913,7 +1927,7 @@ def phase_host_env():
     update split, a profile of a short train_vec iteration, the counted
     `train` episode of `--num-envs 1`, then the CLI with N_HOST envs and
     with one. Returns the launch counts of the train_vec iteration and of
-    the `train` episode."""
+    the `train` episode, and the iteration's env-steps/s and split."""
     import torch
 
     from cadre_tpu_torch.configs.agent_config import (
@@ -1970,6 +1984,8 @@ def phase_host_env():
           f"{s.value_loss:.5f} policy {s.policy_loss:.5f} entropy "
           f"{s.entropy_loss:.5f}; launches {launches}")
 
+    figure = {"env_steps_per_s": steps / seconds, "seconds": seconds,
+              "split": {k: v / seconds for k, v in s.phase_seconds.items()}}
     prof = profile(lambda: train_vec(
         vec, agent, RolloutConfig(num_steps=HOST_PROFILE_TICKS,
                                   feature_dims=f),
@@ -1980,7 +1996,7 @@ def phase_host_env():
     print(f"[9]   its split under the profiler: {split}")
     single = host_single(agent)
     host_cli()
-    return launches, single
+    return launches, single, figure
 
 
 class _LastDone:
@@ -2080,6 +2096,349 @@ def host_cli():
         print(f"[9] python -m cadre_tpu_torch.main --env sim "
               f"{' '.join(flags)} --num-steps 20: exit 0 in {seconds:.1f} s; "
               f"{os.path.relpath(path, root)} loads back equal")
+
+
+# --------------------------------------------------------------- phase 10
+
+# the host-env eval: K member snapshots, as many episodes, each cut at
+# HOST_EVAL_STEPS ticks (root eval.py's evaluate, max_steps)
+HOST_EVAL_MEMBERS = 4
+HOST_EVAL_EPISODES = 2
+HOST_EVAL_STEPS = 200
+# scenario types armed on every route of the eval, at these metres along it
+HOST_EVAL_SCENARIOS = (("Scenario1", 2), ("Scenario3", 10),
+                       ("Scenario7", 20), ("Scenario10", 30))
+# the eval's traffic: root eval.py's (and `python -m cadre_tpu_torch.eval`'s)
+# defaults, --vehicles 20 --walkers 50
+HOST_EVAL_TRAFFIC = (20, 50)
+
+
+def host_eval_files(n_routes: int, n_short: int, name: str):
+    """A route XML of town_maps.write_lane_routes and a scenario JSON with
+    HOST_EVAL_SCENARIOS' triggers on each of its routes, under build/;
+    returns their paths."""
+    import json
+    import os
+
+    import numpy as np
+
+    from cadre_tpu_torch.envs.route_parser import (
+        interpolate_route,
+        parse_routes_file,
+    )
+    from cadre_tpu_torch.envs.town_maps import write_lane_routes
+
+    work = _smoke_dir(name)
+    routes = write_lane_routes(os.path.join(work, "routes.xml"), n_routes,
+                               n_short=n_short)
+    events = []
+    for cfg in parse_routes_file(routes):
+        dense = interpolate_route(np.asarray([w.xy for w in cfg.trajectory]))
+        for stype, metres in HOST_EVAL_SCENARIOS:
+            x, y = dense[min(metres, len(dense) - 1)]
+            events.append({"scenario_type": stype,
+                           "available_event_configurations": [
+                               {"transform": {"x": float(x), "y": float(y),
+                                              "z": 0.0, "yaw": 0.0}}]})
+    scenarios = os.path.join(work, "scenarios.json")
+    with open(scenarios, "w") as f:
+        json.dump({"available_scenarios": [{"Town01": events}]}, f)
+    return routes, scenarios
+
+
+def phase_host_eval(in_process):
+    """The host-env eval and the process envs at production width (the
+    f32 encoder of root eval.py and main.py): (a) `rl.evaluate.evaluate`
+    of HOST_EVAL_MEMBERS members over HOST_EVAL_EPISODES scenario-armed
+    sim episodes of at most HOST_EVAL_STEPS ticks, launches counted (one
+    dual-attention launch per tick: EnsembleAgent.act encodes the tick's 8
+    frames once for every member); (b) the same eval on the card and on
+    the CPU from the same draws; (c) `python -m cadre_tpu_torch.eval` on
+    a 12 m route with the scenarios; (d) the native rasterizer against
+    numpy; (e) one counted train_vec iteration of N_HOST sim envs in
+    worker processes (`--proc-envs`), T_HOST ticks, beside phase 9's
+    in-process figure `in_process`. Returns the launch counts of (a) and
+    of (e)."""
+    import os
+
+    import torch
+
+    from cadre_tpu_torch.configs.agent_config import EvalConfig
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.envs.sim_env import SimDrivingEnv
+    from cadre_tpu_torch.rl.agent import CadreAgent
+    from cadre_tpu_torch.rl.evaluate import evaluate
+
+    card = card_line()
+    routes, scenarios = host_eval_files(HOST_EVAL_EPISODES, 0,
+                                        "smoke_host_eval")
+    agent = CadreAgent.create(danet_params(), seed=2, device="cuda")
+    paths = member_snapshots(agent, HOST_EVAL_MEMBERS, "smoke_host_members")
+    env = SimDrivingEnv(routes_file=routes, scenario_file=scenarios,
+                        vehicle_num=HOST_EVAL_TRAFFIC, training=False, seed=0,
+                        work_dir=_smoke_dir("smoke_host_eval_run"))
+    csv = os.path.join(_smoke_dir("smoke_host_eval_run"),
+                       "criteria_results.csv")
+    if os.path.exists(csv):
+        os.remove(csv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results, launches = _counted(lambda: evaluate(
+        env, agent, paths, EvalConfig(eval_episode=HOST_EVAL_EPISODES),
+        seed=0, max_steps=HOST_EVAL_STEPS, result_file=csv))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ticks = sum(r.steps for r in results)
+    require(len(results) == HOST_EVAL_EPISODES and ticks > 0,
+            f"host eval: {len(results)} episodes, {ticks} ticks")
+    require(launches == {"paint": 0, "dual_attention": ticks,
+                         "dual_attention_bwd": 0},
+            f"host eval launches {launches}, not 0 / {ticks} / 0")
+    for r in results:
+        require(0.0 <= r.completion_ratio <= 100.0
+                and 0.0 <= r.driving_score <= 100.0
+                and 0 < r.steps <= HOST_EVAL_STEPS, f"host eval: bad {r}")
+    with open(csv) as f:
+        rows = f.read().strip().splitlines()
+    require(len(rows) == 1 + HOST_EVAL_EPISODES
+            and rows[0].startswith("RouteCompletionTest"),
+            f"host eval: criteria CSV has {len(rows)} lines")
+    mean_completion = sum(r.completion_ratio for r in results) / len(results)
+    mean_score = sum(r.driving_score for r in results) / len(results)
+    print(f"[10a] host eval, K={HOST_EVAL_MEMBERS} members, f32 encoder, "
+          f"{HOST_EVAL_EPISODES} sim episodes ({HOST_EVAL_TRAFFIC[0]} "
+          f"vehicles, {HOST_EVAL_TRAFFIC[1]} walkers, "
+          f"{', '.join(t for t, _ in HOST_EVAL_SCENARIOS)} on each route), "
+          f"max {HOST_EVAL_STEPS} steps: {ticks} ticks in {seconds:.3f} s, "
+          f"{ticks / seconds:.1f} ticks/s, "
+          f"{HOST_EVAL_MEMBERS * ticks / seconds:.1f} member-steps/s; "
+          f"episodes {[(r.steps, r.error_message) for r in results]}; mean "
+          f"completion {mean_completion:.2f}%, mean driving score "
+          f"{mean_score:.2f}; criteria CSV {len(rows) - 1} rows; peak memory "
+          f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches {launches}; card {card}")
+    host_eval_cpu_agreement(routes, scenarios)
+    host_eval_cli(paths, scenarios)
+    native_raster_agreement()
+    proc = host_proc_envs(in_process, card)
+    return launches, proc
+
+
+def host_eval_cpu_agreement(routes, scenarios):
+    """A small f32 agent, K=2 members, two scenario-armed sim episodes of
+    at most 30 ticks at the eval's traffic, on the card and on the CPU
+    from the same draws: every member's (steer, throttle) pair equal on
+    every tick, equal steps and end messages, completion within 1e-3 and
+    driving score within 0.1 (the figures of phase 7d)."""
+    import torch
+
+    from cadre_tpu_torch.configs.agent_config import EvalConfig
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.envs.sim_env import SimDrivingEnv
+    from cadre_tpu_torch.rl.agent import CadreAgent, EnsembleAgent
+    from cadre_tpu_torch.rl.distributions import gumbel
+    from cadre_tpu_torch.rl.evaluate import evaluate
+
+    k, episodes, steps = 2, 2, 30
+    small = danet_params(da_feature_channel=32, inter_att_dims=24, z_dims=16)
+    gen = torch.Generator()
+    gen.manual_seed(11)
+    cpu = torch.device("cpu")
+    draws = [(gumbel((k, 1, 33), gen, cpu), gumbel((k, 1, 3), gen, cpu))
+             for _ in range(episodes * steps)]
+    out, acts = {}, {}
+    act = EnsembleAgent.act
+    for dev in ("cpu", "cuda"):
+        agent = CadreAgent.create(small, seed=1, device=dev)
+        with torch.no_grad():
+            agent.encoder.da_head.sa.gamma.fill_(0.5)
+            agent.encoder.da_head.sc.gamma.fill_(0.3)
+        paths = member_snapshots(agent, k, f"smoke_small_host_members_{dev}")
+        env = SimDrivingEnv(routes_file=routes, scenario_file=scenarios,
+                            vehicle_num=HOST_EVAL_TRAFFIC, training=False,
+                            seed=3)
+        acts[dev] = record = []
+
+        def recorded(self, tick_data, noise, record=record):
+            record.append(act(self, tick_data, noise))
+            return record[-1]
+
+        EnsembleAgent.act = recorded      # every member's pair, every tick
+        try:
+            out[dev] = evaluate(env, agent, paths,
+                                EvalConfig(eval_episode=episodes), seed=0,
+                                max_steps=steps, draws=draws)
+        finally:
+            EnsembleAgent.act = act
+    differ = [t for t, (a, b) in enumerate(zip(acts["cuda"], acts["cpu"]))
+              if a != b]
+    require(len(acts["cuda"]) == len(acts["cpu"]) > 0 and not differ,
+            f"host eval cuda vs cpu: {len(acts['cuda'])} / "
+            f"{len(acts['cpu'])} ticks, actions differ at ticks {differ[:5]}"
+            + (f": {acts['cuda'][differ[0]]} vs {acts['cpu'][differ[0]]}"
+               if differ else ""))
+    worst = [0.0, 0.0]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        require((a.steps, a.error_message) == (b.steps, b.error_message),
+                f"host eval cuda vs cpu: {a} vs {b}")
+        worst[0] = max(worst[0], abs(a.completion_ratio - b.completion_ratio))
+        worst[1] = max(worst[1], abs(a.driving_score - b.driving_score))
+    require(worst[0] <= 1e-3 and worst[1] <= 0.1,
+            f"host eval cuda vs cpu: completion {worst[0]:.3g}, driving "
+            f"score {worst[1]:.3g}")
+    print(f"[10b] host eval cuda vs cpu, small f32 agent, K={k}, "
+          f"{episodes} episodes of at most {steps} ticks "
+          f"({HOST_EVAL_TRAFFIC[0]} vehicles, {HOST_EVAL_TRAFFIC[1]} "
+          f"walkers), same draws: the {k} members' (steer, throttle) pairs "
+          f"equal on all {len(acts['cuda'])} ticks, steps and end messages "
+          f"equal, completion within {worst[0]:.3g} (bound 1e-3), driving "
+          f"score within {worst[1]:.3g} (bound 0.1)")
+
+
+def host_eval_cli(paths, scenarios):
+    """`python -m cadre_tpu_torch.eval --env sim` at production width on
+    one 12 m route with the scenarios and the CLI's default traffic, the
+    members given by a glob: exit 0 and root eval.py's closing line."""
+    import os
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    routes, _ = host_eval_files(1, 1, "smoke_host_eval_cli")
+    work = _smoke_dir("smoke_host_eval_cli_run")
+    shutil.rmtree(work, ignore_errors=True)
+    cmd = [sys.executable, "-m", "cadre_tpu_torch.eval", "--env", "sim",
+           "--snapshots", os.path.join(os.path.dirname(paths[0]), "*.pt"),
+           "--routes", routes, "--scenarios", scenarios, "--episodes", "1",
+           "--work-dir", work]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    seconds = time.perf_counter() - t0
+    require(out.returncode == 0, f"the eval CLI exited {out.returncode}: "
+            f"{out.stderr[-3000:]}")
+    last = out.stdout.strip().splitlines()[-1]
+    require(last.startswith("mean completion ratio over 1 episodes: "),
+            f"the eval CLI's last line: {last!r}")
+    for line in out.stderr.strip().splitlines()[-2:]:
+        print(f"[10c]   {line}")
+    print(f"[10c] python -m cadre_tpu_torch.eval --env sim --snapshots "
+          f"<{len(paths)} members> --routes <one 12 m route> --scenarios "
+          f"<{len(HOST_EVAL_SCENARIOS)} types> --episodes 1: exit 0 in "
+          f"{seconds:.1f} s; {last}")
+
+
+def native_raster_agreement():
+    """The native route rasterizer against its numpy version on this
+    machine: random polylines, half-pixel ones (ties) and ones across the
+    canvas edges, bit-equal."""
+    import numpy as np
+
+    from cadre_tpu_torch.envs import route_fig
+
+    rng = np.random.RandomState(0)
+    for i in range(60):
+        n = rng.randint(2, 30)
+        pts = np.cumsum(rng.uniform(-14, 14, (n, 2)), axis=0) + [72, 128]
+        if i % 3 == 1:
+            pts = np.round(pts * 2) / 2
+        if i % 3 == 2:
+            pts = rng.uniform(-20, 280, (n, 2))
+        require(np.array_equal(route_fig.rasterize_polyline(pts),
+                               route_fig.rasterize_polyline_numpy(pts)),
+                f"native raster differs from numpy on polyline {i}")
+    print("[10d] native route rasterizer bit-equal to numpy on 60 "
+          "polylines (random, half-pixel, across the edges)")
+
+
+# ticks of the envs stepped alone, with no agent: the env phase's own rate
+ENV_ALONE_TICKS = 100
+
+
+def _env_alone(vec) -> float:
+    """env-steps/s of `vec` stepped ENV_ALONE_TICKS ticks on fixed
+    controls (half throttle, straight), after a reset, with no agent."""
+    vec.reset()
+    controls = [[0.0, 0.5, 0.0]] * vec.num_envs
+    t0 = time.perf_counter()
+    for _ in range(ENV_ALONE_TICKS):
+        vec.step(controls)
+    return ENV_ALONE_TICKS * vec.num_envs / (time.perf_counter() - t0)
+
+
+def host_proc_envs(in_process, card):
+    """One train_vec iteration of N_HOST sim envs (2 vehicles, 2 walkers,
+    as phase 9) in worker processes behind the shared-memory rings
+    (`main.py --proc-envs`), T_HOST fused ticks after a T=2 warm-up, its
+    launches counted, its env-steps/s and split beside phase 9's
+    in-process iteration; then the same envs stepped alone, in process
+    and in workers. Returns the launch counts."""
+    import functools
+    import math
+    import os
+
+    import torch
+
+    from cadre_tpu_torch.configs.agent_config import (
+        RolloutConfig,
+        TrainConfig,
+    )
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.envs.sim_env import SimDrivingEnv
+    from cadre_tpu_torch.rl.agent import CadreAgent
+    from cadre_tpu_torch.rl.vec_train import train_vec
+    from cadre_tpu_torch.runtime.proc_vec_env import ProcVecDrivingEnv
+
+    t0 = time.perf_counter()
+    agent = CadreAgent.create(danet_params(), device="cuda")
+    vec = ProcVecDrivingEnv([functools.partial(SimDrivingEnv, seed=k,
+                                               vehicle_num=(2, 2))
+                             for k in range(N_HOST)])
+    try:
+        f, train_cfg = agent.obs_dim, TrainConfig()
+        train_vec(vec, agent, RolloutConfig(num_steps=2, feature_dims=f),
+                  train_cfg, iterations=1, seed=1)
+        torch.cuda.synchronize()
+        print(f"[10e] set-up (agent, {N_HOST} env worker processes, warm-up "
+              f"iteration T=2) {time.perf_counter() - t0:.2f} s")
+        rollout_cfg = RolloutConfig(num_steps=T_HOST, feature_dims=f)
+        t0 = time.perf_counter()
+        stats, launches = _counted(lambda: train_vec(
+            vec, agent, rollout_cfg, train_cfg, iterations=1, seed=2))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        alone_proc = _env_alone(vec)
+    finally:
+        vec.close()
+    alone_in = _env_alone(_host_vec_env())
+    require(not any(p.is_alive() for p in vec._procs),
+            "an env worker outlived close()")
+    require(launches == {"paint": 0, "dual_attention": T_HOST + 1,
+                         "dual_attention_bwd": 0},
+            f"--proc-envs launches {launches}, not 0 / {T_HOST + 1} / 0")
+    s = stats[0]
+    losses = [s.value_loss, s.policy_loss, s.entropy_loss]
+    require(all(map(math.isfinite, losses)), f"--proc-envs losses {losses}")
+    steps = T_HOST * N_HOST
+    split = ", ".join(f"{k} {v:.3f} s ({100 * v / seconds:.1f}%)"
+                      for k, v in s.phase_seconds.items())
+    before = ", ".join(f"{k} {100 * v:.1f}%"
+                       for k, v in in_process["split"].items())
+    print(f"[10e] train_vec --proc-envs N={N_HOST} T={T_HOST} "
+          f"E={train_cfg.ppo_epoch} M={rollout_cfg.mini_batch_num}, f32 "
+          f"encoder: {seconds:.3f} s, {steps / seconds:.1f} env-steps/s; "
+          f"{split}; {s.episodes_finished} episodes ended; launches "
+          f"{launches}; card {card}")
+    print(f"[10e] beside phase 9's in-process iteration: "
+          f"{in_process['env_steps_per_s']:.1f} env-steps/s ({before}); "
+          f"process envs {steps / seconds:.1f} env-steps/s, "
+          f"{steps / seconds / in_process['env_steps_per_s']:.2f}x; card "
+          f"{card}")
+    print(f"[10e] the {N_HOST} envs stepped alone ({ENV_ALONE_TICKS} ticks, "
+          f"no agent): in process {alone_in:.1f} env-steps/s, in worker "
+          f"processes {alone_proc:.1f} env-steps/s "
+          f"({alone_proc / alone_in:.2f}x); {os.cpu_count()} CPU cores")
+    return launches
 
 
 # ------------------------------------------- kernel times of checkouts
@@ -2231,7 +2590,8 @@ def main(argv) -> int:
         phase_cli()
         eval_launches = phase_eval()
         perception_launches = phase_perception()
-        host_launches, single_launches = phase_host_env()
+        host_launches, single_launches, in_process = phase_host_env()
+        host_eval_launches, proc_launches = phase_host_eval(in_process)
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2241,6 +2601,8 @@ def main(argv) -> int:
         entry["launches_perception"] = perception_launches[name]
         entry["launches_host"] = host_launches[name]
         entry["launches_host_single"] = single_launches[name]
+        entry["launches_host_eval"] = host_eval_launches[name]
+        entry["launches_host_proc"] = proc_launches[name]
     # the backward kernel's main path is perception pretraining
     kernels["dual_attention_bwd"]["launches"] = \
         perception_launches["dual_attention_bwd"]

@@ -814,8 +814,7 @@ def test_cli_host_envs_train_and_save(tmp_path):
                 torch.testing.assert_close(v, saved[s][k], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("flag", ["--scenarios=s.json", "--proc-envs",
-                                  "--mesh=data", "--env=carla",
+@pytest.mark.parametrize("flag", ["--mesh=data", "--env=carla",
                                   "--town=Town01"])
 def test_cli_unported_host_flag_raises(flag):
     """Flags of the JAX CLI whose features wait for a later item raise,
@@ -824,13 +823,6 @@ def test_cli_unported_host_flag_raises(flag):
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item"):
         main.main(["--env", "sim", "--small", "--device", "cpu", flag])
-
-
-@pytest.mark.parametrize("kw", [dict(scenario_file="s.json"),
-                                dict(animate_weather=True)])
-def test_sim_env_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        SimDrivingEnv(**kw)
 
 
 @pytest.mark.parametrize("args", [["--env", "sim", "--num-envs", "2"],

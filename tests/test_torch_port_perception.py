@@ -48,7 +48,7 @@ from cadre_tpu_torch.models.danet import DANet, DropoutMasks
 from cadre_tpu_torch.ops import dual_attention as tda
 from cadre_tpu_torch.perception import data as tdata
 from cadre_tpu_torch.perception import losses as tlosses
-from cadre_tpu_torch.perception.prefetch import DevicePrefetcher
+from cadre_tpu_torch.rl.pipeline import DevicePrefetcher
 from cadre_tpu_torch.perception.trainer import (
     PerceptionTrainer,
     warmup_cosine_lr,
