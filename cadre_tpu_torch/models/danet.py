@@ -1,6 +1,6 @@
 """CoPM encoder-decoder (DANet), in train and eval mode.
 
-PyTorch counterpart of cadre_tpu.models.danet: ResNet18 -> DANetHead (PAM
+PyTorch counterpart of cadre_tpu.models.danet: a ResNet -> DANetHead (PAM
 and CAM through the fused dual-attention kernels on CUDA, forward and
 backward) -> 1x1 visual/bc convs -> InterTaskAtt ('transformer',
 'position' or 'invaild') -> the visual branch (decoders and light heads),
@@ -37,7 +37,7 @@ import torch
 from torch import nn
 
 from cadre_tpu_torch.configs.danet_config import DANetParams
-from cadre_tpu_torch.models.resnet import ResNetBackbone
+from cadre_tpu_torch.models.resnet import ResNetBackbone, out_channels
 from cadre_tpu_torch.models.torch_compat import (
     LEAKY_SLOPE,
     BatchNorm2d,
@@ -89,7 +89,7 @@ def draw_dropout_masks(cfg: DANetParams, batch: int,
     def keep(*shape):
         return torch.rand(*shape, generator=generator, device=device) < KEEP
 
-    head = keep(batch, 512 // 4)
+    head = keep(batch, out_channels(cfg.backbone) // 4)
     if cfg.pred_bc and cfg.att_type == "transformer":
         z = cfg.z_dims
         return DropoutMasks(head, keep(batch, z, z), keep(batch, z, z))
@@ -285,12 +285,20 @@ def _head_mlp(in_dim: int, out_dim: int) -> nn.Sequential:
                          nn.LeakyReLU(LEAKY_SLOPE), nn.Linear(64, out_dim))
 
 
-# decoder attribute, output key, flag, output channels, sigmoid
+# decoder attribute, output key, flag, output channels, sigmoid; the two
+# topdown decoders share their key, and seg, written last, wins
 def _decoders(cfg: DANetParams):
     return (
         ("reverse_image", "camera", True, cfg.camera_output_channel,
          not cfg.pred_camera_seg),
+        ("reverse_left_image", "left_camera", cfg.pred_left_camera_seg,
+         cfg.left_camera_output_channel, False),
+        ("reverse_right_image", "right_camera", cfg.pred_right_camera_seg,
+         cfg.right_camera_output_channel, False),
         ("reverse_route", "route", cfg.pred_route, 1, True),
+        ("reverse_lidar", "lidar", cfg.pred_lidar, 3, False),
+        ("reverse_topdown_rgb", "topdown", cfg.pred_topdown_rgb, 3, False),
+        ("reverse_topdown_seg", "topdown", cfg.pred_topdown_seg, 1, False),
     )
 
 
@@ -368,7 +376,8 @@ class DANet(nn.Module):
         self.cfg = cfg
         self.latent_only = latent_only
         self.backbone = ResNetBackbone(cfg.input_channel, cfg.backbone)
-        self.da_head = DANetHead(512, c, cfg.use_fused_attention)
+        self.da_head = DANetHead(out_channels(cfg.backbone), c,
+                                 cfg.use_fused_attention)
         self.visual_conv = nn.Conv2d(c, c, 1)
         if not latent_only:
             self.visual_branch = VisualBranch(cfg)

@@ -9,7 +9,8 @@ PyTorch (the counterpart of cadre_tpu.models.torch_compat).
   output_padding=...)`, whose semantics the JAX package's
   `conv_transpose_torch` reproduces (its HWIO kernel is torch's
   [I, O, kh, kw] transposed, not flipped).
-- `BatchNorm2d`: flax's `nn.BatchNorm` (momentum 0.9, eps 1e-5). It
+- `BatchNorm2d` / `BatchNorm1d`: flax's `nn.BatchNorm` (momentum 0.9,
+  eps 1e-5) over NCHW maps / [B, F] vectors. It
   normalises a training batch by its biased variance, as torch does, but
   folds that same biased variance into the running variance, where
   `torch.nn.BatchNorm2d` folds the unbiased one. Running statistics after
@@ -48,6 +49,19 @@ def conv_transpose(cin: int, cout: int, output_padding) -> nn.ConvTranspose2d:
                               output_padding=output_padding)
 
 
+def _flax_batch_norm(bn, x: torch.Tensor) -> torch.Tensor:
+    """Train mode: normalise by the batch's statistics over every axis but
+    the channel axis 1, folding its biased variance into running_var."""
+    with torch.no_grad():
+        dims = (0,) + tuple(range(2, x.dim()))
+        var, mean = torch.var_mean(x, dim=dims, correction=0)
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        bn.num_batches_tracked.add_(1)
+    return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm over NCHW maps with flax's running-variance update (the
     biased batch variance); see the module docstring."""
@@ -58,11 +72,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        return _flax_batch_norm(self, x)
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """BatchNorm over [B, F] features (flax's nn.BatchNorm on a vector),
+    with flax's running-variance update."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        return _flax_batch_norm(self, x)

@@ -1,7 +1,6 @@
-"""Perception data: .npz shards of uint8 frames and labels, class-weight
-statistics and epoch-shuffled batching (the port's copy of the JAX-free
-parts of cadre_tpu.perception.data; recording shards with an expert,
-`collect_dataset`, waits for the host env, ROADMAP.md queue A item 12).
+"""Perception data: recording expert frames into .npz shards
+(`collect_dataset`), class-weight statistics and epoch-shuffled batching
+(the port's copy of cadre_tpu.perception.data).
 
 Shard fields (FIELDS): camera_rgb [N, 144, 256, 3] u8, camera_seg
 [N, 144, 256] class ids 0-7, route_fig [N, 256, 144] raster {0, 255},
@@ -20,7 +19,7 @@ import dataclasses
 import glob
 import math
 import os
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,6 +27,80 @@ import torch
 FIELDS = ("camera_rgb", "camera_seg", "route_fig", "speed", "target_speed",
           "steer", "throttle", "command", "light_state", "light_dist",
           "dis", "theta")
+# the planes of the loader's model input x: rgb and the route raster
+LOADER_PLANES = 4
+
+
+def collect_dataset(env, expert, n_frames: int, out_dir: str,
+                    shard_size: int = 512,
+                    max_stuck_record: int = 25,
+                    max_stuck_reset: int = 100) -> List[str]:
+    """Drive `expert` in `env` (a SimDrivingEnv) and record `n_frames`
+    frames into `shard_<k>.npz` files of `shard_size` frames (FIELDS, in
+    order) under `out_dir`; returns their paths.
+
+    Stuck guard: once the car has stood (speed < 0.3) for more than
+    `max_stuck_record` ticks, frames are no longer recorded, unless it
+    waits at a red or yellow light under 25 m ahead (the rarest light
+    classes, bounded by the light cycle); after `max_stuck_reset` ticks
+    the env is reset. It draws nothing itself: the env's own generator,
+    seeded where the env is made, drives every random choice."""
+    os.makedirs(out_dir, exist_ok=True)
+    buf: Dict[str, List[Any]] = {k: [] for k in FIELDS}
+    shards: List[str] = []
+    tick = env.reset()
+    frames = 0
+    stuck = 0
+    while frames < n_frames:
+        control = expert.act(env, tick)
+        at_light = int(tick.get("light_state", 0)) in (2, 3) \
+            and 0.0 < float(tick.get("light_dist", -1.0)) < 25.0
+        if float(tick.get("speed", 0.0)) < 0.3:
+            stuck += 1
+            if stuck >= max_stuck_reset:
+                stuck = 0
+                tick = env.reset()
+                continue
+            if stuck > max_stuck_record and not at_light:
+                tick, _, done, _ = env.step(control)
+                if done:
+                    stuck = 0
+                    tick = env.reset()
+                continue
+        else:
+            stuck = 0
+        rgb, seg = env._render_rgb(with_seg=True)
+        buf["camera_rgb"].append(rgb)
+        buf["camera_seg"].append(seg)
+        # the tick's histories are ring views: copy what outlives the step
+        buf["route_fig"].append(np.array(
+            tick["route_fig"][-1] if "route_fig" in tick
+            else tick["last_route_fig"]))
+        buf["speed"].append(tick.get("speed", 0.0))
+        buf["target_speed"].append(7.0)
+        buf["steer"].append(control[0])
+        buf["throttle"].append(control[1])
+        buf["command"].append(tick.get("command", 3))
+        buf["light_state"].append(tick.get("light_state", 0))
+        buf["light_dist"].append(tick.get("light_dist", -1.0))
+        # the route geometry of the measurements [speed, dis, theta]
+        meas = (tick["last_measurements"] if "last_measurements" in tick
+                else tick["measurements"][-1] if "measurements" in tick
+                else (0.0, 0.0, 0.0))
+        buf["dis"].append(float(meas[1]))
+        buf["theta"].append(float(meas[2]))
+        frames += 1
+
+        tick, _, done, _ = env.step(control)
+        if done:
+            tick = env.reset()
+        if len(buf["camera_rgb"]) >= shard_size or frames == n_frames:
+            path = os.path.join(out_dir, f"shard_{len(shards):05d}.npz")
+            np.savez_compressed(
+                path, **{k: np.asarray(v) for k, v in buf.items()})
+            shards.append(path)
+            buf = {k: [] for k in FIELDS}
+    return shards
 
 
 @dataclasses.dataclass

@@ -17,10 +17,16 @@ cadre_tpu.perception.trainer).
   seg / light accuracies, and the per-class tables of the reference's
   held-out protocol.
 - `solve`: the epoch loop over a loader through `DevicePrefetcher`,
-  writing `net_epoch<N>.pt` checkpoints.
-Entry points run on the card unless given device="cpu". Not ported: the
-recon visualisations (`_dump_recon`, which need matplotlib) and the model
-zoo's `model=` argument (ROADMAP.md queue A item 14).
+  writing `net_epoch<N>.pt` checkpoints; with an `eval_loader`, each
+  epoch ends with `evaluate` on it and, with a work_dir, the recon grids
+  of its first batch (`recon_epoch<N>/sample_<i>.png`).
+- `model=`: a zoo module (models/registry.build_model) in place of the
+  DANet. It gets x alone (no bc_speed) and, as in the JAX trainer, no
+  reparameterisation draw (z = mu); the KLD terms of its mu / logvar
+  enter the loss. Its checkpoints record cfg.model_name.
+The model must take the loader's 4 input planes (rgb + route raster):
+another `input_channel` raises before the first step. Entry points run
+on the card unless given device="cpu".
 """
 from __future__ import annotations
 
@@ -37,8 +43,14 @@ from cadre_tpu_torch.configs.danet_config import (
     PerceptionTrainParams,
 )
 from cadre_tpu_torch.models.danet import DANet, DropoutMasks, draw_dropout_masks
-from cadre_tpu_torch.perception.data import blank_route_plane, unpack_batch
+from cadre_tpu_torch.models.registry import seeded
+from cadre_tpu_torch.perception.data import (
+    LOADER_PLANES,
+    blank_route_plane,
+    unpack_batch,
+)
 from cadre_tpu_torch.perception.losses import total_danet_loss
+from cadre_tpu_torch.perception.visualize import dump_visualizations
 from cadre_tpu_torch.rl.pipeline import DevicePrefetcher
 from cadre_tpu_torch.utils.checkpoint import (
     load_danet_checkpoint,
@@ -68,23 +80,37 @@ def warmup_cosine_lr(step: int, tp: PerceptionTrainParams,
     return tp.lr * 0.5 * (1.0 + math.cos(math.pi * t / (decay - warmup)))
 
 
+def check_input_width(cfg: DANetParams) -> None:
+    """Raise unless the model takes the loader's input planes."""
+    if cfg.input_channel != LOADER_PLANES:
+        raise ValueError(
+            f"{cfg.model_name} (input mode {cfg.input_mode}) takes "
+            f"{cfg.input_channel} input planes, but the perception loader "
+            f"gives {LOADER_PLANES} (rgb + route raster); only experiments "
+            f"of input mode 5 or 9 train on it")
+
+
 class PerceptionTrainer:
-    """One DANet, its optimizer and schedule on one device. `state_dict`
-    starts from given weights (else random ones from `seed`)."""
+    """One DANet (or the zoo module `model`), its optimizer and schedule
+    on one device. `seed` seeds the dropout generator and the weights of
+    the DANet that the trainer builds; a zoo `model` comes with its own
+    (`build_model(..., seed=)`). `state_dict` replaces either."""
 
     def __init__(self, cfg: DANetParams, tp: PerceptionTrainParams,
                  steps_per_epoch: int, seed: int = 0,
                  seg_class_weight: Optional[np.ndarray] = None,
                  light_class_weight: Optional[np.ndarray] = None,
                  device="cuda", device_augment: bool = False,
-                 state_dict: Optional[Dict[str, torch.Tensor]] = None):
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 model: Optional[torch.nn.Module] = None):
+        check_input_width(cfg)
         self.cfg, self.tp = cfg, tp
         self.steps_per_epoch = steps_per_epoch
         self.device = resolve_device(device)
         self.device_augment = device_augment
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            model = DANet(cfg)
+        self.zoo = model is not None
+        if model is None:
+            model = seeded(seed, lambda: DANet(cfg))
         if state_dict is not None:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device,
@@ -114,8 +140,20 @@ class PerceptionTrainer:
         x = batch["x"]
         if self.cfg.in_route_blank:
             x = blank_route_plane(x)
+        if self.zoo:
+            return self.model(x, masks=masks)
         return self.model(x, batch["speed"], masks=masks,
                           generator=self.generator)
+
+    def draw_masks(self, batch: int) -> Optional[DropoutMasks]:
+        """One step's dropout keep masks, from the trainer's generator
+        (None for a zoo model without dropout)."""
+        if not self.zoo:
+            return draw_dropout_masks(self.cfg, batch, self.generator,
+                                      self.device)
+        draw = getattr(self.model, "draw_masks", None)
+        return None if draw is None else draw(batch, self.generator,
+                                              self.device)
 
     def _augment_on_device(self, batch):
         """Noise (std 4/255) and coarse pixel dropout (5% of pixels) on the
@@ -146,8 +184,7 @@ class PerceptionTrainer:
         if self.device_augment:
             batch = self._augment_on_device(batch)
         if masks is None:
-            masks = draw_dropout_masks(self.cfg, batch["x"].shape[0],
-                                       self.generator, self.device)
+            masks = self.draw_masks(batch["x"].shape[0])
         for group in self.opt.param_groups:
             group["lr"] = self.lr(self.step)
         self.opt.zero_grad(set_to_none=True)
@@ -249,10 +286,13 @@ class PerceptionTrainer:
 
     def solve(self, loader, epochs: Optional[int] = None,
               work_dir: Optional[str] = None, save_interval: int = 5,
-              log_fn: Callable[[str], None] = print) -> Dict[str, float]:
+              log_fn: Callable[[str], None] = print,
+              eval_loader=None) -> Dict[str, float]:
         """Train for `epochs` (default tp.max_epochs); returns the last
         epoch's mean losses. Losses stay on the device within an epoch
-        and are read once at its end."""
+        and are read once at its end. With `eval_loader`, each epoch is
+        evaluated on it, and its first batch's recon grids are written
+        under work_dir."""
         epochs = epochs or self.tp.max_epochs
         last: Dict[str, float] = {}
         for epoch in range(epochs):
@@ -271,7 +311,24 @@ class PerceptionTrainer:
             if work_dir and (epoch % save_interval == 0
                              or epoch == epochs - 1):
                 self.save(os.path.join(work_dir, f"net_epoch{epoch}.pt"))
+            if eval_loader is not None:
+                metrics = self.evaluate(eval_loader)
+                log_fn("  eval: " + ", ".join(
+                    f"{k}={v:.3f}" for k, v in metrics.items()))
+                if work_dir:
+                    self._dump_recon(eval_loader, work_dir, epoch)
         return last
+
+    def _dump_recon(self, loader, work_dir: str, epoch: int) -> str:
+        """recon_epoch<N>/ grids of the loader's first batch; returns the
+        directory."""
+        outputs, batch = self._eval_outputs(next(iter(loader)))
+
+        def host(tree):
+            return {k: v.cpu().numpy() for k, v in tree.items()}
+
+        return dump_visualizations(host(batch), host(outputs), work_dir,
+                                   epoch)
 
     # ---------------- checkpoints ----------------
 

@@ -1,7 +1,7 @@
 """Overlap host batching and host-to-device copies with the device's work:
 the counterpart of cadre_tpu.rl.pipeline.DevicePrefetcher, for iterators
-of numpy batches (dicts of arrays; its one caller is the perception
-trainer).
+of numpy batches (dicts of arrays; its callers are the perception and
+CIL trainers).
 
 A background thread runs the iterator (shard decompression, host
 augmentation) and puts each batch's arrays into page-locked (pinned) host

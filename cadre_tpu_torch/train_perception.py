@@ -1,12 +1,15 @@
 """Perception pretraining entry point of the port:
 `python -m cadre_tpu_torch.train_perception --data-dir <shards>`.
 
-The counterpart of the JAX package's root `train_perception.py` for the
-production DANet on one device: class weights from the training shards,
-an optional held-out tail of shards with its per-class report,
-`net_epoch<N>.pt` checkpoints in --work-dir (the encoder that
-`python -m cadre_tpu_torch.main --danet-checkpoint` takes). It runs on
-the GPU unless given `--device cpu`.
+The counterpart of the JAX package's root `train_perception.py` on one
+device: `--collect N` first records N expert frames on the host
+simulator into --data-dir; `--experiment NAME` trains a record of the
+experiment zoo, `--model NAME` a zoo model (the DANet by default); class
+weights from the training shards, an optional held-out tail of shards
+with its per-class report, `net_epoch<N>.pt` checkpoints in --work-dir
+(a DANet's is the encoder that `python -m cadre_tpu_torch.main
+--danet-checkpoint` takes). It runs on the GPU unless given `--device
+cpu`.
 """
 from __future__ import annotations
 
@@ -16,16 +19,28 @@ import dataclasses
 # flags of the JAX CLI whose features the port does not have yet, by the
 # ROADMAP.md queue A item that ports them
 UNPORTED = {
-    "collect": "collecting expert frames (collect_dataset), ROADMAP.md "
-               "queue A item 13",
-    "experiment": "named experiments belong to the model zoo, ROADMAP.md "
-                  "queue A item 14",
     "mesh": "data-parallel training, ROADMAP.md queue A item 16",
     "mesh_devices": "data-parallel training, ROADMAP.md queue A item 16",
 }
 
 
+def collect(data_dir: str, n_frames: int, seed: int, vehicle_num,
+            **env_options) -> None:
+    """Record `n_frames` expert frames on the host simulator into
+    `data_dir` (`collect_dataset`), with the env settings of the JAX
+    CLI's --collect."""
+    from cadre_tpu_torch.envs.expert import OracleExpert
+    from cadre_tpu_torch.envs.sim_env import SimDrivingEnv
+    from cadre_tpu_torch.perception.data import collect_dataset
+
+    env = SimDrivingEnv(seed=seed, seq_length=2, vehicle_num=vehicle_num,
+                        **env_options)
+    collect_dataset(env, OracleExpert(), n_frames, data_dir)
+
+
 def parse_args(argv=None):
+    from cadre_tpu_torch.models.registry import ZOO_NAMES
+
     p = argparse.ArgumentParser(description="Train the DANet encoder")
     p.add_argument("--data-dir", required=True)
     p.add_argument("--epochs", type=int, default=100)
@@ -59,12 +74,15 @@ def parse_args(argv=None):
     p.add_argument("--camroute", action="store_true",
                    help="blank the route-raster input plane")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--collect", type=int, default=0,
+                   help="collect N expert frames into --data-dir first")
     p.add_argument("--model", default="danet",
-                   help="only 'danet' is ported (the zoo is ROADMAP.md "
-                        "queue A item 14)")
+                   help="zoo model: " + " | ".join(ZOO_NAMES))
+    p.add_argument("--experiment", default=None,
+                   help="a record of configs/experiments.py EXPERIMENTS "
+                        "(e.g. auto_danet_exp50, the CoPM w/o attention "
+                        "ablation); overrides --model and the modes")
     # not ported yet: each raises (see UNPORTED)
-    p.add_argument("--collect", type=int, default=0)
-    p.add_argument("--experiment", default=None)
     p.add_argument("--mesh", action="store_true")
     p.add_argument("--mesh-devices", type=int, default=None)
     return p.parse_args(argv)
@@ -77,20 +95,42 @@ def main(argv=None) -> str:
         if getattr(args, name):
             raise NotImplementedError(
                 f"--{name.replace('_', '-')}: {what}; not ported yet")
-    if args.model != "danet":
-        raise NotImplementedError(
-            f"--model {args.model}: the model zoo, ROADMAP.md queue A item "
-            "14; not ported yet")
 
     from cadre_tpu_torch.configs.danet_config import (
         PerceptionTrainParams,
         danet_params,
     )
+    from cadre_tpu_torch.configs.experiments import build_experiment
+    from cadre_tpu_torch.models.registry import adapt_config, build_model
     from cadre_tpu_torch.perception.data import (
         PerceptionDataLoader,
         compute_stats,
     )
-    from cadre_tpu_torch.perception.trainer import PerceptionTrainer
+    from cadre_tpu_torch.perception.trainer import (
+        PerceptionTrainer,
+        check_input_width,
+    )
+    from cadre_tpu_torch.utils.device import resolve_device
+
+    resolve_device(args.device)        # no GPU: raise before collecting
+    small = dict(da_feature_channel=64, inter_att_dims=48, z_dims=32) \
+        if args.small else {}
+    if args.camroute:
+        small["in_route_blank"] = True
+    if args.experiment:
+        model, cfg = build_experiment(args.experiment, seed=args.seed,
+                                      **small)
+    else:
+        cfg = adapt_config(args.model, danet_params(**small))
+        cfg = dataclasses.replace(cfg, model_name=args.model)
+        model = build_model(args.model, cfg, seed=args.seed)
+    check_input_width(cfg)             # before collecting
+    if args.collect > 0:
+        # a phase-balanced light cycle, slow traffic and doubled walkers,
+        # so that red lights, cars and walkers have support in the labels
+        collect(args.data_dir, args.collect, args.seed, vehicle_num=(8, 8),
+                randomize_weather=True, light_times=(3.0, 3.0, 3.0),
+                npc_cruise=(1.5, 5.0))
 
     all_paths = PerceptionDataLoader(args.data_dir,
                                      batch_size=args.batch_size).paths
@@ -112,9 +152,6 @@ def main(argv=None) -> str:
         w = stats.seg_class_weight.copy()
         w[int(cls_s)] *= float(fac_s)
         stats = dataclasses.replace(stats, seg_class_weight=w)
-    small = dict(da_feature_channel=64, inter_att_dims=48, z_dims=32) \
-        if args.small else {}
-    cfg = danet_params(**small, in_route_blank=args.camroute)
     tp = PerceptionTrainParams(batch_size=args.batch_size,
                                max_epochs=args.epochs,
                                w_light_state=args.light_weight)
@@ -122,7 +159,7 @@ def main(argv=None) -> str:
         cfg, tp, steps_per_epoch=max(1, len(loader)), seed=args.seed,
         seg_class_weight=stats.seg_class_weight,
         light_class_weight=stats.light_class_weight, device=args.device,
-        device_augment=args.augment and args.packed)
+        device_augment=args.augment and args.packed, model=model)
     if args.resume:
         trainer.load(args.resume)
 

@@ -3,6 +3,7 @@
 Every function takes plain numpy data (nested dicts of arrays, as
 `jax.tree.map(np.asarray, ...)` gives) and imports nothing of JAX:
   danet_from_flax       DANet flax variables -> DANet state_dict
+  zoo_from_flax         any zoo module's flax variables -> its state_dict
   policy_from_flax      one stacked policy bank -> PolicyBank state_dict
   env_state_from_numpy  a JaxEnvState's fields -> EnvState
   route_bank_from_numpy a RouteBank's fields -> RouteBank
@@ -20,10 +21,16 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from cadre_tpu_torch.configs.danet_config import DANetParams
 from cadre_tpu_torch.envs.torch_env import EnvState, RouteBank
-from cadre_tpu_torch.models.resnet import RESNET_SPECS
+from cadre_tpu_torch.models.danet import BCBranch, DANetHead, VisualBranch
+from cadre_tpu_torch.models.resnet import (
+    RESNET_SPECS,
+    Bottleneck,
+    ResNetBackbone,
+)
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -73,6 +80,60 @@ def _mlp(out: StateDict, key: str, p: Mapping[str, Any], names,
         _dense(out, f"{key}.{i}", p[name])
 
 
+def _k(key: str, name: str) -> str:
+    return f"{key}.{name}" if key else name
+
+
+def _resnet(out: StateDict, key: str, p: Mapping[str, Any],
+            s: Mapping[str, Any], arch: str) -> None:
+    """A ResNetBackbone: flax layer{stage}_{b} / downsample_conv /
+    downsample_bn -> torchvision's layer{stage}.{b} / downsample.0 / .1."""
+    _conv(out, _k(key, "conv1"), p["conv1"])
+    _bn(out, _k(key, "bn1"), p["bn1"], s["bn1"])
+    block, depths = RESNET_SPECS[arch]
+    convs = 3 if block is Bottleneck else 2
+    for stage, blocks in enumerate(depths):
+        for b in range(blocks):
+            src, ss = p[f"layer{stage + 1}_{b}"], s[f"layer{stage + 1}_{b}"]
+            dst = _k(key, f"layer{stage + 1}.{b}")
+            for i in range(1, convs + 1):
+                _conv(out, f"{dst}.conv{i}", src[f"conv{i}"])
+                _bn(out, f"{dst}.bn{i}", src[f"bn{i}"], ss[f"bn{i}"])
+            if "downsample_conv" in src:
+                _conv(out, f"{dst}.downsample.0", src["downsample_conv"])
+                _bn(out, f"{dst}.downsample.1", src["downsample_bn"],
+                    ss["downsample_bn"])
+
+
+def _da_head(out: StateDict, key: str, dh: Mapping[str, Any],
+             dhs: Mapping[str, Any]) -> None:
+    for name in ("conv5a", "conv5c", "conv51", "conv52"):
+        _conv(out, _k(key, f"{name}.0"), dh[f"{name}_conv"])
+        _bn(out, _k(key, f"{name}.1"), dh[f"{name}_bn"], dhs[f"{name}_bn"])
+    for name in ("query_conv", "key_conv", "value_conv"):
+        _conv(out, _k(key, f"sa.{name}"), dh["sa"][name])
+    out[_k(key, "sa.gamma")] = _t(dh["sa"]["gamma"])
+    out[_k(key, "sc.gamma")] = _t(dh["sc"]["gamma"])
+    _conv(out, _k(key, "conv8.1"), dh["conv8_conv"])
+
+
+def _visual_branch(out: StateDict, key: str, vb: Mapping[str, Any],
+                   vbs: Mapping[str, Any]) -> None:
+    _mlp(out, _k(key, "reverse_feature"), vb,
+         ("reverse_feature_fc1", "reverse_feature_fc2"), (0, 2))
+    for name, sub in vb.items():
+        if name.startswith("reverse_") and "out_conv" in sub:
+            _decoder(out, _k(key, name), sub, vbs[name])
+    for head in ("reverse_lightState", "reverse_lightDist"):
+        if f"{head}_fc1" in vb:
+            _mlp(out, _k(key, head), vb,
+                 tuple(f"{head}_fc{i}" for i in (1, 2, 3)), (1, 3, 5))
+
+
+def _bc_branch(out: StateDict, key: str, p: Mapping[str, Any]) -> None:
+    _mlp(out, _k(key, "bc_model"), p, ("fc1", "fc2"), (1, 3))
+
+
 def danet_from_flax(variables: Mapping[str, Any],
                     cfg: DANetParams) -> StateDict:
     """Flax DANet variables {'params', 'batch_stats'} -> the state_dict of
@@ -80,29 +141,8 @@ def danet_from_flax(variables: Mapping[str, Any],
     `DANet.latent` alone give a `latent_only` DANet's)."""
     p, s = variables["params"], variables["batch_stats"]
     out: StateDict = {}
-    bb, bbs = p["backbone"], s["backbone"]
-    _conv(out, "backbone.conv1", bb["conv1"])
-    _bn(out, "backbone.bn1", bb["bn1"], bbs["bn1"])
-    for stage, blocks in enumerate(RESNET_SPECS[cfg.backbone]):
-        for b in range(blocks):
-            src, ss = bb[f"layer{stage + 1}_{b}"], bbs[f"layer{stage + 1}_{b}"]
-            dst = f"backbone.layer{stage + 1}.{b}"
-            for i in (1, 2):
-                _conv(out, f"{dst}.conv{i}", src[f"conv{i}"])
-                _bn(out, f"{dst}.bn{i}", src[f"bn{i}"], ss[f"bn{i}"])
-            if "downsample_conv" in src:
-                _conv(out, f"{dst}.downsample.0", src["downsample_conv"])
-                _bn(out, f"{dst}.downsample.1", src["downsample_bn"],
-                    ss["downsample_bn"])
-    dh, dhs = p["da_head"], s["da_head"]
-    for name in ("conv5a", "conv5c", "conv51", "conv52"):
-        _conv(out, f"da_head.{name}.0", dh[f"{name}_conv"])
-        _bn(out, f"da_head.{name}.1", dh[f"{name}_bn"], dhs[f"{name}_bn"])
-    for name in ("query_conv", "key_conv", "value_conv"):
-        _conv(out, f"da_head.sa.{name}", dh["sa"][name])
-    out["da_head.sa.gamma"] = _t(dh["sa"]["gamma"])
-    out["da_head.sc.gamma"] = _t(dh["sc"]["gamma"])
-    _conv(out, "da_head.conv8.1", dh["conv8_conv"])
+    _resnet(out, "backbone", p["backbone"], s["backbone"], cfg.backbone)
+    _da_head(out, "da_head", p["da_head"], s["da_head"])
     _conv(out, "visual_conv", p["visual_conv"])
     if "bc_conv" in p:
         _conv(out, "bc_conv", p["bc_conv"])
@@ -114,20 +154,11 @@ def danet_from_flax(variables: Mapping[str, Any],
             _mlp(out, key + "_layer", sub, ("fc1", "fc2"), (1, 3))
         else:                                            # 'position' conv
             _conv(out, key, sub)
-    vb, vbs = p.get("visual_branch"), s.get("visual_branch", {})
-    if vb is not None:
-        _mlp(out, "visual_branch.reverse_feature", vb,
-             ("reverse_feature_fc1", "reverse_feature_fc2"), (0, 2))
-        for name, sub in vb.items():
-            if name.startswith("reverse_") and "out_conv" in sub:
-                _decoder(out, f"visual_branch.{name}", sub, vbs[name])
-        for head in ("reverse_lightState", "reverse_lightDist"):
-            if f"{head}_fc1" in vb:
-                _mlp(out, f"visual_branch.{head}", vb,
-                     tuple(f"{head}_fc{i}" for i in (1, 2, 3)), (1, 3, 5))
+    if "visual_branch" in p:
+        _visual_branch(out, "visual_branch", p["visual_branch"],
+                       s.get("visual_branch", {}))
     if "bc_branch" in p:
-        _mlp(out, "bc_branch.bc_model", p["bc_branch"], ("fc1", "fc2"),
-             (1, 3))
+        _bc_branch(out, "bc_branch", p["bc_branch"])
     if "in_bc_speed_fc1" in p:
         _mlp(out, "in_bc_speed_fc", p, ("in_bc_speed_fc1",
                                         "in_bc_speed_fc2"), (1, 3))
@@ -138,6 +169,52 @@ def danet_from_flax(variables: Mapping[str, Any],
         for name in ("fc1", "fc2"):
             _dense(out, f"route_geom_branch.{name}",
                    p["route_geom_branch"][name])
+    return out
+
+
+def _zoo(out: StateDict, key: str, module: nn.Module, p: Mapping[str, Any],
+         s: Mapping[str, Any]) -> None:
+    """`module`'s weights from the flax variables of the module of the same
+    name: a layer by its type, the DANet parts by their own rules, any
+    other module child by child (a child with parameters must have its
+    flax twin)."""
+    if isinstance(module, ResNetBackbone):
+        _resnet(out, key, p, s, module.arch)
+    elif isinstance(module, DANetHead):
+        _da_head(out, key, p, s)
+    elif isinstance(module, VisualBranch):
+        _visual_branch(out, key, p, s)
+    elif isinstance(module, BCBranch):
+        _bc_branch(out, key, p)
+    elif isinstance(module, nn.ConvTranspose2d):
+        _conv_transpose(out, key, p)
+    elif isinstance(module, nn.Conv2d):
+        _conv(out, key, p)
+    elif isinstance(module, nn.Linear):
+        _dense(out, key, p)
+    elif isinstance(module, nn.modules.batchnorm._BatchNorm):
+        _bn(out, key, p, s)
+    else:
+        for name, _ in module.named_parameters(recurse=False):
+            out[_k(key, name)] = _t(p[name])
+        for name, child in module.named_children():
+            if name in p:
+                _zoo(out, _k(key, name), child, p[name], s.get(name, {}))
+            elif any(True for _ in child.parameters()):
+                raise KeyError(f"no flax variables for {_k(key, name)}")
+
+
+def zoo_from_flax(model: nn.Module,
+                  variables: Mapping[str, Any]) -> StateDict:
+    """Flax variables {'params'[, 'batch_stats']} of a zoo module (the
+    VAEs, U-Nets, CIL and LBC nets, a ResNetBackbone) -> the state_dict of
+    the port's `model` of the same configuration. Every module of the port
+    takes its flax twin's name, except the DANet parts (ResNet, DANetHead,
+    VisualBranch, BCBranch), which keep the reference's checkpoint names
+    and convert as in `danet_from_flax`."""
+    out: StateDict = {}
+    _zoo(out, "", model, variables["params"],
+         variables.get("batch_stats", {}))
     return out
 
 

@@ -76,6 +76,21 @@ Phases, each of which must pass:
      env-steps/s and act / env / update split beside phase 9's in-process
      iteration, with the card's name and power limit, and the 8 envs
      stepped alone, in process and in workers.
+ 11. the perception zoo at full width (f32): (a) 1,024 expert frames in two
+     shards collected with `collect_dataset` from the port's sim with the
+     perception CLI's collection settings (8 vehicles, 8 walkers, random
+     weather, 3/3/3 s lights), frames/s, at least 4 seg classes and 2
+     light states; (b) auto_da_beta_vae (DANet trunk, K2 and K3) through
+     `PerceptionTrainer(model=...)`: one epoch of solve at B=48 on shard 0
+     with shard 1 as eval_loader, its recon PNGs read back, launches
+     counted, then 20 timed steps on one batch (one K2 and one K3 each, a
+     falling loss, the backbone and both gammas moved), peak memory, a
+     profile; 20 timed CILTrainer steps of a CilrsNet; (c) one train step
+     of a small DABetaVAE and of a CilrsNet on the card against the CPU;
+     (d) `train_perception --experiment auto_danet_exp50 --holdout` in
+     process with its launches counted, `train_perception --collect 96
+     --model oldv2_vae` and `python -m cadre_tpu_torch.train_cil`, every
+     checkpoint read back.
 
 It prints one JSON line of kernel figures, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -1743,17 +1758,89 @@ def phase_perception():
     return launches
 
 
+def _masks_to(masks, device):
+    """Dropout masks (a DropoutMasks, a tuple of tensors or None) on
+    `device`."""
+    if masks is None:
+        return None
+    moved = [None if t is None else t.to(device) for t in masks]
+    return type(masks)(*moved) if hasattr(masks, "_fields") else tuple(moved)
+
+
+def step_agreement(tag, what, make, loss64, small, masks, wd):
+    """One train step of a small model on the card and on the CPU from
+    the same weights (`make(device)` builds the trainer, its model from a
+    fixed seed), batch and dropout masks, at the schedule's peak rate.
+    Losses within 1e-4 relative. Gradients against the CPU's own float64
+    gradient (`loss64(trainer, masks)`, the total loss of the model in
+    float64): each tensor on the card within max(1e-3 of its scale, 3x
+    the CPU f32 gradient's own distance) (f32 rounding of the h*w-scaled
+    losses moves some tensors by percents). Parameters: within 1% of the
+    largest change on the CPU, at every element whose float64 gradient
+    (with weight decay `wd`) is ten times above that tensor's f32
+    rounding noise; below it Adam's first step takes the rounding's
+    sign."""
+    runs = {}
+    for dev in ("cpu", "cuda", "cpu64"):
+        trainer = make("cuda" if dev == "cuda" else "cpu")
+        trainer.step = 1                    # lr(1) = tp.lr: the peak
+        m = _masks_to(masks, trainer.device)
+        init = {n: p.detach().cpu().double().clone()
+                for n, p in trainer.model.named_parameters()}
+        if dev == "cpu64":
+            trainer.model.double()
+            total = loss64(trainer, m)
+            total.backward()
+            loss = float(total.detach())
+        else:
+            loss = trainer.train_step(small, masks=m)["total"]
+        named = dict(trainer.model.named_parameters())
+        runs[dev] = (loss, init,
+                     {n: p.grad.detach().cpu().double() for n, p in
+                      named.items()},
+                     {n: p.detach().cpu().double() for n, p in named.items()})
+    (l_c, init, g_c, p_c), (l_g, _, g_g, p_g), (_, _, g64, _) = (
+        runs["cpu"], runs["cuda"], runs["cpu64"])
+    rel = abs(l_g - l_c) / abs(l_c)
+    require(rel <= 1e-4, f"{what} step cuda vs cpu: loss {l_g} vs {l_c}")
+    largest = max(float(g.abs().max()) for g in g64.values())
+    worst_g, worst_p, checked = 0.0, 0.0, 0
+    for n, exact in g64.items():
+        scale = max(float(exact.abs().max()), 1e-6 * largest)
+        noise = float((g_c[n] - exact).abs().max())
+        err = float((g_g[n] - exact).abs().max())
+        bound = max(1e-3 * scale, 3.0 * noise)
+        require(err <= bound, f"{what} step cuda vs cpu: grad {n} "
+                f"{err:.3g} from float64 (cpu f32: {noise:.3g}, scale "
+                f"{scale:.3g})")
+        worst_g = max(worst_g, err / bound)
+        change = float((p_c[n] - init[n]).abs().max())
+        require(change > 0 and bool((p_g[n] != init[n]).any()),
+                f"{what} step: {n} did not move")
+        firm = (exact + wd * init[n]).abs() > 10.0 * noise
+        checked += int(firm.sum())
+        if firm.any():
+            d = float((p_g[n] - p_c[n])[firm].abs().max())
+            require(d <= 0.01 * change, f"{what} step cuda vs cpu: "
+                    f"{n} {d:.3g} > 1% of its largest change {change:.3g}")
+            worst_p = max(worst_p, d / change)
+    total = sum(g.numel() for g in g64.values())
+    print(f"[{tag}] one train step, {what}, B={len(small['speed'])}, cuda "
+          f"vs cpu: loss {rel:.3g} relative (bound 1e-4); each gradient's "
+          f"distance from the cpu's float64 one at most {worst_g:.3g} of its "
+          f"bound (max(1e-3 of its scale, 3x the cpu f32's distance)); "
+          f"parameters within {worst_p:.3g} of each tensor's largest change "
+          f"at the {checked} of {total} elements whose gradient is firm "
+          f"(bound 0.01)")
+
+
+def _double_batch(trainer, small):
+    return {k: v.double() if v.is_floating_point() else v
+            for k, v in trainer._to_device(small).items()}
+
+
 def perception_cpu_agreement(batch):
-    """One train step of a small f32 model on the card and on the CPU
-    from the same weights, batch (4 frames) and dropout masks, at the
-    schedule's peak rate. Losses within 1e-4 relative. Gradients against
-    the CPU's own float64 gradient: each tensor on the card within
-    max(1e-3 of its scale, 3x the CPU f32 gradient's own distance) (f32
-    rounding of this h*w-scaled loss moves some tensors by percents).
-    Parameters: within 1% of the largest change on the CPU, at every
-    element whose float64 gradient (with weight decay) is ten times above
-    that tensor's f32 rounding noise; below it Adam's first step takes the
-    rounding's sign."""
+    """Phase 8c: step_agreement for a small f32 DANet on 4 frames."""
     import torch
 
     from cadre_tpu_torch.configs.danet_config import (
@@ -1769,63 +1856,17 @@ def perception_cpu_agreement(batch):
     gen = torch.Generator()
     gen.manual_seed(3)
     masks = draw_dropout_masks(cfg, 4, gen)
-    runs = {}
-    for dev in ("cpu", "cuda", "cpu64"):
-        trainer = PerceptionTrainer(cfg, tp, steps_per_epoch=1, seed=4,
-                                    device="cuda" if dev == "cuda"
-                                    else "cpu")
-        trainer.step = 1                    # lr(1) = tp.lr: the peak
-        m = type(masks)(*(t.to(trainer.device) for t in masks))
-        init = {n: p.detach().cpu().double().clone()
-                for n, p in trainer.model.named_parameters()}
-        if dev == "cpu64":
-            trainer.model.double()
-            tb = {k: v.double() if v.is_floating_point() else v
-                  for k, v in trainer._to_device(small).items()}
-            total, _ = trainer._losses(trainer._apply(tb, m), tb)
-            total.backward()
-            loss = float(total.detach())
-        else:
-            loss = trainer.train_step(small, masks=m)["total"]
-        named = dict(trainer.model.named_parameters())
-        runs[dev] = (loss, init,
-                     {n: p.grad.detach().cpu().double() for n, p in
-                      named.items()},
-                     {n: p.detach().cpu().double() for n, p in named.items()})
-    (l_c, init, g_c, p_c), (l_g, _, g_g, p_g), (_, _, g64, _) = (
-        runs["cpu"], runs["cuda"], runs["cpu64"])
-    rel = abs(l_g - l_c) / abs(l_c)
-    require(rel <= 1e-4, f"perception step cuda vs cpu: loss {l_g} vs {l_c}")
-    largest = max(float(g.abs().max()) for g in g64.values())
-    wd = tp.weight_decay
-    worst_g, worst_p, checked = 0.0, 0.0, 0
-    for n, exact in g64.items():
-        scale = max(float(exact.abs().max()), 1e-6 * largest)
-        noise = float((g_c[n] - exact).abs().max())
-        err = float((g_g[n] - exact).abs().max())
-        bound = max(1e-3 * scale, 3.0 * noise)
-        require(err <= bound, f"perception step cuda vs cpu: grad {n} "
-                f"{err:.3g} from float64 (cpu f32: {noise:.3g}, scale "
-                f"{scale:.3g})")
-        worst_g = max(worst_g, err / bound)
-        change = float((p_c[n] - init[n]).abs().max())
-        require(change > 0 and bool((p_g[n] != init[n]).any()),
-                f"perception step: {n} did not move")
-        firm = (exact + wd * init[n]).abs() > 10.0 * noise
-        checked += int(firm.sum())
-        if firm.any():
-            d = float((p_g[n] - p_c[n])[firm].abs().max())
-            require(d <= 0.01 * change, f"perception step cuda vs cpu: "
-                    f"{n} {d:.3g} > 1% of its largest change {change:.3g}")
-            worst_p = max(worst_p, d / change)
-    total = sum(g.numel() for g in g64.values())
-    print(f"[8c] one train step, small f32 model, B=4, cuda vs cpu: loss "
-          f"{rel:.3g} relative (bound 1e-4); each gradient's distance from "
-          f"the cpu's float64 one at most {worst_g:.3g} of its bound "
-          f"(max(1e-3 of its scale, 3x the cpu f32's distance)); "
-          f"parameters within {worst_p:.3g} of each "
-          f"tensor's largest change at the {checked} of {total} elements "
-          f"whose gradient is firm (bound 0.01)")
+
+    def make(device):
+        return PerceptionTrainer(cfg, tp, steps_per_epoch=1, seed=4,
+                                 device=device)
+
+    def loss64(trainer, m):
+        tb = _double_batch(trainer, small)
+        return trainer._losses(trainer._apply(tb, m), tb)[0]
+
+    step_agreement("8c", "small f32 model", make, loss64, small, masks,
+                   tp.weight_decay)
 
 
 def perception_cli(data_dir):
@@ -2441,6 +2482,349 @@ def host_proc_envs(in_process, card):
     return launches
 
 
+# --------------------------------------------------------------- phase 11
+
+ZOO_FRAMES = 1024               # collected frames: two shards of 512
+ZOO_SHARD = 512
+ZOO_STEPS = 20                  # timed DABetaVAE steps on one batch
+ZOO_CLI_FRAMES = 96             # frames the oldv2_vae CLI collects itself
+# the DABetaVAE parameters that must move: the stem, the head's conv
+# before PAM, the PAM projection and both gammas
+ZOO_WATCH = ("backbone.conv1.weight", "da_head.conv5a.0.weight",
+             "da_head.sa.query_conv.weight", "da_head.sa.gamma",
+             "da_head.sc.gamma")
+
+
+def zoo_collect():
+    """11a: ZOO_FRAMES expert frames from the port's sim with the
+    perception CLI's collection settings; returns the shard directory."""
+    import glob
+    import os
+
+    import numpy as np
+
+    from cadre_tpu_torch.envs.expert import OracleExpert
+    from cadre_tpu_torch.envs.sim_env import SimDrivingEnv
+    from cadre_tpu_torch.perception.data import (
+        PerceptionDataLoader,
+        collect_dataset,
+    )
+
+    out = _smoke_dir("smoke_collect")
+    for old in glob.glob(os.path.join(out, "*.npz")):
+        os.remove(old)
+    env = SimDrivingEnv(seed=0, seq_length=2, vehicle_num=(8, 8),
+                        randomize_weather=True, light_times=(3.0, 3.0, 3.0),
+                        npc_cruise=(1.5, 5.0))
+    t0 = time.perf_counter()
+    shards = collect_dataset(env, OracleExpert(), ZOO_FRAMES, out,
+                             shard_size=ZOO_SHARD)
+    seconds = time.perf_counter() - t0
+    require(len(shards) == ZOO_FRAMES // ZOO_SHARD, f"shards {shards}")
+    seg, light, geom = set(), set(), []
+    for path in shards:
+        with np.load(path) as z:
+            seg |= set(np.unique(z["camera_seg"]).tolist())
+            light |= set(np.unique(z["light_state"]).tolist())
+            geom.append(np.stack([z["dis"], z["theta"]]))
+    require(len(seg) >= 4, f"collected seg classes {sorted(seg)}")
+    require(len(light) >= 2, f"collected light states {sorted(light)}")
+    require(bool(np.isfinite(np.concatenate(geom, 1)).all()),
+            "collected dis / theta not finite")
+    loader = PerceptionDataLoader(out, batch_size=PERCEPTION_BATCH)
+    require(loader.num_frames == ZOO_FRAMES, f"the loader reads "
+            f"{loader.num_frames} frames")
+    print(f"[11a] collect_dataset: {ZOO_FRAMES} frames in {len(shards)} "
+          f"shards from SimDrivingEnv (8 vehicles, 8 walkers, random "
+          f"weather, 3/3/3 s lights) and OracleExpert in {seconds:.2f} s, "
+          f"{ZOO_FRAMES / seconds:.1f} collected frames/s; seg classes "
+          f"{sorted(seg)}, light states {sorted(light)}")
+    return out
+
+
+def zoo_da_beta_vae(data_dir):
+    """11b: auto_da_beta_vae at full width through PerceptionTrainer's
+    zoo path: one epoch of solve on shard 0 with shard 1 as eval_loader
+    (recon PNGs read back), then ZOO_STEPS timed steps on one batch;
+    returns their launch counts."""
+    import os
+    import shutil
+
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import PerceptionTrainParams
+    from cadre_tpu_torch.configs.experiments import experiment_params
+    from cadre_tpu_torch.models.registry import build_model
+    from cadre_tpu_torch.perception.data import (
+        PerceptionDataLoader,
+        compute_stats,
+    )
+    from cadre_tpu_torch.perception.trainer import PerceptionTrainer
+    from cadre_tpu_torch.perception.visualize import read_png
+
+    paths = PerceptionDataLoader(data_dir).paths
+    loader = PerceptionDataLoader(paths[:1], batch_size=PERCEPTION_BATCH,
+                                  seed=0, packed=True, cache_in_memory=True)
+    held = PerceptionDataLoader(paths[1:], batch_size=PERCEPTION_BATCH,
+                                seed=1, packed=True, cache_in_memory=True)
+    stats = compute_stats(loader.paths)
+    cfg = experiment_params("auto_da_beta_vae")
+    model = build_model("da_beta_vae", cfg, seed=0)
+    trainer = PerceptionTrainer(
+        cfg, PerceptionTrainParams(batch_size=PERCEPTION_BATCH),
+        steps_per_epoch=len(loader), seed=0,
+        seg_class_weight=stats.seg_class_weight,
+        light_class_weight=stats.light_class_weight, device="cuda",
+        model=model)
+    params = dict(trainer.model.named_parameters())
+    before = {n: params[n].detach().clone() for n in ZOO_WATCH}
+    work = _smoke_dir("smoke_zoo_work")
+    shutil.rmtree(os.path.join(work, "recon_epoch0"), ignore_errors=True)
+    t0 = time.perf_counter()
+    epoch, launches = _counted(lambda: trainer.solve(
+        loader, epochs=1, work_dir=work, eval_loader=held,
+        log_fn=lambda line: print(f"[11b]   {line}")))
+    seconds = time.perf_counter() - t0
+    steps, evals = len(loader), len(held)
+    want = {"paint": 0, "dual_attention": steps + evals + 1,
+            "dual_attention_bwd": steps}
+    require(launches == want, f"DABetaVAE solve launches {launches}, "
+            f"not {want} (train steps, eval batches and the recon batch)")
+    require(all(v == v and abs(v) < float("inf") for v in epoch.values())
+            and "visual_kld" in epoch, f"DABetaVAE epoch losses {epoch}")
+    require(os.path.exists(os.path.join(work, "net_epoch0.pt")),
+            "solve wrote no net_epoch0.pt")
+    pngs = sorted(os.listdir(os.path.join(work, "recon_epoch0")))
+    require(pngs == [f"sample_{i}.png" for i in range(4)], f"recon {pngs}")
+    grid = read_png(os.path.join(work, "recon_epoch0", "sample_0.png"))
+    require(grid.shape == (144, 4 * 256, 3), f"recon grid {grid.shape}")
+    print(f"[11b] solve: 1 epoch of {steps} steps at B={PERCEPTION_BATCH} "
+          f"(auto_da_beta_vae: input mode 5, output mode 9, full width, "
+          f"f32) and an eval of {evals} batches in {seconds:.2f} s with "
+          f"first-call set-up; recon PNGs {pngs} read back, grid "
+          f"{grid.shape}; launches {launches}")
+
+    batch = {k: torch.as_tensor(v).cuda() for k, v in next(iter(loader))
+             .items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, launches = _counted(lambda: [
+        trainer.train_step(batch, sync=False) for _ in range(ZOO_STEPS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    totals = [float(l["total"]) for l in losses]
+    want = {"paint": 0, "dual_attention": ZOO_STEPS,
+            "dual_attention_bwd": ZOO_STEPS}
+    require(launches == want, f"DABetaVAE launches {launches}, not {want}")
+    for step in losses:
+        for name, v in step.items():
+            _finite(f"DABetaVAE loss {name}", v)
+    require(totals[-1] < totals[0], f"DABetaVAE total did not fall over "
+            f"{ZOO_STEPS} steps: {totals[0]:.1f} -> {totals[-1]:.1f}")
+    moved = {n: float((params[n].detach() - before[n]).abs().max())
+             for n in ZOO_WATCH}
+    require(all(v > 0 for v in moved.values()), f"not moved: {moved}")
+    for name, p in params.items():
+        _finite(f"DABetaVAE parameter {name}", p.detach())
+    print(f"[11b] {ZOO_STEPS} DABetaVAE steps on one batch at B="
+          f"{PERCEPTION_BATCH}: {seconds:.3f} s, "
+          f"{ZOO_STEPS * PERCEPTION_BATCH / seconds:.1f} train frames/s "
+          f"({seconds / ZOO_STEPS * 1e3:.2f} ms per step); peak memory "
+          f"allocated {peak / 2**30:.2f} GiB; total loss {totals[0]:.1f} -> "
+          f"{totals[-1]:.1f} ("
+          + ", ".join(f"{k} {float(v):.3f}" for k, v in losses[-1].items())
+          + f"); largest moves {moved}; launches {launches}")
+    prof_steps = 3
+    profile(lambda: [trainer.train_step(batch, sync=False)
+                     for _ in range(prof_steps)],
+            f"{prof_steps} DABetaVAE train steps (B={PERCEPTION_BATCH})",
+            prof_steps, "train step", tag="11b")
+    return launches, batch
+
+
+def zoo_cil_timing(batch):
+    """11b: ZOO_STEPS CILTrainer steps of a CilrsNet (resnet18, train_cil's
+    default) on one batch of B=PERCEPTION_BATCH frames; frames/s and peak
+    memory."""
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import PerceptionTrainParams
+    from cadre_tpu_torch.models.cil import CilrsNet
+    from cadre_tpu_torch.models.registry import seeded
+    from cadre_tpu_torch.perception.cil_trainer import CILTrainer
+
+    model = seeded(0, lambda: CilrsNet(arch="resnet18"))
+    trainer = CILTrainer(model, PerceptionTrainParams(
+        batch_size=PERCEPTION_BATCH), steps_per_epoch=ZOO_STEPS, seed=0,
+        device="cuda")
+    trainer.train_step(batch)                 # first launches, cuDNN choices
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, launches = _counted(lambda: [
+        trainer.train_step(batch, sync=False) for _ in range(ZOO_STEPS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for step in losses:
+        for name, v in step.items():
+            _finite(f"CIL loss {name}", v)
+    require(sum(launches.values()) == 0, f"CIL launches {launches}")
+    print(f"[11b] {ZOO_STEPS} CILTrainer steps (CilrsNet resnet18) on one "
+          f"batch at B={PERCEPTION_BATCH}: {seconds:.3f} s, "
+          f"{ZOO_STEPS * PERCEPTION_BATCH / seconds:.1f} train frames/s; "
+          f"peak memory allocated {peak / 2**30:.2f} GiB; total loss "
+          f"{float(losses[0]['total']):.4f} -> "
+          f"{float(losses[-1]['total']):.4f}")
+
+
+def zoo_cpu_agreement(batch):
+    """11c: step_agreement (phase 8c's bounds) for a small DABetaVAE (its
+    head's channel mask replayed) and a small CilrsNet."""
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import PerceptionTrainParams
+    from cadre_tpu_torch.configs.experiments import experiment_params
+    from cadre_tpu_torch.models.cil import CilrsNet
+    from cadre_tpu_torch.models.danet import DropoutMasks
+    from cadre_tpu_torch.models.registry import build_model, seeded
+    from cadre_tpu_torch.perception.cil_trainer import CILTrainer, cil_loss
+    from cadre_tpu_torch.perception.data import unpack_batch
+    from cadre_tpu_torch.perception.trainer import PerceptionTrainer
+
+    tp = PerceptionTrainParams(warmup_epochs=1)
+    small = {k: v[:4].cpu() for k, v in batch.items()}
+    cfg = experiment_params("auto_da_beta_vae", da_feature_channel=32,
+                            inter_att_dims=24, z_dims=16)
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    masks = DropoutMasks(torch.rand(4, 128, generator=gen) < 0.9)
+
+    def make_vae(device):
+        return PerceptionTrainer(
+            cfg, tp, steps_per_epoch=1, seed=4, device=device,
+            model=build_model("da_beta_vae", cfg, seed=4))
+
+    def vae64(trainer, m):
+        tb = _double_batch(trainer, small)
+        return trainer._losses(trainer._apply(tb, m), tb)[0]
+
+    step_agreement("11c", "small DABetaVAE", make_vae, vae64, small, masks,
+                   tp.weight_decay)
+
+    def make_cil(device):
+        return CILTrainer(seeded(4, lambda: CilrsNet(arch="resnet18")), tp,
+                          steps_per_epoch=1, seed=4, device=device)
+
+    def cil64(trainer, m):
+        b = {k: v.double() if v.is_floating_point() else v
+             for k, v in unpack_batch(small).items()}
+        controls, speed = trainer.model(b["camera_rgb"], b["speed"],
+                                        b["command"], masks=m)
+        return cil_loss(controls, speed, b)[0]
+
+    step_agreement("11c", "CilrsNet resnet18", make_cil, cil64, small, None,
+                   tp.weight_decay)
+
+
+def _run_cli(tag, module, args):
+    """`python -m <module> <args>` in its own process from the repo root;
+    prints its output, returns its wall seconds."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module, *args], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    require(out.returncode == 0, f"{module} exited {out.returncode}: "
+            f"{out.stderr[-3000:]}")
+    for line in out.stdout.strip().splitlines():
+        print(f"[{tag}]   {line}")
+    return seconds
+
+
+def zoo_clis(data_dir):
+    """11d: the 'invaild' ablation through the perception CLI in process
+    (its launches counted), `--collect 96 --model oldv2_vae` and
+    `train_cil` in their own processes; every checkpoint read back."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from cadre_tpu_torch import train_perception
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.configs.experiments import experiment_params
+    from cadre_tpu_torch.models.cil import CilrsNet
+    from cadre_tpu_torch.models.danet import DANet
+    from cadre_tpu_torch.models.registry import adapt_config, build_model
+    from cadre_tpu_torch.utils.checkpoint import load_danet_checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "smoke_zoo_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    args = ["--data-dir", data_dir, "--experiment", "auto_danet_exp50",
+            "--epochs", "1", "--batch-size", str(PERCEPTION_BATCH),
+            "--holdout", "--work-dir", os.path.join(work, "exp50")]
+    t0 = time.perf_counter()
+    path, launches = _counted(lambda: train_perception.main(args))
+    seconds = time.perf_counter() - t0
+    steps = evals = ZOO_SHARD // PERCEPTION_BATCH
+    want = {"paint": 0, "dual_attention": steps + evals,
+            "dual_attention_bwd": steps}
+    require(launches == want, f"auto_danet_exp50 CLI launches {launches}, "
+            f"not {want}")
+    cfg = experiment_params("auto_danet_exp50")
+    DANet(cfg).load_state_dict(load_danet_checkpoint(path, cfg))
+    print(f"[11d] train_perception --experiment auto_danet_exp50 (the "
+          f"'invaild' ablation) --epochs 1 --holdout: {seconds:.1f} s in "
+          f"process; launches {launches}; {os.path.relpath(path, root)} "
+          f"read back")
+
+    own = os.path.join(work, "collect96")
+    seconds = _run_cli("11d", "cadre_tpu_torch.train_perception", [
+        "--data-dir", own, "--collect", str(ZOO_CLI_FRAMES), "--model",
+        "oldv2_vae", "--epochs", "1", "--batch-size", str(PERCEPTION_BATCH),
+        "--work-dir", os.path.join(work, "oldv2")])
+    cfg = dataclasses.replace(adapt_config("oldv2_vae", danet_params()),
+                              model_name="oldv2_vae")
+    build_model("oldv2_vae", cfg).load_state_dict(load_danet_checkpoint(
+        os.path.join(work, "oldv2", "net_epoch0.pt"), cfg))
+    print(f"[11d] train_perception --collect {ZOO_CLI_FRAMES} --model "
+          f"oldv2_vae --epochs 1: exit 0 in {seconds:.1f} s; its checkpoint "
+          f"read back")
+
+    seconds = _run_cli("11d", "cadre_tpu_torch.train_cil", [
+        "--data-dir", data_dir, "--model", "cilrs", "--epochs", "1",
+        "--batch-size", str(PERCEPTION_BATCH), "--work-dir",
+        os.path.join(work, "cil")])
+    blob = torch.load(os.path.join(work, "cil", "cil_epoch0.pt"),
+                      weights_only=True)
+    require(blob["config"] == {"model_name": "cilrs", "arch": "resnet18"},
+            f"cil checkpoint config {blob['config']}")
+    CilrsNet(arch="resnet18").load_state_dict(blob["state_dict"])
+    print(f"[11d] train_cil --model cilrs --epochs 1: exit 0 in "
+          f"{seconds:.1f} s; cil_epoch0.pt read back")
+
+
+def phase_zoo():
+    """The perception zoo at full width: collection, DABetaVAE training,
+    the CIL trainer, the card against the CPU and the CLIs; returns the
+    launch counts of the timed DABetaVAE steps."""
+    t0 = time.perf_counter()
+    data_dir = zoo_collect()
+    launches, batch = zoo_da_beta_vae(data_dir)
+    zoo_cil_timing(batch)
+    zoo_cpu_agreement(batch)
+    zoo_clis(data_dir)
+    print(f"[11] phase 11 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # ------------------------------------------- kernel times of checkouts
 
 def _timing_inputs(device):
@@ -2592,6 +2976,7 @@ def main(argv) -> int:
         perception_launches = phase_perception()
         host_launches, single_launches, in_process = phase_host_env()
         host_eval_launches, proc_launches = phase_host_eval(in_process)
+        zoo_launches = phase_zoo()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2603,6 +2988,7 @@ def main(argv) -> int:
         entry["launches_host_single"] = single_launches[name]
         entry["launches_host_eval"] = host_eval_launches[name]
         entry["launches_host_proc"] = proc_launches[name]
+        entry["launches_zoo"] = zoo_launches[name]
     # the backward kernel's main path is perception pretraining
     kernels["dual_attention_bwd"]["launches"] = \
         perception_launches["dual_attention_bwd"]
