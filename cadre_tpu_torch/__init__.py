@@ -8,6 +8,9 @@ the banks (`rl.device_rollout.train_device`, `python -m
 cadre_tpu_torch.main`). It also runs perception pretraining, the host
 simulator with its scenario runtime, the host-env PPO loops (in process
 or in env worker processes) and the ensemble evals (`python -m
-cadre_tpu_torch.eval`). It imports torch and numpy only; `cadre_tpu` (the
-JAX package) is its reference and is never imported here.
+cadre_tpu_torch.eval`), reads and writes the JAX package's flax
+checkpoints and experiment configs, and trains data-parallel over
+torch.distributed (`--mesh`). It imports torch and numpy only;
+`cadre_tpu` (the JAX package) is its reference and is never imported
+here.
 """

@@ -1,7 +1,9 @@
 """Ensemble evaluation entry point of the port: `python -m cadre_tpu_torch.eval`.
 
 The JAX package's root `eval.py` on host envs: K member snapshots (the
-port's `save_snapshot` files; globs allowed) drive `--episodes` episodes of
+port's `save_snapshot` files, the JAX package's `.msgpack` snapshots or
+the reference's ppo_model_<N>.pt files, mixed as they come; globs
+allowed) drive `--episodes` episodes of
 the kinematic simulator (`--env sim`, with `--routes`, `--scenarios`,
 `--vehicles` and `--walkers`) or the replay env (`--env fake`) through
 `rl.evaluate.evaluate`, one averaged control a tick. Per-criterion rows go
@@ -25,7 +27,8 @@ def parse_args(argv=None):
         description="Evaluate a cadre_tpu_torch snapshot ensemble")
     p.add_argument("--env", default="sim", choices=["sim", "fake", "carla"])
     p.add_argument("--snapshots", nargs="+", required=True,
-                   help="member snapshot paths (.pt; globs ok)")
+                   help="member snapshot paths (.pt or .msgpack; globs "
+                        "ok)")
     p.add_argument("--episodes", type=int, default=25)
     p.add_argument("--routes", default=None)
     p.add_argument("--scenarios", default=None)
@@ -37,7 +40,8 @@ def parse_args(argv=None):
     p.add_argument("--small", action="store_true",
                    help="small encoder (fast CPU runs)")
     p.add_argument("--danet-checkpoint", default=None,
-                   help="trained encoder (.pt) to freeze in the agent")
+                   help="trained encoder (.pt or .msgpack) to freeze in "
+                        "the agent")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 

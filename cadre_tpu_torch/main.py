@@ -22,13 +22,23 @@ The paths of the JAX package's `main.py`:
     pedestrians per episode and `--priority-routes` turns on the route
     curriculum.
 `--danet-checkpoint` freezes a trained encoder (a
-`python -m cadre_tpu_torch.train_perception` checkpoint or a
-reference-format .pt) in the agent instead of a random one: the cascade's
-second stage. It runs on the GPU unless given `--device cpu`.
+`python -m cadre_tpu_torch.train_perception` checkpoint, a
+reference-format .pt or a JAX package .msgpack) in the agent instead of a
+random one: the cascade's second stage. `--config config_files/<x>.py`
+takes the rollout and train configs from an experiment file
+(`configs/loader.py`; feature_dims is the agent's), in place of
+`--num-steps`, `--seq-length` and `--episodes`, on every `--env`.
+`--mesh data` trains data-parallel over the ranks of `torchrun
+--standalone --nproc-per-node G` (alone, a world of 1): each rank steps
+N/G of the `--num-envs` envs (`--env jax`, or `--env sim|fake` with N >
+1) on cuda:LOCAL_RANK, the banks stay equal on every rank, and rank 0
+logs and writes the snapshots. It runs on the GPU unless given `--device
+cpu`.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime
 import functools
 import os
@@ -36,8 +46,6 @@ import os
 # flags of the JAX CLI whose features the port does not have yet, by the
 # ROADMAP.md queue A item that ports them
 UNPORTED = {
-    "config": "experiment config files, ROADMAP.md queue A item 15",
-    "mesh": "the sharded update, ROADMAP.md queue A item 16",
     "town": "the CARLA env, ROADMAP.md queue A item 17",
 }
 CARLA_UNPORTED = "--env carla: the CARLA env, ROADMAP.md queue A item 17"
@@ -79,16 +87,21 @@ def parse_args(argv=None):
                    help="--env jax: priority route curriculum (per-env "
                         "route table)")
     p.add_argument("--danet-checkpoint", default=None,
-                   help="trained encoder (.pt) to freeze in the agent")
+                   help="trained encoder (.pt or .msgpack) to freeze in "
+                        "the agent")
     p.add_argument("--scenarios", default=None,
                    help="scenario JSON (or a directory of them) whose "
                         "triggers arm on the sim env's routes")
     p.add_argument("--proc-envs", action="store_true",
                    help="--num-envs N > 1: each env in a worker process "
                         "of its own, behind shared-memory rings")
-    # not ported yet: raise (see UNPORTED)
-    p.add_argument("--config", default=None)
-    p.add_argument("--mesh", default=None, choices=[None, "data"])
+    p.add_argument("--config", default=None,
+                   help="config_files/*.py experiment (Config.fromfile): "
+                        "its rollout_cfg and train_cfg")
+    p.add_argument("--mesh", default=None, choices=[None, "data"],
+                   help="'data': data-parallel over the torchrun ranks "
+                        "(alone: one rank)")
+    # not ported yet: raises (see UNPORTED)
     p.add_argument("--town", default=None)
     return p.parse_args(argv)
 
@@ -130,11 +143,35 @@ def main(argv=None) -> str:
     if args.env == "carla":
         raise NotImplementedError(f"{CARLA_UNPORTED}; not ported yet")
 
+    mesh, device, rank, world = None, args.device, 0, 1
+    if args.mesh == "data":
+        if args.env != "jax" and args.num_envs < 2:
+            raise ValueError("--mesh data trains --env jax or --num-envs "
+                             "N > 1; one env cannot be shared out")
+        from cadre_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(device=args.device)
+        device, rank, world = mesh.device, mesh.rank, mesh.world
+        if args.num_envs % world:
+            raise ValueError(f"--num-envs {args.num_envs} does not divide "
+                             f"over {world} ranks")
+    try:
+        return _train(args, mesh, device, rank, world)
+    finally:
+        if mesh is not None:
+            from cadre_tpu_torch.parallel.mesh import close_mesh
+
+            close_mesh()
+
+
+def _train(args, mesh, device, rank: int, world: int) -> str:
+    """main() once the mesh, if any, is up: rank `rank` of `world`."""
     from cadre_tpu_torch.configs.agent_config import (
         RolloutConfig,
         TrainConfig,
     )
     from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.parallel.multihost import is_chief
     from cadre_tpu_torch.rl.agent import CadreAgent
     from cadre_tpu_torch.utils.logger import logger, setup_logger
 
@@ -149,14 +186,24 @@ def main(argv=None) -> str:
 
         encoder_state = load_danet_checkpoint(args.danet_checkpoint,
                                               danet_cfg)
-    agent = CadreAgent.create(danet_cfg, seed=args.seed, device=args.device,
+    agent = CadreAgent.create(danet_cfg, seed=args.seed, device=device,
                               encoder_state=encoder_state)
-    rollout_cfg = RolloutConfig(num_steps=args.num_steps,
-                                seq_length=args.seq_length,
-                                feature_dims=agent.obs_dim)
-    train_cfg = TrainConfig(max_episode=args.episodes)
+    if args.config:
+        from cadre_tpu_torch.configs.loader import load_experiment
+
+        exp = load_experiment(args.config)
+        rollout_cfg = dataclasses.replace(exp["rollout"],
+                                          feature_dims=agent.obs_dim)
+        train_cfg = exp["train"]
+    else:
+        rollout_cfg = RolloutConfig(num_steps=args.num_steps,
+                                    seq_length=args.seq_length,
+                                    feature_dims=agent.obs_dim)
+        train_cfg = TrainConfig(max_episode=args.episodes)
     iterations = args.iterations if args.iterations is not None else \
         args.episodes
+    n_local = args.num_envs // world          # this rank's envs
+    chief = is_chief()
 
     if args.env == "jax":
         from cadre_tpu_torch.envs.torch_env import (
@@ -167,25 +214,26 @@ def main(argv=None) -> str:
         from cadre_tpu_torch.rl.device_rollout import train_device
 
         bank = make_route_bank(max(args.num_envs * 2, 16), seed=args.seed,
-                               routes_file=args.routes, device=args.device)
-        env = DrivingEnv(bank, num_envs=max(args.num_envs, 1),
-                         seed=args.seed,
+                               routes_file=args.routes, device=device)
+        env = DrivingEnv(bank, num_envs=max(n_local, 1),
+                         seed=args.seed + rank,
                          config=EnvConfig(n_hazards=args.hazards,
                                           priority_routes=args.priority_routes),
-                         device=args.device)
+                         device=device)
         train_device(agent, env, iterations=iterations,
                      rollout_cfg=rollout_cfg, train_cfg=train_cfg,
                      seed=args.seed,
-                     log_fn=lambda line: print(line, flush=True))
+                     log_fn=lambda line: print(line, flush=True), mesh=mesh)
         path = os.path.join(work_dir, "models", f"ppo_model_{iterations}.pt")
-        agent.save_snapshot(path)
+        if chief:
+            agent.save_snapshot(path)
     elif args.num_envs > 1:
         from cadre_tpu_torch.envs.vec_env import VecDrivingEnv
         from cadre_tpu_torch.rl.vec_train import train_vec
 
-        setup_logger(work_dir, rank=0)
+        setup_logger(work_dir, rank=rank)
         env_fns = [functools.partial(make_env, args.env, k, args, work_dir)
-                   for k in range(args.num_envs)]
+                   for k in range(rank * n_local, (rank + 1) * n_local)]
         if args.proc_envs:
             from cadre_tpu_torch.runtime.proc_vec_env import (
                 ProcVecDrivingEnv,
@@ -197,7 +245,7 @@ def main(argv=None) -> str:
         try:
             train_vec(vec, agent, rollout_cfg, train_cfg,
                       iterations=iterations, seed=args.seed,
-                      work_dir=work_dir)
+                      work_dir=work_dir, mesh=mesh)
         finally:
             if args.proc_envs:
                 vec.close()
@@ -210,11 +258,12 @@ def main(argv=None) -> str:
         setup_logger(work_dir, rank=0)
         train(build_env(args, work_dir), agent, rollout_cfg, train_cfg,
               rank=0, work_dir=work_dir, seed=args.seed)
-        last = (args.episodes - 1) // train_cfg.save_interval \
+        last = (train_cfg.max_episode - 1) // train_cfg.save_interval \
             * train_cfg.save_interval
         path = os.path.join(work_dir, "0", "models", f"ppo_model_{last}.pt")
     logger.close()
-    print(f"saved {path}", flush=True)
+    if chief:
+        print(f"saved {path}", flush=True)
     return path
 
 

@@ -24,6 +24,15 @@ cadre_tpu.perception.trainer).
   DANet. It gets x alone (no bc_speed) and, as in the JAX trainer, no
   reparameterisation draw (z = mu); the KLD terms of its mu / logvar
   enter the loss. Its checkpoints record cfg.model_name.
+- `mesh=` (parallel/mesh.py): data-parallel training, the counterpart
+  of the JAX package's parallel/perception_step.py. `train_step` takes
+  the global batch and trains on this rank's rows; every BatchNorm
+  normalises by the statistics of every rank's rows (flax's cross-replica
+  BatchNorm, models/torch_compat.py); the gradients and the losses are
+  mean-reduced (pmean) in one all_reduce each; the weights start as rank
+  0's. Every rank draws the same dropout masks for its rows, as JAX's
+  replicated key does, and only rank 0 writes checkpoints. In a world of
+  one every rank's rows are this batch: the step is the plain one.
 The model must take the loader's 4 input planes (rgb + route raster):
 another `input_channel` raises before the first step. Entry points run
 on the card unless given device="cpu".
@@ -44,6 +53,14 @@ from cadre_tpu_torch.configs.danet_config import (
 )
 from cadre_tpu_torch.models.danet import DANet, DropoutMasks, draw_dropout_masks
 from cadre_tpu_torch.models.registry import seeded
+from cadre_tpu_torch.models.torch_compat import set_batch_norm_group
+from cadre_tpu_torch.parallel.mesh import (
+    Mesh,
+    broadcast_,
+    mean_reduce_,
+    shard_rows,
+)
+from cadre_tpu_torch.parallel.multihost import is_chief
 from cadre_tpu_torch.perception.data import (
     LOADER_PLANES,
     blank_route_plane,
@@ -102,11 +119,13 @@ class PerceptionTrainer:
                  light_class_weight: Optional[np.ndarray] = None,
                  device="cuda", device_augment: bool = False,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 model: Optional[torch.nn.Module] = None):
+                 model: Optional[torch.nn.Module] = None,
+                 mesh: Optional[Mesh] = None):
         check_input_width(cfg)
         self.cfg, self.tp = cfg, tp
         self.steps_per_epoch = steps_per_epoch
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.device_augment = device_augment
         self.zoo = model is not None
         if model is None:
@@ -115,6 +134,9 @@ class PerceptionTrainer:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device,
                               memory_format=torch.channels_last).train()
+        if mesh is not None and mesh.world > 1:
+            set_batch_norm_group(self.model, mesh.group)
+            broadcast_(list(self.model.state_dict().values()), mesh)
         self.opt = make_optimizer(self.model.parameters(), tp)
         self.step = 0
         self.generator = torch.Generator(device=self.device)
@@ -178,8 +200,12 @@ class PerceptionTrainer:
         """One optimizer step on `batch` (numpy arrays or tensors, packed
         or not); `masks` fixes the dropout draws. Returns the losses at the
         weights before the step: floats, or device scalars with
-        sync=False."""
+        sync=False. With a mesh, `batch` is the global batch and this rank
+        trains on its rows; `masks` are for those rows."""
         self.model.train()
+        if self.mesh is not None:
+            batch = {k: shard_rows(torch.as_tensor(v), self.mesh)
+                     for k, v in batch.items()}
         batch = self._to_device(batch)
         if self.device_augment:
             batch = self._augment_on_device(batch)
@@ -190,9 +216,13 @@ class PerceptionTrainer:
         self.opt.zero_grad(set_to_none=True)
         total, losses = self._losses(self._apply(batch, masks), batch)
         total.backward()
+        losses = {k: v.detach() for k, v in dict(losses, total=total).items()}
+        if self.mesh is not None:
+            mean_reduce_([p.grad for p in self.model.parameters()
+                          if p.grad is not None], self.mesh)
+            mean_reduce_(list(losses.values()), self.mesh)
         self.opt.step()
         self.step += 1
-        losses = {k: v.detach() for k, v in dict(losses, total=total).items()}
         return losses if not sync else {k: float(v) for k, v in
                                         losses.items()}
 
@@ -308,8 +338,8 @@ class PerceptionTrainer:
             log_fn(f"perception epoch {epoch}: " + ", ".join(
                 f"{k}={v:.3f}" for k, v in last.items())
                 + f" ({fps:.1f} frames/s)")
-            if work_dir and (epoch % save_interval == 0
-                             or epoch == epochs - 1):
+            if work_dir and is_chief() and (epoch % save_interval == 0
+                                            or epoch == epochs - 1):
                 self.save(os.path.join(work_dir, f"net_epoch{epoch}.pt"))
             if eval_loader is not None:
                 metrics = self.evaluate(eval_loader)

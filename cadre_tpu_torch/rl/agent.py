@@ -8,11 +8,17 @@ trained encoder's: the cascade's handoff from perception pretraining),
 paths (`act`, `act_vec`, `act_vec_incremental`, the fused tick
 `act_vec_store` with `zero_pending`), the bootstrap value `get_value`,
 `update_policy` on the agent's own optimizer (global-norm clip at
-ppo_cfg.max_grad_norm, then Adam), the policy snapshots (native torch
-files; reading the JAX package's msgpack snapshots and the reference's
-policy files is not ported yet) and an ensemble of snapshots acting as
-one: `Ensemble`, which the device eval drives, and `EnsembleAgent`, the
-JAX package's EnsembleAgent on one host env's tick.
+ppo_cfg.max_grad_norm, then Adam), the policy snapshots and an ensemble
+of snapshots acting as one: `Ensemble`, which the device eval drives, and
+`EnsembleAgent`, the JAX package's EnsembleAgent on one host env's tick.
+
+A snapshot is the port's own torch file (`.pt`), the JAX package's flax
+file (`.msgpack`: {'steer', 'throttle'} stacked banks, and beside it
+`<path>.opt`, the optax chain(clip_by_global_norm, adam) state
+{'0': {}, '1': {'0': {count, mu, nu}, '1': {}}}, mapped to and from
+torch Adam's step / exp_avg / exp_avg_sq), or, for loading, a reference
+ppo_model_<N>.pt of '{steer,throttle}_{ppo,lstm}_{k}' state_dicts (a
+bank it lacks keeps the agent's value).
 
 The host-env paths take numpy ticks: frames go to the agent's device as
 uint8, measurements as float32 and commands as int64 (JAX converts
@@ -27,8 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import pickle
-from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,13 +45,12 @@ from cadre_tpu_torch.models.policy import Carry, PolicyBank, PolicyOutput
 from cadre_tpu_torch.rl.distributions import gumbel as draw_gumbel
 from cadre_tpu_torch.rl.ppo import PPOConfig, make_optimizer, update_step
 from cadre_tpu_torch.rl.rollout import Minibatch, RolloutBuffer, insert
+from cadre_tpu_torch.utils import checkpoint as ckpt
+from cadre_tpu_torch.utils.convert import policy_from_flax, policy_to_flax
 from cadre_tpu_torch.utils.device import resolve_device
 
 Gumbel = Tuple[torch.Tensor, torch.Tensor]      # (steer [N, A], throttle)
-SNAPSHOT_UNPORTED = ("the port reads the snapshots of its own "
-                     "CadreAgent.save_snapshot only; the JAX package's "
-                     ".msgpack snapshots and the reference's policy .pt "
-                     "files are ROADMAP.md queue A item 15, not ported yet")
+StateDict = Dict[str, torch.Tensor]
 
 
 class ActResult(NamedTuple):
@@ -324,12 +328,23 @@ class CadreAgent:
                           throttle_mb, self.ppo_cfg)
         return tuple(float(x) for x in torch.stack(tuple(aux)).cpu())
 
+    def banks(self) -> Dict[str, PolicyBank]:
+        return {"steer": self.steer, "throttle": self.throttle}
+
     def save_snapshot(self, path: str,
                       opt: Optional[torch.optim.Optimizer] = None) -> None:
-        """Both banks' state dicts to `path` (torch.save); with `opt`, its
-        state dict too, for an exact resume."""
-        tree = {"steer": self.steer.state_dict(),
-                "throttle": self.throttle.state_dict()}
+        """Both banks to `path`: a torch file, or with a `.msgpack` path
+        the JAX package's snapshot. With `opt`, its state too, for an exact
+        resume: inside the torch file, or as the optax state in
+        `path + ".opt"`."""
+        if path.endswith(".msgpack"):
+            ckpt.save_pytree(path, {name: policy_to_flax(bank.state_dict())
+                                    for name, bank in self.banks().items()})
+            if opt is not None:
+                ckpt.save_pytree(path + ".opt",
+                                 adam_to_optax(opt, self.banks()))
+            return
+        tree = {name: bank.state_dict() for name, bank in self.banks().items()}
         if opt is not None:
             tree["opt"] = opt.state_dict()
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -337,13 +352,76 @@ class CadreAgent:
 
     def load_snapshot(self, path: str,
                       opt: Optional[torch.optim.Optimizer] = None) -> None:
-        """Load a `save_snapshot` file; with `opt`, restore its state too
-        (the file must hold one)."""
-        tree = torch.load(path, map_location=self.device, weights_only=True)
-        self.steer.load_state_dict(tree["steer"])
-        self.throttle.load_state_dict(tree["throttle"])
-        if opt is not None:
-            opt.load_state_dict(tree["opt"])
+        """Load a snapshot (any format `Ensemble.load` takes); with `opt`,
+        restore its state too: from a torch file (which must hold it) or,
+        as the JAX package does, from `path + ".opt"` where that exists."""
+        for name, sd in snapshot_banks(path, self).items():
+            self.banks()[name].load_state_dict(sd)
+        if opt is None:
+            return
+        if path.endswith(".msgpack"):
+            if os.path.exists(path + ".opt"):
+                adam_from_optax(opt, self.banks(),
+                                ckpt.load_pytree(path + ".opt"))
+        else:
+            opt.load_state_dict(ckpt.load_pt(path)["opt"])
+
+
+def snapshot_banks(path: str, agent: CadreAgent) -> Dict[str, StateDict]:
+    """{'steer', 'throttle'} PolicyBank state_dicts (CPU tensors) of the
+    snapshot at `path`: the port's `.pt`, the JAX package's `.msgpack`, or
+    a reference ppo_model_<N>.pt, whose missing banks keep `agent`'s."""
+    if path.endswith(".msgpack"):
+        tree = ckpt.load_pytree(path)
+        return {name: policy_from_flax(tree[name])
+                for name in ("steer", "throttle")}
+    blob = ckpt.load_pt(path)
+    if isinstance(blob, dict) and {"steer", "throttle"} <= blob.keys():
+        return {name: blob[name] for name in ("steer", "throttle")}
+    if isinstance(blob, dict) and any(k.startswith(("steer_", "throttle_"))
+                                      for k in blob):
+        current = {name: policy_to_flax(bank.state_dict())
+                   for name, bank in agent.banks().items()}
+        banks, _ = ckpt.import_policy_torch(
+            blob, current["steer"], current["throttle"],
+            agent.agent_cfg.command_num)
+        return {name: policy_from_flax(banks[name])
+                for name in ("steer", "throttle")}
+    raise ValueError(f"{path} is not a policy snapshot: neither the port's "
+                     "{'steer', 'throttle'} nor the reference's "
+                     "'{steer,throttle}_{ppo,lstm}_{k}' entries")
+
+
+def adam_to_optax(opt: torch.optim.Optimizer,
+                  banks: Dict[str, PolicyBank]) -> dict:
+    """torch Adam's state over the banks' parameters as the JAX package's
+    optax chain(clip_by_global_norm, adam) state (count int32, mu and nu
+    in the banks' flax layout); zeros for a parameter not stepped yet."""
+    def moments(key):
+        return {name: policy_to_flax({
+            n: opt.state[p][key] if p in opt.state else torch.zeros_like(p)
+            for n, p in bank.named_parameters()})
+            for name, bank in banks.items()}
+
+    steps = [int(s["step"]) for s in opt.state.values()]
+    count = np.asarray(max(steps, default=0), np.int32)
+    return {"0": {}, "1": {"0": {"count": count, "mu": moments("exp_avg"),
+                                 "nu": moments("exp_avg_sq")}, "1": {}}}
+
+
+def adam_from_optax(opt: torch.optim.Optimizer, banks: Dict[str, PolicyBank],
+                    tree: dict) -> None:
+    """The inverse of adam_to_optax: `opt`'s state over the banks'
+    parameters from an optax chain(clip_by_global_norm, adam) state."""
+    adam = tree["1"]["0"]
+    step = float(np.asarray(adam["count"]))
+    for name, bank in banks.items():
+        mu, nu = policy_from_flax(adam["mu"][name]), \
+            policy_from_flax(adam["nu"][name])
+        for n, p in bank.named_parameters():
+            opt.state[p] = {"step": torch.tensor(step),
+                            "exp_avg": mu[n].to(p.device),
+                            "exp_avg_sq": nu[n].to(p.device)}
 
 
 class Ensemble(NamedTuple):
@@ -358,10 +436,10 @@ class Ensemble(NamedTuple):
     @classmethod
     def load(cls, agent: CadreAgent, snapshot_paths: Sequence[str]
              ) -> "Ensemble":
-        """The `save_snapshot` files at `snapshot_paths`, stacked on the
-        host and then copied to the agent's device once. Any other file
-        raises NotImplementedError."""
-        trees = [_load_snapshot(p) for p in snapshot_paths]
+        """The snapshots at `snapshot_paths` (`snapshot_banks`' formats,
+        mixed as they come), stacked on the host and then copied to the
+        agent's device once."""
+        trees = [snapshot_banks(p, agent) for p in snapshot_paths]
         if not trees:
             raise ValueError("an ensemble needs at least one snapshot")
         k, cfg, f = len(trees), agent.agent_cfg, agent.obs_dim
@@ -387,19 +465,6 @@ class Ensemble(NamedTuple):
                     self.throttle.sample_members(self.members, feat_hist,
                                                  commands, hidden,
                                                  throttle_gumbel))
-
-
-def _load_snapshot(path: str) -> dict:
-    """A `CadreAgent.save_snapshot` file's tree, on the CPU."""
-    if path.endswith(".msgpack"):
-        raise NotImplementedError(f"{path}: {SNAPSHOT_UNPORTED}")
-    try:
-        tree = torch.load(path, map_location="cpu", weights_only=True)
-    except pickle.UnpicklingError as exc:    # pickled modules: not ours
-        raise NotImplementedError(f"{path}: {SNAPSHOT_UNPORTED}") from exc
-    if not (isinstance(tree, dict) and {"steer", "throttle"} <= tree.keys()):
-        raise NotImplementedError(f"{path}: {SNAPSHOT_UNPORTED}")
-    return tree
 
 
 class EnsembleAgent:

@@ -11,6 +11,11 @@ an episode. It returns the [T+1, N, ...] buffers the update reads.
 `make_device_iteration` composes it with the fused PPO update
 (rl/fused_update.py), and `train_device` loops iterations on the agent's
 optimizer.
+
+With a mesh (parallel/mesh.py) each rank runs the rollout of its own
+envs (the caller gives each rank its share of N) and the update's
+sharded branch; the banks start from rank 0's and stay equal on every
+rank, and only rank 0 logs.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from cadre_tpu_torch.configs.agent_config import (
     TrainConfig,
 )
 from cadre_tpu_torch.envs.torch_env import DrivingEnv, EnvState, StepDraws
+from cadre_tpu_torch.parallel.mesh import Mesh, broadcast_
 from cadre_tpu_torch.rl.agent import CadreAgent
 from cadre_tpu_torch.rl.distributions import gumbel
 from cadre_tpu_torch.rl.fused_update import Perms, make_fused_iteration_update
@@ -207,7 +213,7 @@ def _sync(device: torch.device) -> None:
 def make_device_iteration(agent: CadreAgent, env: DrivingEnv,
                           rollout_cfg: Optional[RolloutConfig] = None,
                           train_cfg: Optional[TrainConfig] = None,
-                          seed: int = 0):
+                          seed: int = 0, mesh: Optional[Mesh] = None):
     """Returns (iteration, init_carry):
 
     init_carry(draws=None) -> DeviceCarry
@@ -219,7 +225,8 @@ def make_device_iteration(agent: CadreAgent, env: DrivingEnv,
     buffers. `draws` (T ActDraws) and `perms` ((steer, throttle) [E*M, B]
     row indices) replace the generators, which are seeded from `seed`.
     The update runs agent.ppo_cfg with ppo_epoch from `train_cfg` and
-    gamma / tau from `rollout_cfg`, as the JAX iteration does.
+    gamma / tau from `rollout_cfg`, as the JAX iteration does; with `mesh`,
+    its sharded branch over this rank's envs.
     """
     rollout_cfg = rollout_cfg or RolloutConfig()
     train_cfg = train_cfg or TrainConfig()
@@ -229,7 +236,7 @@ def make_device_iteration(agent: CadreAgent, env: DrivingEnv,
                                   tau=rollout_cfg.tau)
     rollout, init_carry = make_device_rollout(agent, env, rollout_cfg, seed)
     update = make_fused_iteration_update(agent.steer, agent.throttle,
-                                         ppo_cfg, rollout_cfg, seed)
+                                         ppo_cfg, rollout_cfg, seed, mesh)
 
     def iteration(opt: torch.optim.Optimizer, carry: DeviceCarry,
                   draws: Optional[Sequence[ActDraws]] = None,
@@ -259,14 +266,22 @@ def make_device_iteration(agent: CadreAgent, env: DrivingEnv,
 def train_device(agent: CadreAgent, env: DrivingEnv, iterations: int = 10,
                  rollout_cfg: Optional[RolloutConfig] = None,
                  train_cfg: Optional[TrainConfig] = None,
-                 seed: int = 0, log_fn=print) -> List[dict]:
+                 seed: int = 0, log_fn=print,
+                 mesh: Optional[Mesh] = None) -> List[dict]:
     """Train the agent's banks in place for `iterations` iterations on the
     agent's optimizer (Adam at agent.ppo_cfg.lr, clip at its
-    max_grad_norm). Returns one metrics row per iteration; each row is
-    timed to the device's end by reading the iteration's checksum."""
+    max_grad_norm). Returns one metrics row per iteration (of this rank's
+    envs); each row is timed to the device's end by reading the
+    iteration's checksum. With `mesh`, the banks start as rank 0's, rank r
+    draws its action noise from seed + r, and only rank 0 logs."""
     rollout_cfg = rollout_cfg or RolloutConfig()
+    if mesh is not None:
+        broadcast_(agent.policy_parameters(), mesh)
+        seed += mesh.rank
+        if mesh.rank:
+            log_fn = None
     iteration, init_carry = make_device_iteration(agent, env, rollout_cfg,
-                                                  train_cfg, seed)
+                                                  train_cfg, seed, mesh)
     carry = init_carry()
     steps_per_iter = rollout_cfg.num_steps * env.num_envs
     out = []

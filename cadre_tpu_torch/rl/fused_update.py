@@ -1,13 +1,20 @@
-"""The whole-iteration PPO update on one device.
+"""The whole-iteration PPO update.
 
-PyTorch counterpart of the unsharded path of
-cadre_tpu.rl.fused_update.make_fused_iteration_update: GAE for both
+PyTorch counterpart of cadre_tpu.rl.fused_update.make_fused_iteration_update:
+GAE for both
 signals, advantage normalisation, ppo_epoch x mini_batch_num minibatch
 steps over epoch-major row permutations (separate ones for steer and
 throttle, remainder rows dropped), each a gather, the loss, the gradients
 of both banks, a global-norm clip and an Adam step; then the means of the
 loss terms over every step. Nothing reads a device value back on the host,
 so the loop issues its work without waiting for the device.
+
+With a mesh (parallel/mesh.py), its sharded branch: each rank's buffers
+hold its own envs; it permutes and minibatches its own rows from a
+generator of its own (seeded with its rank), normalises the advantages
+with the moments of every rank's rows, and MEAN-reduces the gradients of
+each minibatch step before the clip (pmean: the reference's workers
+sampling their own minibatches). The loss terms are mean-reduced too.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 
 from cadre_tpu_torch.configs.agent_config import RolloutConfig
 from cadre_tpu_torch.models.policy import PolicyBank
+from cadre_tpu_torch.parallel.mesh import Mesh, mean_reduce_, sum_reduce_
 from cadre_tpu_torch.rl.ppo import LossAux, PPOConfig, update_step
 from cadre_tpu_torch.rl.rollout import (
     RolloutBuffer,
@@ -46,9 +54,26 @@ def make_perms(n_epochs: int, total_rows: int, mini_batch_num: int,
     return perms[:, :mb_size * eff_mb].reshape(n_epochs * eff_mb, mb_size)
 
 
+def normalize_advantages_global(adv: torch.Tensor,
+                                mesh: Optional[Mesh]) -> torch.Tensor:
+    """(adv - mean) / (std + 1e-8) with the mean and the population std of
+    every rank's advantages: a summed count and sum, then a summed sum of
+    squared deviations (the JAX `gnorm`). Without a mesh, or in a world
+    of one, normalize_advantages."""
+    if mesh is None or mesh.world == 1:
+        return normalize_advantages(adv)
+    count_sum = torch.stack([adv.new_tensor(float(adv.numel())), adv.sum()])
+    sum_reduce_([count_sum], mesh)
+    mean = count_sum[1] / count_sum[0]
+    sq = ((adv - mean) ** 2).sum()
+    sum_reduce_([sq], mesh)
+    return (adv - mean) / (torch.sqrt(sq / count_sum[0]) + 1e-8)
+
+
 def make_fused_iteration_update(steer: PolicyBank, throttle: PolicyBank,
                                 cfg: PPOConfig, rollout_cfg: RolloutConfig,
-                                seed: int = 0) -> Callable:
+                                seed: int = 0,
+                                mesh: Optional[Mesh] = None) -> Callable:
     """Returns
     update(opt, steer_buf, throttle_buf, next_values, perms=None) -> LossAux
     of means over every minibatch step; the banks' parameters and `opt`'s
@@ -62,7 +87,10 @@ def make_fused_iteration_update(steer: PolicyBank, throttle: PolicyBank,
     """
     device = next(steer.parameters()).device
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(np.random.SeedSequence([seed, 1]).generate_state(1)[0]))
+    entropy = [seed, 1] if mesh is None else [seed, 1, mesh.rank]
+    gen.manual_seed(int(np.random.SeedSequence(entropy).generate_state(1)[0]))
+    grad_reduce = None if mesh is None else \
+        (lambda grads: mean_reduce_(grads, mesh))
 
     def update(opt: torch.optim.Optimizer, steer_buf: RolloutBuffer,
                throttle_buf: RolloutBuffer,
@@ -73,8 +101,8 @@ def make_fused_iteration_update(steer: PolicyBank, throttle: PolicyBank,
                                        cfg.tau)
         t_ret, t_adv = batched_returns(throttle_buf, next_throttle,
                                        cfg.gamma, cfg.tau)
-        s_adv = normalize_advantages(s_adv)
-        t_adv = normalize_advantages(t_adv)
+        s_adv = normalize_advantages_global(s_adv, mesh)
+        t_adv = normalize_advantages_global(t_adv, mesh)
         if perms is None:
             total_rows = steer_buf.num_steps * steer_buf.num_envs
             perms = tuple(make_perms(cfg.ppo_epoch, total_rows,
@@ -86,7 +114,10 @@ def make_fused_iteration_update(steer: PolicyBank, throttle: PolicyBank,
             s_mb = gather_minibatch_batched(steer_buf, s_ret, s_adv, si)
             t_mb = gather_minibatch_batched(throttle_buf, t_ret, t_adv, ti)
             auxes.append(torch.stack(update_step(steer, throttle, opt, s_mb,
-                                                 t_mb, cfg)))
-        return LossAux(*torch.stack(auxes).mean(dim=0))
+                                                 t_mb, cfg, grad_reduce)))
+        aux = torch.stack(auxes).mean(dim=0)
+        if mesh is not None:
+            mean_reduce_([aux], mesh)
+        return LossAux(*aux)
 
     return update

@@ -12,7 +12,7 @@ gradients of both banks are clipped together by their global norm
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -92,13 +92,19 @@ def clip_by_global_norm_(grads: List[torch.Tensor],
 
 def update_step(steer: PolicyBank, throttle: PolicyBank,
                 opt: torch.optim.Optimizer, steer_mb: Minibatch,
-                throttle_mb: Minibatch, cfg: PPOConfig) -> LossAux:
+                throttle_mb: Minibatch, cfg: PPOConfig,
+                grad_reduce: Optional[Callable[[List[torch.Tensor]], None]]
+                = None) -> LossAux:
     """One minibatch step: loss, gradients of both banks, global-norm clip
     at cfg.max_grad_norm, Adam. Every parameter gets a dense gradient, so
-    Adam moves every bank on every step, as optax does."""
+    Adam moves every bank on every step, as optax does. `grad_reduce`
+    combines the gradients over data-parallel ranks in place before the
+    clip (parallel/mesh.py: a sum or a mean)."""
     total, aux = ppo_loss(steer, throttle, steer_mb, throttle_mb, cfg)
     params = [p for group in opt.param_groups for p in group["params"]]
     grads = list(torch.autograd.grad(total, params))
+    if grad_reduce is not None:
+        grad_reduce(grads)
     clip_by_global_norm_(grads, cfg.max_grad_norm)
     for p, g in zip(params, grads):
         p.grad = g

@@ -15,6 +15,16 @@ sees the stale zero LSTM carry.
 - `fused_update` (default): the whole update phase through
   `rl.fused_update.make_fused_iteration_update`; else one minibatch step
   at a time through `agent.update_policy`, the JAX package's other path.
+- `mesh` (parallel/mesh.py): data-parallel over ranks, each stepping its
+  own envs (the caller gives rank r its share of the N envs). The banks
+  start as rank 0's; each minibatch step is
+  `parallel.train_step.make_distributed_update` (gradients SUMMED over
+  the ranks, then clipped), on rows each rank draws from its own envs,
+  with advantages normalised by every rank's moments. (The JAX
+  `train_vec(mesh=)` permutes the rows of all envs and shards each
+  minibatch, which needs every row on every device; the port's ranks
+  pick their own rows, as the reference's workers do.) Only rank 0 logs
+  and writes snapshots.
 
 Random numbers come from generators on the agent's device seeded from
 `seed`, or, per iteration, from `draws` (`rl.train.IterationDraws`).
@@ -36,25 +46,24 @@ from cadre_tpu_torch.configs.agent_config import (
     TrainConfig,
     convert_action,
 )
+from cadre_tpu_torch.parallel.mesh import Mesh, broadcast_
+from cadre_tpu_torch.parallel.multihost import is_chief
+from cadre_tpu_torch.parallel.train_step import make_distributed_update
 from cadre_tpu_torch.rl.agent import CadreAgent
 from cadre_tpu_torch.rl.fused_update import (
     make_fused_iteration_update,
     make_perms,
+    normalize_advantages_global,
 )
 from cadre_tpu_torch.rl.rollout import (
     after_update,
     batched_returns,
     create_rollout,
     gather_minibatch_batched,
-    normalize_advantages,
 )
 from cadre_tpu_torch.rl.train import IterationDraws, agent_gumbel
 from cadre_tpu_torch.utils.logger import logger
 from cadre_tpu_torch.utils.profiling import PhaseTimer
-
-MESH_UNPORTED = ("the sharded update (--mesh), ROADMAP.md queue A item 16; "
-                 "not ported yet")
-
 
 @dataclasses.dataclass
 class VecEpisodeStats:
@@ -81,11 +90,13 @@ def train_vec(vec_env, agent: CadreAgent,
               work_dir: Optional[str] = None,
               iteration_hook: Optional[Callable] = None,
               fused_update: bool = True,
-              mesh=None,
+              mesh: Optional[Mesh] = None,
               draws: Optional[Sequence[IterationDraws]] = None
               ) -> List[VecEpisodeStats]:
-    if mesh is not None:
-        raise NotImplementedError(f"mesh: {MESH_UNPORTED}")
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh: a parallel.mesh.Mesh (make_mesh()), not "
+                        f"{mesh!r}")
+    chief = is_chief()
     rollout_cfg = rollout_cfg or RolloutConfig()
     train_cfg = train_cfg or TrainConfig()
     n = vec_env.num_envs
@@ -98,14 +109,18 @@ def train_vec(vec_env, agent: CadreAgent,
         for _ in range(2))
     hidden = (torch.zeros(n, f, device=dev), torch.zeros(n, f, device=dev))
     gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen.manual_seed(seed + (mesh.rank if mesh is not None else 0))
     model_dir = None
-    if work_dir is not None:
+    if work_dir is not None and chief:
         model_dir = os.path.join(work_dir, "models")
         os.makedirs(model_dir, exist_ok=True)
 
-    fused_fn = None
-    if fused_update:
+    fused_fn = dist_update = None
+    if mesh is not None:
+        broadcast_(agent.policy_parameters(), mesh)
+        dist_update = make_distributed_update(agent.steer, agent.throttle,
+                                              agent.ppo_cfg, mesh)
+    elif fused_update:
         ppo_cfg = dataclasses.replace(agent.ppo_cfg,
                                       ppo_epoch=train_cfg.ppo_epoch,
                                       gamma=rollout_cfg.gamma,
@@ -180,7 +195,7 @@ def train_vec(vec_env, agent: CadreAgent,
                 vl, pl, el = _minibatch_updates(
                     agent, steer_buf, throttle_buf,
                     (steer_fin.value, throttle_fin.value), train_cfg,
-                    rollout_cfg, perms, gen)
+                    rollout_cfg, perms, gen, dist_update, mesh)
 
         # rewind the ring pointers so the next iteration's rows land at
         # 0..T-1
@@ -201,7 +216,7 @@ def train_vec(vec_env, agent: CadreAgent,
         stats_log.append(stats)
         if iteration_hook:
             iteration_hook(stats)
-        if it % train_cfg.log_interval == 0:
+        if chief and it % train_cfg.log_interval == 0:
             phases = " ".join(f"{k}={v['mean_ms']:.1f}ms"
                               for k, v in timer.report().items())
             logger.log(
@@ -217,18 +232,20 @@ def train_vec(vec_env, agent: CadreAgent,
 def _minibatch_updates(agent: CadreAgent, steer_buf, throttle_buf,
                        next_values, train_cfg: TrainConfig,
                        rollout_cfg: RolloutConfig, perms,
-                       gen: torch.Generator):
-    """The update one minibatch step at a time (`fused_update=False`): GAE,
-    normalisation, then per epoch one row permutation per signal (`perms`
-    rows, or drawn from `gen`) cut into mini_batch_num slices, each an
-    `agent.update_policy`. Returns the mean losses."""
+                       gen: torch.Generator, dist_update=None,
+                       mesh: Optional[Mesh] = None):
+    """The update one minibatch step at a time (`fused_update=False`, or
+    a mesh): GAE, normalisation, then per epoch one row permutation per
+    signal (`perms` rows, or drawn from `gen`) cut into mini_batch_num
+    slices, each an `agent.update_policy` or, with a mesh, a
+    `dist_update` on the agent's optimizer. Returns the mean losses."""
     s_ret, s_adv = batched_returns(steer_buf, next_values[0],
                                    rollout_cfg.gamma, rollout_cfg.tau)
     t_ret, t_adv = batched_returns(throttle_buf, next_values[1],
                                    rollout_cfg.gamma, rollout_cfg.tau)
     if train_cfg.use_adv_norm:
-        s_adv = normalize_advantages(s_adv)
-        t_adv = normalize_advantages(t_adv)
+        s_adv = normalize_advantages_global(s_adv, mesh)
+        t_adv = normalize_advantages_global(t_adv, mesh)
     total_rows = steer_buf.num_steps * steer_buf.num_envs
     if perms is None:
         perms = tuple(make_perms(train_cfg.ppo_epoch, total_rows,
@@ -240,5 +257,9 @@ def _minibatch_updates(agent: CadreAgent, steer_buf, throttle_buf,
                                         s_idx.to(agent.device))
         t_mb = gather_minibatch_batched(throttle_buf, t_ret, t_adv,
                                         t_idx.to(agent.device))
-        losses.append(agent.update_policy(s_mb, t_mb))
+        if dist_update is None:
+            losses.append(agent.update_policy(s_mb, t_mb))
+        else:
+            aux = dist_update(agent.opt, s_mb, t_mb)
+            losses.append(torch.stack(tuple(aux)).cpu().tolist())
     return [float(np.mean([l[i] for l in losses])) for i in range(3)]

@@ -8,20 +8,18 @@ experiment zoo, `--model NAME` a zoo model (the DANet by default); class
 weights from the training shards, an optional held-out tail of shards
 with its per-class report, `net_epoch<N>.pt` checkpoints in --work-dir
 (a DANet's is the encoder that `python -m cadre_tpu_torch.main
---danet-checkpoint` takes). It runs on the GPU unless given `--device
-cpu`.
+--danet-checkpoint` takes). `--mesh` trains the production DANet
+data-parallel over the ranks of `torchrun --standalone --nproc-per-node
+G` (alone, a world of 1; `--mesh-devices` must equal G): each rank trains
+on its rows of every batch of `--batch-size`, which must divide by G,
+with cross-replica BatchNorm and mean-reduced gradients
+(parallel/perception_step.py); rank 0 writes the checkpoints and the
+holdout report. It runs on the GPU unless given `--device cpu`.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-
-# flags of the JAX CLI whose features the port does not have yet, by the
-# ROADMAP.md queue A item that ports them
-UNPORTED = {
-    "mesh": "data-parallel training, ROADMAP.md queue A item 16",
-    "mesh_devices": "data-parallel training, ROADMAP.md queue A item 16",
-}
 
 
 def collect(data_dir: str, n_frames: int, seed: int, vehicle_num,
@@ -82,20 +80,38 @@ def parse_args(argv=None):
                    help="a record of configs/experiments.py EXPERIMENTS "
                         "(e.g. auto_danet_exp50, the CoPM w/o attention "
                         "ablation); overrides --model and the modes")
-    # not ported yet: each raises (see UNPORTED)
-    p.add_argument("--mesh", action="store_true")
-    p.add_argument("--mesh-devices", type=int, default=None)
+    p.add_argument("--mesh", action="store_true",
+                   help="data-parallel over the torchrun ranks (the "
+                        "production DANet only)")
+    p.add_argument("--mesh-devices", type=int, default=None,
+                   help="--mesh: the ranks expected (default: all)")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> str:
     """Train; returns the path of the last checkpoint."""
     args = parse_args(argv)
-    for name, what in UNPORTED.items():
-        if getattr(args, name):
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')}: {what}; not ported yet")
+    if args.mesh and (args.experiment or args.model != "danet"):
+        raise SystemExit("--mesh supports the production DANet only")
+    mesh = None
+    if args.mesh:
+        from cadre_tpu_torch.parallel.mesh import make_mesh
 
+        mesh = make_mesh(args.mesh_devices, device=args.device)
+        if args.batch_size % mesh.world:
+            raise SystemExit(f"--batch-size {args.batch_size} must be "
+                             f"divisible by the {mesh.world}-rank mesh")
+    try:
+        return _train(args, mesh)
+    finally:
+        if mesh is not None:
+            from cadre_tpu_torch.parallel.mesh import close_mesh
+
+            close_mesh()
+
+
+def _train(args, mesh) -> str:
+    """main() once the mesh, if any, is up."""
     from cadre_tpu_torch.configs.danet_config import (
         PerceptionTrainParams,
         danet_params,
@@ -110,9 +126,11 @@ def main(argv=None) -> str:
         PerceptionTrainer,
         check_input_width,
     )
+    from cadre_tpu_torch.parallel.multihost import is_chief
     from cadre_tpu_torch.utils.device import resolve_device
 
-    resolve_device(args.device)        # no GPU: raise before collecting
+    device = resolve_device(args.device if mesh is None else mesh.device)
+    chief = is_chief()
     small = dict(da_feature_channel=64, inter_att_dims=48, z_dims=32) \
         if args.small else {}
     if args.camroute:
@@ -125,12 +143,16 @@ def main(argv=None) -> str:
         cfg = dataclasses.replace(cfg, model_name=args.model)
         model = build_model(args.model, cfg, seed=args.seed)
     check_input_width(cfg)             # before collecting
-    if args.collect > 0:
+    if args.collect > 0 and chief:
         # a phase-balanced light cycle, slow traffic and doubled walkers,
         # so that red lights, cars and walkers have support in the labels
         collect(args.data_dir, args.collect, args.seed, vehicle_num=(8, 8),
                 randomize_weather=True, light_times=(3.0, 3.0, 3.0),
                 npc_cruise=(1.5, 5.0))
+    if args.collect > 0 and mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()                 # the other ranks wait for the shards
 
     all_paths = PerceptionDataLoader(args.data_dir,
                                      batch_size=args.batch_size).paths
@@ -158,17 +180,18 @@ def main(argv=None) -> str:
     trainer = PerceptionTrainer(
         cfg, tp, steps_per_epoch=max(1, len(loader)), seed=args.seed,
         seg_class_weight=stats.seg_class_weight,
-        light_class_weight=stats.light_class_weight, device=args.device,
-        device_augment=args.augment and args.packed, model=model)
+        light_class_weight=stats.light_class_weight, device=device,
+        device_augment=args.augment and args.packed, model=model, mesh=mesh)
     if args.resume:
         trainer.load(args.resume)
 
     def log(line):
-        print(line, flush=True)
+        if chief:
+            print(line, flush=True)
 
     trainer.solve(loader, epochs=args.epochs, work_dir=args.work_dir,
                   save_interval=args.save_interval, log_fn=log)
-    if holdout_paths:
+    if holdout_paths and chief:
         rep = trainer.evaluate_per_class(PerceptionDataLoader(
             holdout_paths, batch_size=args.batch_size, seed=args.seed))
         for key in ("seg_per_class", "light_per_class"):

@@ -5,6 +5,7 @@ Every function takes plain numpy data (nested dicts of arrays, as
   danet_from_flax       DANet flax variables -> DANet state_dict
   zoo_from_flax         any zoo module's flax variables -> its state_dict
   policy_from_flax      one stacked policy bank -> PolicyBank state_dict
+  policy_to_flax        its inverse, as numpy in the JAX bank's layout
   env_state_from_numpy  a JaxEnvState's fields -> EnvState
   route_bank_from_numpy a RouteBank's fields -> RouteBank
 Layouts: conv HWIO -> OIHW, ConvTranspose HWIO -> torch's [I, O, kh, kw]
@@ -235,6 +236,27 @@ def policy_from_flax(bank: Mapping[str, Any]) -> StateDict:
     for name in ("critic_fc1", "critic_fc2", "critic_fc3"):
         banked(name, ac[name])
     return out
+
+
+def policy_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """A PolicyBank state_dict (or any mapping of its names to tensors,
+    e.g. Adam's moments) -> the stacked flax bank {'ac', 'lstm'} as
+    float32 numpy, keys sorted as flax sorts them."""
+    def a(name):
+        return np.array(state_dict[name].detach().cpu().float().numpy())
+
+    def banked(key):
+        return {"bias": a(key + ".bias"),
+                "kernel": np.ascontiguousarray(
+                    np.transpose(a(key + ".weight"), (0, 2, 1)))}
+
+    ac = {"control": {name: banked(f"control.{name}")
+                      for name in ("fc1", "fc2", "fc3")}}
+    ac.update({name: banked(name)
+               for name in ("critic_fc1", "critic_fc2", "critic_fc3")})
+    rnn = {k: a(f"lstm.{k}")
+           for k in ("bias_hh", "bias_ih", "weight_hh", "weight_ih")}
+    return {"ac": ac, "lstm": {"rnn": rnn}}
 
 
 def _tensor(x, device) -> torch.Tensor:

@@ -91,10 +91,43 @@ Phases, each of which must pass:
      process with its launches counted, `train_perception --collect 96
      --model oldv2_vae` and `python -m cadre_tpu_torch.train_cil`, every
      checkpoint read back.
+ 12. the checkpoint and config utilities and data-parallel training: (a)
+     phase 8b's DANet written as a JAX-format .msgpack (import_danet_torch,
+     save_pytree) and read back, the writer's and reader's MB/s, an agent
+     built from it giving the trainer's f32 latent bit for bit; 4 member
+     snapshots saved as .msgpack with their optax .opt, `python -m
+     cadre_tpu_torch.eval --env sim` on them in process for one episode,
+     its K2 launches counted; a reference-format ppo_model_0.pt
+     ('{steer,throttle}_{ppo,lstm}_{k}' state_dicts) of member 0 acting
+     as member 0; `main --config config_files/agent_config.py --env sim
+     --num-envs 2 --iterations 1` as a process; (b) world size 1 over
+     NCCL, each under `torchrun --standalone --nproc-per-node 1`:
+     `train_perception --mesh` for one epoch on 8a's shards with the
+     holdout report, 20 timed data-parallel perception steps at B=48 f32
+     after a warm-up (ms, frames/s, peak memory, one K2 and one K3 per
+     step, a profile) beside 8b's step, then 20 more with the
+     cross-replica BatchNorm forced on (world 1 keeps the plain one),
+     `main --mesh data` on --env jax (N=32,
+     T=20) and on --env sim (8 envs); (c) two gloo ranks sharing the card:
+     3 full-width steps at 24 frames per rank (parameters and BatchNorm
+     statistics bit-equal across the ranks after each, a falling loss,
+     one K2 and one K3 per step per rank), phase 8c's small head on two
+     ranks on the card against two ranks on the CPU within 8c's bounds,
+     the sharded fused update at F=530 (32 envs split 16/16, one
+     minibatch, E=1) against the world-1 update of all 32 envs (rtol
+     2e-4, atol 2e-5), and the summed distributed update on the card
+     against the CPU. Every process has a deadline: a process-group
+     timeout, and a parent that kills what outlives its limit.
 
-It prints one JSON line of kernel figures, the card's name and power limit,
-and, last, {"ok": true, "device": {...}}. It exits non-zero, printing no
+It prints one JSON line of kernel figures (launch counts of every phase's
+main path, `launches_msgpack_eval` of 12a and `launches_parallel` of 12b
+and of each 12c rank among them), the card's name and power limit, and,
+last, {"ok": true, "device": {...}}. It exits non-zero, printing no
 result, without a CUDA GPU or without the package beside it.
+
+    python3 chip_smoke.py --mesh-step SHARDS
+
+is phase 12b's worker, which the script starts under torchrun.
 
     python3 chip_smoke.py --kernel-times ROOT [ROOT ...]
 
@@ -223,6 +256,15 @@ def card_line() -> str:
         "nvidia-smi gave nothing"
 
 
+def no_tf32() -> None:
+    """Every f32 convolution and matmul in f32, not TF32: the setting of
+    every phase, and of each process the script starts itself."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def phase_card() -> str:
     import torch
 
@@ -231,8 +273,7 @@ def phase_card() -> str:
     card = card_line()
     nvcc_v = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                             text=True, timeout=60).stdout.strip().splitlines()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    no_tf32()
     print(f"[1] card: {card}")
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, nvcc: {nvcc_v[-1]}")
@@ -1661,7 +1702,9 @@ def perception_shards(n_shards: int = PERCEPTION_SHARDS,
 
 def phase_perception():
     """Perception pretraining at full width and the handoff to PPO;
-    returns the launch counts of the 20 repeated-batch steps."""
+    returns the launch counts of the 20 repeated-batch steps and what
+    phase 12 reuses: the trainer, its batch, the shards' directory, 8b's
+    ms per step and peak memory."""
     import os
 
     import torch
@@ -1755,7 +1798,9 @@ def phase_perception():
     perception_cpu_agreement(batch)
     perception_cli(data_dir)
     perception_handoff(trainer, ckpt, batch)
-    return launches
+    return launches, dict(trainer=trainer, batch=batch, data_dir=data_dir,
+                          step_ms=seconds / PERCEPTION_STEPS * 1e3,
+                          peak=peak)
 
 
 def _masks_to(masks, device):
@@ -1799,6 +1844,16 @@ def step_agreement(tag, what, make, loss64, small, masks, wd):
                      {n: p.grad.detach().cpu().double() for n, p in
                       named.items()},
                      {n: p.detach().cpu().double() for n, p in named.items()})
+    check_step_agreement(tag, what, runs, wd, len(small["speed"]))
+
+
+def check_step_agreement(tag, what, runs, wd, batch):
+    """step_agreement's bounds on `runs`: {'cpu', 'cuda', 'cpu64'} ->
+    (loss, initial parameters, gradients, parameters after the step), the
+    tensors float64 on the CPU. Runs under 'f32_noise' (other f32 steps
+    of the same function) add their distances from float64 to the CPU
+    f32's as measures of f32 rounding: the largest sets the bound."""
+    others = runs.get("f32_noise", [])
     (l_c, init, g_c, p_c), (l_g, _, g_g, p_g), (_, _, g64, _) = (
         runs["cpu"], runs["cuda"], runs["cpu64"])
     rel = abs(l_g - l_c) / abs(l_c)
@@ -1807,7 +1862,8 @@ def step_agreement(tag, what, make, loss64, small, masks, wd):
     worst_g, worst_p, checked = 0.0, 0.0, 0
     for n, exact in g64.items():
         scale = max(float(exact.abs().max()), 1e-6 * largest)
-        noise = float((g_c[n] - exact).abs().max())
+        noise = max(float((g[n] - exact).abs().max())
+                    for g in [g_c] + [run[2] for run in others])
         err = float((g_g[n] - exact).abs().max())
         bound = max(1e-3 * scale, 3.0 * noise)
         require(err <= bound, f"{what} step cuda vs cpu: grad {n} "
@@ -1825,10 +1881,12 @@ def step_agreement(tag, what, make, loss64, small, masks, wd):
                     f"{n} {d:.3g} > 1% of its largest change {change:.3g}")
             worst_p = max(worst_p, d / change)
     total = sum(g.numel() for g in g64.values())
-    print(f"[{tag}] one train step, {what}, B={len(small['speed'])}, cuda "
+    noise_of = "the cpu f32's distance" if not others else \
+        f"the largest of {len(others) + 1} f32 steps' distances"
+    print(f"[{tag}] one train step, {what}, B={batch}, cuda "
           f"vs cpu: loss {rel:.3g} relative (bound 1e-4); each gradient's "
           f"distance from the cpu's float64 one at most {worst_g:.3g} of its "
-          f"bound (max(1e-3 of its scale, 3x the cpu f32's distance)); "
+          f"bound (max(1e-3 of its scale, 3x {noise_of})); "
           f"parameters within {worst_p:.3g} of each tensor's largest change "
           f"at the {checked} of {total} elements whose gradient is firm "
           f"(bound 0.01)")
@@ -2825,6 +2883,694 @@ def phase_zoo():
     return launches
 
 
+# --------------------------------------------------------------- phase 12
+
+MSGPACK_MEMBERS = 4             # 12a's ensemble (phase 10a's K)
+MESH_STEPS = 20                 # 12b's timed world-1 perception steps
+MESH_RANK_STEPS = 3             # 12c's full-width two-rank steps
+MESH_RANK_BATCH = PERCEPTION_BATCH // 2     # frames per rank in 12c
+MESH_TIMEOUT = 600              # seconds for each torchrun or rank group
+FUSED_ENVS, FUSED_T = 32, 20    # 12c's sharded fused update (16 per rank)
+
+
+def _run_process(tag, cmd, timeout=MESH_TIMEOUT):
+    """`cmd` from the repo root in a session of its own, killed with every
+    process it started if it outlives `timeout`; its output lines printed
+    under `tag`. Returns (stdout, wall seconds)."""
+    import os
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise PhaseError(f"{' '.join(cmd[:6])} ... did not end within "
+                         f"{timeout} s")
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"{' '.join(cmd[:8])} ... exited "
+            f"{proc.returncode}: {err[-3000:]}")
+    for line in out.strip().splitlines():
+        if line.startswith(f"[{tag}]"):          # the worker's own lines
+            print(line)
+        elif not line.startswith("MESH_STEP "):
+            print(f"[{tag}]   {line}")
+    return out, seconds
+
+
+def _torchrun(tag, args):
+    """`torchrun --standalone --nproc-per-node 1 <args>`: a world of one
+    rank over NCCL."""
+    return _run_process(tag, [sys.executable, "-m", "torch.distributed.run",
+                              "--standalone", "--nproc-per-node", "1",
+                              *args])
+
+
+def msgpack_handoff(pretrained):
+    """12a: phase 8b's trained DANet written as the JAX package's .msgpack
+    (import_danet_torch, save_pytree), read back, an agent built from it:
+    its f32 latent equals the trainer's bit for bit. The writer's and the
+    reader's MB/s (host figures)."""
+    import os
+
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.perception.data import unpack_batch
+    from cadre_tpu_torch.rl.agent import CadreAgent
+    from cadre_tpu_torch.utils.checkpoint import (
+        import_danet_torch,
+        load_danet_checkpoint,
+        load_pytree,
+        save_pytree,
+    )
+
+    trainer, batch, cfg = pretrained["trainer"], pretrained["batch"], \
+        danet_params()
+    path = os.path.join(_smoke_dir("smoke_msgpack"), "net_trained.msgpack")
+    t0 = time.perf_counter()
+    save_pytree(path, import_danet_torch(trainer.model.state_dict(), cfg))
+    write_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 2 ** 20
+    t0 = time.perf_counter()
+    load_pytree(path)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = load_danet_checkpoint(path, cfg)
+    load_s = time.perf_counter() - t0
+    agent = CadreAgent.create(cfg, device="cuda", encoder_state=state)
+    x = unpack_batch(batch)["x"]
+    trainer.model.eval()
+    with torch.no_grad():
+        want = trainer.model.latent(x)
+        got = agent.encoder.latent(x)
+    trainer.model.train()
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"the .msgpack agent's latent differs "
+            f"from the trainer's by {float((got - want).abs().max()):.3g}")
+    print(f"[12a] phase 8b's DANet as a JAX .msgpack: {mb:.1f} MiB written "
+          f"in {write_s:.3f} s ({mb / write_s:.1f} MB/s, host), read in "
+          f"{read_s:.3f} s ({mb / read_s:.1f} MB/s), read and converted to "
+          f"a state_dict in {load_s:.3f} s; the agent built from it gives "
+          f"the trainer's f32 latent of {x.shape[0]} frames bit for bit")
+
+
+def _reference_policy(banks, commands):
+    """A reference ppo_model_<N>.pt dict ('{signal}_{ppo,lstm}_{k}'
+    state_dicts, ppo_agent/agent.py:245-260) of PolicyBank state_dicts."""
+    out = {}
+    for signal, sd in banks.items():
+        for k in range(commands):
+            ac = {}
+            for i in range(3):
+                ac[f"control.linear.{2 * i}.weight"] = \
+                    sd[f"control.fc{i + 1}.weight"][k]
+                ac[f"control.linear.{2 * i}.bias"] = \
+                    sd[f"control.fc{i + 1}.bias"][k]
+                ac[f"critic.{2 * i}.weight"] = sd[f"critic_fc{i + 1}.weight"][k]
+                ac[f"critic.{2 * i}.bias"] = sd[f"critic_fc{i + 1}.bias"][k]
+            out[f"{signal}_ppo_{k}"] = ac
+            out[f"{signal}_lstm_{k}"] = {
+                f"rnn.{n}": sd[f"lstm.{n}"][k]
+                for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
+    return out
+
+
+def msgpack_members():
+    """12a: MSGPACK_MEMBERS member snapshots saved as .msgpack with their
+    .opt by the production f32 agent; `python -m cadre_tpu_torch.eval
+    --env sim` on them in process, one episode, its launches counted (one
+    K2 per tick); a reference-format .pt of member 0 acting as member 0.
+    Returns the eval's launches."""
+    import glob
+    import os
+    import shutil
+
+    import torch
+
+    from cadre_tpu_torch import eval as eval_cli
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.models.policy import PolicyBank
+    from cadre_tpu_torch.rl.agent import CadreAgent, Ensemble, snapshot_banks
+    from cadre_tpu_torch.rl.distributions import gumbel
+
+    agent = CadreAgent.create(danet_params(), device="cuda")
+    cfg, f = agent.agent_cfg, agent.obs_dim
+    work = _smoke_dir("smoke_msgpack_members")
+    for old in glob.glob(os.path.join(work, "*")):
+        os.remove(old)
+    paths = []
+    for seed in range(MSGPACK_MEMBERS):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            for name, a in (("steer", cfg.num_steer_outputs),
+                            ("throttle", cfg.num_throttle_outputs)):
+                agent.banks()[name].load_state_dict(
+                    PolicyBank(cfg.command_num, a, f).state_dict())
+        paths.append(os.path.join(work, f"member_{seed}.msgpack"))
+        agent.save_snapshot(paths[-1], agent.opt)
+        require(os.path.exists(paths[-1] + ".opt"), "no .opt beside "
+                f"{paths[-1]}")
+    routes, scenarios = host_eval_files(1, 1, "smoke_msgpack_eval")
+    run = _smoke_dir("smoke_msgpack_eval_run")
+    shutil.rmtree(run, ignore_errors=True)
+    t0 = time.perf_counter()
+    results, launches = _counted(lambda: eval_cli.main([
+        "--env", "sim", "--snapshots", os.path.join(work, "*.msgpack"),
+        "--routes", routes, "--scenarios", scenarios, "--episodes", "1",
+        "--work-dir", run]))
+    seconds = time.perf_counter() - t0
+    ticks = sum(r.steps for r in results)
+    want = {"paint": 0, "dual_attention": ticks, "dual_attention_bwd": 0}
+    require(launches == want, f"msgpack eval launches {launches}, not "
+            f"{want}")
+    print(f"[12a] python -m cadre_tpu_torch.eval --env sim --snapshots "
+          f"<{MSGPACK_MEMBERS} .msgpack members> --episodes 1 in process: "
+          f"{ticks} ticks in {seconds:.1f} s, completion "
+          f"{results[0].completion_ratio:.2f}%; launches {launches}")
+
+    reference = os.path.join(work, "ppo_model_0.pt")
+    torch.save(_reference_policy(snapshot_banks(paths[0], agent),
+                                 cfg.command_num), reference)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    n = 8
+    hist = torch.randn(8, n, f, device="cuda", generator=gen)
+    commands = torch.randint(0, cfg.command_num, (n,), device="cuda",
+                             generator=gen)
+    zeros = torch.zeros(n, f, device="cuda")
+    noise = (gumbel((1, n, cfg.num_steer_outputs), gen, "cuda"),
+             gumbel((1, n, cfg.num_throttle_outputs), gen, "cuda"))
+    acts = [Ensemble.load(agent, [p]).act(hist, commands, (zeros, zeros),
+                                          *noise)
+            for p in (paths[0], reference)]
+    require(all(torch.equal(a, b) for a, b in zip(*acts)),
+            "the reference-format .pt acts otherwise than its .msgpack")
+    print(f"[12a] a reference-format ppo_model_0.pt of member 0 "
+          f"('{{steer,throttle}}_{{ppo,lstm}}_{{k}}' state_dicts): its "
+          f"actions on {n} envs equal the .msgpack member's on the same "
+          f"noise")
+    return launches
+
+
+def config_cli():
+    """12a: `main --config config_files/agent_config.py --env sim
+    --num-envs 2 --iterations 1` as a process (the config's T=200)."""
+    import os
+    import shutil
+
+    work = _smoke_dir("smoke_config_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    _, seconds = _run_process("12a", [
+        sys.executable, "-m", "cadre_tpu_torch.main", "--config",
+        "config_files/agent_config.py", "--env", "sim", "--num-envs", "2",
+        "--iterations", "1", "--work-dir", work])
+    require(os.path.exists(os.path.join(work, "models", "ppo_model_0.pt")),
+            "main --config wrote no snapshot")
+    print(f"[12a] python -m cadre_tpu_torch.main --config "
+          f"config_files/agent_config.py --env sim --num-envs 2 "
+          f"--iterations 1: exit 0 in {seconds:.1f} s")
+
+
+def mesh_step_worker(data_dir: str) -> int:
+    """`chip_smoke.py --mesh-step <shards>` under torchrun: MESH_STEPS
+    data-parallel perception steps of the production DANet at B=48 f32
+    after a warm-up, launches counted, then as many with the cross-replica
+    BatchNorm forced on (at world 1 the trainer keeps the plain one), a
+    profile of 3 steps of each; prints one line `MESH_STEP {json}`."""
+    import torch
+    import torch.distributed as dist
+
+    from cadre_tpu_torch.configs.danet_config import (
+        PerceptionTrainParams,
+        danet_params,
+    )
+    from cadre_tpu_torch.models.torch_compat import set_batch_norm_group
+    from cadre_tpu_torch.parallel.mesh import close_mesh, make_mesh
+    from cadre_tpu_torch.parallel.perception_step import (
+        make_distributed_perception_trainer,
+    )
+    from cadre_tpu_torch.perception.data import (
+        PerceptionDataLoader,
+        compute_stats,
+    )
+
+    no_tf32()
+    mesh = make_mesh(device="cuda")
+    try:
+        loader = PerceptionDataLoader(data_dir, batch_size=PERCEPTION_BATCH,
+                                      seed=0, packed=True,
+                                      cache_in_memory=True)
+        stats = compute_stats(loader.paths)
+        trainer = make_distributed_perception_trainer(
+            danet_params(), PerceptionTrainParams(batch_size=PERCEPTION_BATCH),
+            len(loader), mesh, seg_class_weight=stats.seg_class_weight,
+            light_class_weight=stats.light_class_weight)
+        batch = {k: torch.as_tensor(v).to(mesh.device)
+                 for k, v in next(iter(loader)).items()}
+        figures = dict(world=mesh.world, backend=dist.get_backend())
+        for name in ("plain_bn", "cross_replica_bn"):
+            if name == "cross_replica_bn":
+                set_batch_norm_group(trainer.model, mesh.group)
+            trainer.train_step(batch)                    # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses, launches = _counted(lambda: [
+                trainer.train_step(batch, sync=False)
+                for _ in range(MESH_STEPS)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            totals = [float(l["total"]) for l in losses]
+            figures[name] = dict(
+                ms=seconds / MESH_STEPS * 1e3,
+                fps=MESH_STEPS * PERCEPTION_BATCH / seconds,
+                peak=torch.cuda.max_memory_allocated(), launches=launches,
+                first=totals[0], last=totals[-1])
+            profile(lambda: [trainer.train_step(batch, sync=False)
+                             for _ in range(3)],
+                    f"3 data-parallel steps, world 1, {name}", 3,
+                    "train step", tag="12b")
+        print("MESH_STEP " + json.dumps(figures), flush=True)
+    finally:
+        close_mesh()
+    return 0
+
+
+def mesh_world_of_one(pretrained):
+    """12b: world size 1 over NCCL, each a torchrun process: the
+    perception CLI with --mesh (one epoch on 8a's shards, the holdout
+    report), the timed data-parallel perception step beside 8b's, and
+    `main --mesh data` on --env jax (N=32, T=20) and --env sim (8 envs).
+    Returns the timed step's launches."""
+    import os
+    import shutil
+
+    data_dir = pretrained["data_dir"]
+    work = _smoke_dir("smoke_mesh_perception")
+    shutil.rmtree(work, ignore_errors=True)
+    _, seconds = _torchrun("12b", [
+        "-m", "cadre_tpu_torch.train_perception", "--mesh", "--data-dir",
+        data_dir, "--epochs", "1", "--batch-size", str(PERCEPTION_BATCH),
+        "--holdout", "--work-dir", work])
+    require(os.path.exists(os.path.join(work, "net_epoch0.pt")),
+            "train_perception --mesh wrote no net_epoch0.pt")
+    print(f"[12b] torchrun --nproc-per-node 1 -m "
+          f"cadre_tpu_torch.train_perception --mesh --epochs 1 --batch-size "
+          f"{PERCEPTION_BATCH} --holdout: exit 0 in {seconds:.1f} s")
+
+    out, _ = _torchrun("12b", [os.path.abspath(__file__), "--mesh-step",
+                               data_dir])
+    line = [ln for ln in out.splitlines() if ln.startswith("MESH_STEP ")]
+    require(len(line) == 1, f"no MESH_STEP line in {out[-2000:]}")
+    figures = json.loads(line[0][len("MESH_STEP "):])
+    require(figures["world"] == 1 and figures["backend"] == "nccl",
+            f"12b mesh {figures}")
+    want = {"paint": 0, "dual_attention": MESH_STEPS,
+            "dual_attention_bwd": MESH_STEPS}
+    for name, what in (("plain_bn", "the trainer's own (world 1: plain "
+                                    "BatchNorm)"),
+                       ("cross_replica_bn", "cross-replica BatchNorm "
+                                            "forced on")):
+        m = figures[name]
+        require(m["launches"] == want, f"12b {name} launches "
+                f"{m['launches']}, not {want}")
+        require(math.isfinite(m["first"]) and math.isfinite(m["last"]),
+                f"12b {name} losses {m['first']}, {m['last']}")
+        ratio = m["ms"] / pretrained["step_ms"]
+        print(f"[12b] data-parallel perception step, world 1 over NCCL, "
+              f"{what}, B={PERCEPTION_BATCH} f32, {MESH_STEPS} steps after "
+              f"a warm-up: {m['ms']:.2f} ms per step ({m['fps']:.1f} train "
+              f"frames/s), peak {m['peak'] / 2 ** 30:.2f} GiB; phase 8b's "
+              f"plain step in this run: {pretrained['step_ms']:.2f} ms, peak "
+              f"{pretrained['peak'] / 2 ** 30:.2f} GiB ({ratio:.3f}x); total "
+              f"{m['first']:.1f} -> {m['last']:.1f}; launches "
+              f"{m['launches']}")
+
+    for env_args, what in ((["--env", "jax", "--num-envs", str(N_ENVS),
+                             "--num-steps", str(T_STEPS)], "jax"),
+                           (["--env", "sim", "--num-envs", str(N_HOST),
+                             "--num-steps", str(T_STEPS)], "sim")):
+        run = _smoke_dir(f"smoke_mesh_main_{what}")
+        shutil.rmtree(run, ignore_errors=True)
+        _, seconds = _torchrun("12b", ["-m", "cadre_tpu_torch.main", "--mesh",
+                                       "data", *env_args, "--iterations", "1",
+                                       "--work-dir", run])
+        snaps = [os.path.join(run, "models", f"ppo_model_{i}.pt")
+                 for i in (0, 1)]
+        require(any(os.path.exists(p) for p in snaps),
+                f"main --mesh data --env {what} wrote no snapshot")
+        print(f"[12b] torchrun --nproc-per-node 1 -m cadre_tpu_torch.main "
+              f"--mesh data {' '.join(env_args)} --iterations 1: exit 0 in "
+              f"{seconds:.1f} s")
+    return figures["plain_bn"]["launches"]
+
+
+def _state_digest(model) -> str:
+    """A digest of every parameter and buffer's bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rank_full_width(mesh, data_dir):
+    """MESH_RANK_STEPS steps of the production DANet, f32, on this rank's
+    MESH_RANK_BATCH of one global batch, at the schedule's peak rate: each
+    step's total loss, launches, ms and state digest."""
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import (
+        PerceptionTrainParams,
+        danet_params,
+    )
+    from cadre_tpu_torch.parallel.perception_step import (
+        make_distributed_perception_trainer,
+    )
+    from cadre_tpu_torch.perception.data import (
+        PerceptionDataLoader,
+        compute_stats,
+    )
+
+    loader = PerceptionDataLoader(data_dir, batch_size=PERCEPTION_BATCH,
+                                  seed=0, packed=True)
+    stats = compute_stats(loader.paths)
+    trainer = make_distributed_perception_trainer(
+        danet_params(), PerceptionTrainParams(batch_size=PERCEPTION_BATCH,
+                                              warmup_epochs=1),
+        1, mesh, seg_class_weight=stats.seg_class_weight,
+        light_class_weight=stats.light_class_weight)
+    trainer.step = 1                  # lr(1) = tp.lr: the peak
+    batch = next(iter(loader))
+    steps = []
+    for _ in range(MESH_RANK_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, launches = _counted(lambda: trainer.train_step(batch))
+        torch.cuda.synchronize()
+        steps.append(dict(total=losses["total"], launches=launches,
+                          ms=(time.perf_counter() - t0) * 1e3,
+                          digest=_state_digest(trainer.model)))
+    return dict(steps=steps, peak=torch.cuda.max_memory_allocated())
+
+
+def _rank_small_step(mesh, small):
+    """One two-rank step of phase 8c's small head on this rank's half of
+    `small` (4 frames), on the card, on the CPU and on the CPU in float64:
+    step_agreement's runs, numpy."""
+    import dataclasses
+
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import PerceptionTrainParams
+    from cadre_tpu_torch.perception.trainer import PerceptionTrainer
+
+    cfg, masks = _small_head_masks()
+    runs = {}
+    for dev in ("cpu", "cuda", "cpu64"):
+        device = "cuda" if dev == "cuda" else "cpu"
+        trainer = PerceptionTrainer(
+            cfg, PerceptionTrainParams(warmup_epochs=1), 1, seed=4,
+            mesh=dataclasses.replace(mesh, device=torch.device(device)))
+        trainer.step = 1
+        batch = {k: v.to(device) for k, v in small.items()}
+        init = {n: p.detach().cpu().double().numpy()
+                for n, p in trainer.model.named_parameters()}
+        if dev == "cpu64":
+            trainer.model.double()
+            batch = {k: v.double() if v.is_floating_point() else v
+                     for k, v in trainer._to_device(batch).items()}
+        loss = trainer.train_step(batch, masks=_masks_to(masks, device))
+        named = dict(trainer.model.named_parameters())
+        runs[dev] = (loss["total"], init,
+                     {n: p.grad.detach().cpu().double().numpy()
+                      for n, p in named.items()},
+                     {n: p.detach().cpu().double().numpy()
+                      for n, p in named.items()})
+    return runs
+
+
+def _small_head_masks():
+    """The dropout masks of _rank_small_step: 2 frames' from seed 3."""
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.models.danet import draw_dropout_masks
+
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    cfg = danet_params(da_feature_channel=32, inter_att_dims=24, z_dims=16)
+    return cfg, draw_dropout_masks(cfg, 2, gen)
+
+
+def _one_process_small_step(small, device):
+    """The two-rank small step's function in one process on `device`: all
+    4 frames, plain BatchNorm over them, each half with the ranks' masks.
+    Its f32 distance from float64 is one measure of f32 rounding in this
+    function (check_step_agreement's 'f32_noise'): the card's own, or
+    phase 8c's CPU step's."""
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import PerceptionTrainParams
+    from cadre_tpu_torch.perception.trainer import PerceptionTrainer
+
+    cfg, masks = _small_head_masks()
+    masks = type(masks)(*(None if t is None else torch.cat([t, t])
+                          for t in masks))
+    trainer = PerceptionTrainer(cfg, PerceptionTrainParams(warmup_epochs=1),
+                                1, seed=4, device=device)
+    trainer.step = 1
+    init = {n: p.detach().cpu().double()
+            for n, p in trainer.model.named_parameters()}
+    loss = trainer.train_step({k: v.to(device) for k, v in small.items()},
+                              masks=_masks_to(masks, device))["total"]
+    named = dict(trainer.model.named_parameters())
+    return (loss, init,
+            {n: p.grad.detach().cpu().double() for n, p in named.items()},
+            {n: p.detach().cpu().double() for n, p in named.items()})
+
+
+def _rank_fused(mesh):
+    """The sharded fused update at full width (F=530, this rank's 16 of
+    FUSED_ENVS envs, one minibatch, E=1) and, on rank 0, the world-1
+    update of all FUSED_ENVS envs from the same banks and buffers: the
+    largest difference of each parameter, relative to its scale."""
+    import torch
+
+    from cadre_tpu_torch.configs.agent_config import RolloutConfig
+    from cadre_tpu_torch.models.policy import PolicyBank
+    from cadre_tpu_torch.rl import fused_update, ppo
+    from cadre_tpu_torch.rl.rollout import RolloutBuffer
+
+    f, seq, t, n = 530, 8, FUSED_T, FUSED_ENVS
+    gen = torch.Generator().manual_seed(11)
+
+    def buffer(outputs):
+        def z(x):                     # slot T is zero padding
+            return torch.cat([x, torch.zeros_like(x[:1])])
+
+        return RolloutBuffer(
+            obs=z(torch.randn(t, n, seq, f, generator=gen)),
+            action=z(torch.randint(0, outputs, (t, n), generator=gen)),
+            log_prob=z(-torch.rand(t, n, generator=gen) - 0.5),
+            value=z(0.1 * torch.randn(t, n, generator=gen)),
+            reward=z(torch.randn(t, n, generator=gen)),
+            mask=z((torch.rand(t, n, generator=gen) > 0.05).float()),
+            command=z(torch.randint(0, 4, (t, n), generator=gen)),
+            hn=z(0.5 * torch.randn(t, n, f, generator=gen)),
+            cn=z(0.5 * torch.randn(t, n, f, generator=gen)))
+
+    bufs = (buffer(33), buffer(3))
+    nv = (torch.randn(n, generator=gen), torch.randn(n, generator=gen))
+
+    def run(rows, m):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            banks = (PolicyBank(4, 33, f).cuda(), PolicyBank(4, 3, f).cuda())
+        cfg = ppo.PPOConfig(ppo_epoch=1)
+        update = fused_update.make_fused_iteration_update(
+            *banks, cfg, RolloutConfig(num_steps=t, mini_batch_num=1,
+                                       seq_length=seq, feature_dims=f),
+            mesh=m)
+        opt = ppo.make_optimizer([*banks[0].parameters(),
+                                  *banks[1].parameters()], cfg)
+        aux = update(opt, *(b._replace(**{
+            k: v[:, rows].cuda() for k, v in b._asdict().items()
+            if torch.is_tensor(v)}) for b in bufs),
+            tuple(v[rows].cuda() for v in nv))
+        return [float(x) for x in aux], {
+            (i, k): v.detach().cpu().double()
+            for i, bank in enumerate(banks)
+            for k, v in bank.state_dict().items()}
+
+    half = n // mesh.world
+    aux, state = run(slice(mesh.rank * half, (mesh.rank + 1) * half), mesh)
+    if mesh.rank:
+        return None
+    want_aux, want = run(slice(None), None)
+    worst = 0.0
+    for k, v in want.items():
+        err = (state[k] - v).abs() - 2e-4 * v.abs()
+        worst = max(worst, float(err.max()) / 2e-5)
+    return dict(aux=aux, want_aux=want_aux, worst=worst)
+
+
+def _rank_update_card_vs_cpu(mesh):
+    """make_distributed_update (gradients summed over the ranks) on the
+    card and on the CPU from the same banks and 32-row minibatches (16 per
+    rank, F=530): the largest parameter difference in units of rtol 2e-4
+    + atol 1e-5."""
+    import dataclasses
+
+    import torch
+
+    from cadre_tpu_torch.models.policy import PolicyBank
+    from cadre_tpu_torch.parallel.train_step import (
+        make_distributed_update,
+        shard_minibatch,
+    )
+    from cadre_tpu_torch.rl import ppo
+    from cadre_tpu_torch.rl.rollout import Minibatch
+
+    f, seq, rows = 530, 8, 32
+    gen = torch.Generator().manual_seed(12)
+
+    def minibatch(outputs):
+        return Minibatch(
+            obs_seq=torch.randn(seq, rows, f, generator=gen),
+            action=torch.randint(0, outputs, (rows,), generator=gen),
+            old_value=0.1 * torch.randn(rows, generator=gen),
+            returns=torch.randn(rows, generator=gen),
+            mask=torch.ones(rows),
+            old_log_prob=-torch.rand(rows, generator=gen) - 0.5,
+            advantage=torch.randn(rows, generator=gen),
+            hidden=(torch.zeros(rows, f), torch.zeros(rows, f)),
+            command=torch.randint(0, 4, (rows,), generator=gen))
+
+    mbs = (minibatch(33), minibatch(3))
+    out = {}
+    for device in ("cuda", "cpu"):
+        m = dataclasses.replace(mesh, device=torch.device(device))
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            banks = (PolicyBank(4, 33, f).to(device),
+                     PolicyBank(4, 3, f).to(device))
+        cfg = ppo.PPOConfig()
+        opt = ppo.make_optimizer([*banks[0].parameters(),
+                                  *banks[1].parameters()], cfg)
+        make_distributed_update(*banks, cfg, m)(
+            opt, *(shard_minibatch(m, mb) for mb in mbs))
+        out[device] = {(i, k): v.detach().cpu().double()
+                       for i, bank in enumerate(banks)
+                       for k, v in bank.state_dict().items()}
+    return max(float(((out["cuda"][k] - v).abs() - 2e-4 * v.abs()).max())
+               / 1e-5 for k, v in out["cpu"].items())
+
+
+def _mesh_card_rank(mesh, data_dir, small):
+    """12c on one of two gloo ranks sharing the card."""
+    no_tf32()
+    # first: once the full-width steps have run, cuDNN's f32 algorithms
+    # for the small head round some of its gradients differently
+    small = _rank_small_step(mesh, small)
+    return dict(small=small, full=_rank_full_width(mesh, data_dir),
+                fused=_rank_fused(mesh),
+                update=_rank_update_card_vs_cpu(mesh))
+
+
+def mesh_two_ranks_on_the_card(pretrained):
+    """12c: two gloo ranks sharing the card. The full-width step at
+    MESH_RANK_BATCH frames per rank for MESH_RANK_STEPS steps (parameters
+    and BN statistics bit-equal across the ranks after each, a falling
+    loss, one K2 and one K3 per step per rank); phase 8c's small head on
+    two ranks, card against CPU, within 8c's bounds; the sharded fused
+    update at full width against the world-1 update of all its envs; the
+    distributed update on the card against the CPU. Returns each rank's
+    launches over its full-width steps."""
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import PerceptionTrainParams
+    from cadre_tpu_torch.parallel.dryrun import run_ranks
+
+    small = {k: v[:4].cpu() for k, v in pretrained["batch"].items()}
+    t0 = time.perf_counter()
+    out = run_ranks(_mesh_card_rank, 2, (pretrained["data_dir"], small),
+                    timeout_s=MESH_TIMEOUT, device="cuda")
+    seconds = time.perf_counter() - t0
+    per_rank = []
+    for r, res in enumerate(out):
+        steps = res["full"]["steps"]
+        totals = [s["total"] for s in steps]
+        require(all(math.isfinite(v) for v in totals), f"12c losses {totals}")
+        require(totals[-1] < totals[0], f"12c rank {r}: total did not fall "
+                f"over {MESH_RANK_STEPS} steps: {totals}")
+        want = {"paint": 0, "dual_attention": 1, "dual_attention_bwd": 1}
+        for i, s in enumerate(steps):
+            require(s["launches"] == want, f"12c rank {r} step {i} launches "
+                    f"{s['launches']}, not {want}")
+            require(s["digest"] == out[0]["full"]["steps"][i]["digest"],
+                    f"12c: rank {r}'s parameters differ from rank 0's after "
+                    f"step {i}")
+        per_rank.append({k: sum(s["launches"][k] for s in steps)
+                         for k in want})
+    full = out[0]["full"]
+    ms = ", ".join("%.0f" % s["ms"] for s in full["steps"])
+    totals = " -> ".join("%.1f" % s["total"] for s in full["steps"])
+    print(f"[12c] two gloo ranks on one card, full-width DANet f32, "
+          f"{MESH_RANK_BATCH} frames per rank: {MESH_RANK_STEPS} steps of "
+          f"{ms} ms (rank 0; gloo moves the gradients through the host), "
+          f"total {totals}; "
+          f"parameters and BN statistics bit-equal across the ranks after "
+          f"every step; peak {full['peak'] / 2 ** 30:.2f} GiB per rank; "
+          f"launches per rank {per_rank}")
+    runs = {dev: (loss, *(
+        {n: torch.from_numpy(a) for n, a in tree.items()} for tree in rest))
+        for dev, (loss, *rest) in out[0]["small"].items()}
+    runs["f32_noise"] = [_one_process_small_step(small, device)
+                         for device in ("cuda", "cpu")]
+    for one in runs["f32_noise"]:
+        rel = abs(one[0] - runs["cuda"][0]) / runs["cuda"][0]
+        require(rel <= 1e-4, f"12c: a one-process step's loss differs from "
+                f"the two ranks' by {rel:.3g}")
+    check_step_agreement("12c", "small head on two ranks", runs,
+                         PerceptionTrainParams().weight_decay, 4)
+    fused = out[0]["fused"]
+    require(fused["worst"] <= 1.0, f"12c sharded fused update vs world 1: "
+            f"{fused['worst']:.3g} of rtol 2e-4 + atol 2e-5")
+    print(f"[12c] sharded fused update, F=530, {FUSED_ENVS} envs split "
+          f"{FUSED_ENVS // 2}/{FUSED_ENVS // 2}, T={FUSED_T}, one minibatch, "
+          f"E=1: every parameter within {max(fused['worst'], 0):.3g} of "
+          f"rtol 2e-4 + atol 2e-5 of the world-1 update of all "
+          f"{FUSED_ENVS} envs (losses {fused['aux']} vs {fused['want_aux']})")
+    worst = max(res["update"] for res in out)
+    require(worst <= 1.0, f"12c distributed update card vs cpu: {worst:.3g} "
+            f"of rtol 2e-4 + atol 1e-5")
+    print(f"[12c] make_distributed_update (summed gradients), 32 rows at "
+          f"F=530 over two ranks: card within {max(worst, 0):.3g} of rtol "
+          f"2e-4 + atol 1e-5 of the CPU; phase 12c in {seconds:.1f} s")
+    return per_rank
+
+
+def phase_utilities_and_mesh(pretrained):
+    """Phase 12; returns (the msgpack eval's launches, {'12b': the timed
+    world-1 steps' launches, '12c': each rank's})."""
+    t0 = time.perf_counter()
+    msgpack_handoff(pretrained)
+    eval_launches = msgpack_members()
+    config_cli()
+    world_one = mesh_world_of_one(pretrained)
+    two = mesh_two_ranks_on_the_card(pretrained)
+    print(f"[12] phase 12 in {time.perf_counter() - t0:.1f} s")
+    return eval_launches, {"12b": world_one, "12c": two}
+
+
 # ------------------------------------------- kernel times of checkouts
 
 def _timing_inputs(device):
@@ -2956,6 +3702,8 @@ def main(argv) -> int:
         print(f"chip_smoke: the port is not beside this script: {exc}",
               file=sys.stderr)
         return 2
+    if argv[:1] == ["--mesh-step"] and len(argv) == 2:
+        return mesh_step_worker(argv[1])
     if argv[:1] == ["--kernel-times"] and len(argv) > 1:
         try:
             return compare_kernel_times(argv[1:])
@@ -2973,10 +3721,11 @@ def main(argv) -> int:
         phase_cpu_agreement()
         phase_cli()
         eval_launches = phase_eval()
-        perception_launches = phase_perception()
+        perception_launches, pretrained = phase_perception()
         host_launches, single_launches, in_process = phase_host_env()
         host_eval_launches, proc_launches = phase_host_eval(in_process)
         zoo_launches = phase_zoo()
+        msgpack_launches, parallel = phase_utilities_and_mesh(pretrained)
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2989,6 +3738,10 @@ def main(argv) -> int:
         entry["launches_host_eval"] = host_eval_launches[name]
         entry["launches_host_proc"] = proc_launches[name]
         entry["launches_zoo"] = zoo_launches[name]
+        entry["launches_msgpack_eval"] = msgpack_launches[name]
+        entry["launches_parallel"] = {
+            "12b": parallel["12b"][name],
+            "12c": [rank[name] for rank in parallel["12c"]]}
     # the backward kernel's main path is perception pretraining
     kernels["dual_attention_bwd"]["launches"] = \
         perception_launches["dual_attention_bwd"]

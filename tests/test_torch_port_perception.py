@@ -39,6 +39,7 @@ from cadre_tpu.perception import data as jdata
 from cadre_tpu.perception import losses as jlosses
 from cadre_tpu.perception import trainer as jtrainer
 from cadre_tpu.utils.checkpoint import import_danet_torch
+from cadre_tpu.utils.checkpoint import save_pytree as jckpt_save_pytree
 from cadre_tpu_torch.configs.danet_config import (
     PerceptionTrainParams,
     danet_params,
@@ -742,7 +743,8 @@ def test_checkpoints_round_trip_and_use_the_reference_names(jax_weights,
     """save -> load gives identical outputs; the port's state_dict fed to
     the JAX package's reference-format importer gives a JAX model with
     the port's outputs (the names are the reference's); a reference-format
-    file ({'autoencoder': state_dict}) loads; a JAX .msgpack raises."""
+    file ({'autoencoder': state_dict}) loads; so does a JAX .msgpack of
+    the same weights, written by the JAX package's save_pytree."""
     jcfg, vnp = jax_weights
     cfg = danet_params(**FULL)
     trainer = PerceptionTrainer(cfg, PerceptionTrainParams(), 2,
@@ -771,8 +773,12 @@ def test_checkpoints_round_trip_and_use_the_reference_names(jax_weights,
     loaded = load_danet_checkpoint(str(reference), cfg)
     assert all(torch.equal(v, loaded[k])
                for k, v in trainer.model.state_dict().items())
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        load_danet_checkpoint(str(tmp_path / "net_epoch0.msgpack"), cfg)
+    msgpack_path = str(tmp_path / "net_epoch0.msgpack")
+    jckpt_save_pytree(msgpack_path, vnp)
+    from_msgpack = load_danet_checkpoint(msgpack_path, cfg)
+    want = danet_from_flax(vnp, cfg)
+    assert set(from_msgpack) == set(want)
+    assert all(torch.equal(v, from_msgpack[k]) for k, v in want.items())
     with pytest.raises(ValueError, match="other widths"):
         load_danet_checkpoint(path, danet_params())
 
@@ -829,17 +835,23 @@ def test_cascade_clis_pretrain_then_train_on_the_encoder(dataset_dir,
             k: v for k, v in state.items() if not k.startswith("bc_conv")})
 
 
-@pytest.mark.parametrize("flag", [["--mesh"], ["--mesh-devices", "2"]],
+@pytest.mark.parametrize("flag", [["--mesh", "--model", "oldv2_vae"],
+                                  ["--mesh", "--mesh-devices", "2"]],
                          ids=["mesh", "mesh-devices"])
 def test_perception_cli_unported_flags_raise(flag, dataset_dir):
-    """Data-parallel training is the one flag left unported (--collect,
-    --experiment and --model are held in test_torch_port_zoo.py)."""
+    """Data-parallel training refuses what it does not do, as the JAX CLI
+    does: a model other than the production DANet, and more ranks than
+    the world has (--mesh itself is held in test_torch_port_parallel.py;
+    --collect, --experiment and --model in test_torch_port_zoo.py)."""
+    import torch.distributed as dist
+
     from cadre_tpu_torch import train_perception
 
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A item 16"):
+    with pytest.raises((SystemExit, ValueError),
+                       match="production DANet|requested 2 devices"):
         train_perception.main(["--data-dir", dataset_dir, "--device", "cpu",
                                *flag])
+    assert not dist.is_initialized()
 
 
 def test_perception_cli_without_gpu_raises(dataset_dir):

@@ -56,7 +56,7 @@ from cadre_tpu_torch.runtime.native_raster import rasterize_polyline_native
 from cadre_tpu_torch.runtime.proc_vec_env import ProcVecDrivingEnv, _TickCodec
 from cadre_tpu_torch.runtime.shm_ring import ShmRing
 from cadre_tpu_torch.utils import libbuild
-from cadre_tpu_torch.utils.convert import policy_from_flax
+from cadre_tpu_torch.utils.convert import policy_from_flax, policy_to_flax
 from test_torch_port_hostenv import (
     SMALL,
     STEER_BINS,
@@ -66,6 +66,7 @@ from test_torch_port_hostenv import (
     _random_variables,
 )
 from test_torch_port_slice import few_torch_threads  # noqa: F401 (autouse)
+from test_torch_port_utils import _reference_snapshot
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIM_STEPS = 80
@@ -434,10 +435,16 @@ def test_ensemble_act_equals_jax(ensemble, tmp_path):
     """EnsembleAgent.act on four ticks of a sim with traffic, K=3, with
     JAX's Gumbel draws: the K (steer, throttle) pairs and their averaged
     control equal the JAX EnsembleAgent's; the agent's carry stays the
-    stale zeros. A msgpack member and a reference-format .pt member
-    ('{steer,throttle}_{ppo,lstm}_{k}' entries) raise, naming item 15."""
+    stale zeros. The members come in the three formats an ensemble takes
+    (a JAX .msgpack, a reference-format .pt of
+    '{steer,throttle}_{ppo,lstm}_{k}' entries, the port's own .pt); a .pt
+    of pickled modules is refused."""
     _, jens, agent, pts, msgs = ensemble
-    ens = EnsembleAgent(agent, pts)
+    reference = str(tmp_path / "ppo_model_2400.pt")
+    torch.save(_reference_snapshot(
+        {s: policy_to_flax(sd) for s, sd in torch.load(
+            pts[1], weights_only=True).items()}, drop=()), reference)
+    ens = EnsembleAgent(agent, [msgs[0], reference, pts[2]])
     assert ens.k == K
     env = SimDrivingEnv(seed=2, vehicle_num=(1, 1))
     tick = env.reset()
@@ -450,11 +457,10 @@ def test_ensemble_act_equals_jax(ensemble, tmp_path):
         assert avg_action(ours) == jevaluate.avg_action(ref)
         tick = env.step(_controls(rng))[0]
     assert not agent.hidden_state[0].any()
-    reference = str(tmp_path / "ppo_model_2400.pt")
-    torch.save({"steer_ppo_0": {"critic.0.bias": torch.zeros(2)}}, reference)
-    for member in (msgs[0], reference):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            EnsembleAgent(agent, [member])
+    pickled = str(tmp_path / "modules.pt")
+    torch.save({"steer_ppo_0": torch.nn.Linear(2, 2)}, pickled)
+    with pytest.raises(ValueError, match="pickled modules"):
+        EnsembleAgent(agent, [pickled])
 
 
 def _replay_jax_eval_draws(seed, steps, k):

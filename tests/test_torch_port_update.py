@@ -506,11 +506,10 @@ def test_cli_trains_and_saves_a_snapshot(tmp_path):
             torch.testing.assert_close(v, saved[name][k], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("flag", ["--danet-checkpoint=d.msgpack",
-                                  "--config=c.py"])
+@pytest.mark.parametrize("flag", ["--env=carla", "--town=Town01"])
 def test_cli_unported_flag_raises(flag):
-    """Flags (or, for --danet-checkpoint, the JAX msgpack format) the port
-    does not take yet raise, naming the ROADMAP item that ports them."""
+    """The flags of the JAX CLI whose features the port does not have yet
+    (the CARLA env's) raise, naming the ROADMAP item that ports them."""
     from cadre_tpu_torch import main
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item"):
