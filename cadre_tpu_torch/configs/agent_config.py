@@ -39,10 +39,37 @@ class RolloutConfig:
 
 @dataclasses.dataclass(frozen=True)
 class AgentConfig:
+    """agent_cfg (config_files/agent_config.py:27-48). `memory` is
+    'lstm' (the reference's), 'transformer' or 'none'; `use_lstm=False`
+    is its legacy spelling of 'none'; `ordinal` puts the actor's logits
+    through `rl.distributions.ordinal_logits`. The PPO coefficients are
+    carried as the JAX package carries them: the update reads
+    `rl.ppo.PPOConfig`."""
+
+    use_lstm: bool = True
     command_num: int = NUM_COMMANDS
     measurement_dim: int = MEASUREMENT_DIM
     num_steer_outputs: int = len(STEER_CONTROL)        # 33
     num_throttle_outputs: int = len(THROTTLE_CONTROL)  # 3
+    frame: int = SEQ_LENGTH
+    ent_coeff: float = 0.01
+    value_coeff: float = 0.1
+    clip_coeff: float = 1.0
+    clip: float = 0.1
+    vae_params: str = "CoPM"   # 'CoPM' | 'CoPM w/o att' | others
+    ordinal: bool = False
+    memory: str = "lstm"       # 'lstm' | 'transformer' | 'none'
+
+    @property
+    def obs_dim(self) -> int:
+        """2 * z + measurements for the CoPM encoders, z + measurements
+        otherwise, z = 256 (ppo_agent/models.py:38-41). The agent's own
+        width is its encoder's latent + measurements
+        (`CadreAgent.obs_dim`)."""
+        z = 256
+        if self.vae_params in ("CoPM", "CoPM w/o att"):
+            return 2 * z + self.measurement_dim
+        return z + self.measurement_dim
 
 
 @dataclasses.dataclass(frozen=True)

@@ -25,12 +25,26 @@ def load_experiment(path: str) -> Dict[str, Any]:
     """A config_files/*.py experiment as typed configs:
     {'rollout': RolloutConfig, 'agent': AgentConfig, 'train':
     TrainConfig, 'env': dict, 'eval': EvalConfig or None, 'raw':
-    ConfigDict}. The agent's command_num and measurement_dim come from
-    agent_cfg.model_cfg; train_cfg.num_processes defaults to
-    env_cfg.num_processes; eval_cfg's `load_episode` list is the
-    EvalConfig's `load_episodes`."""
+    ConfigDict}. The agent's use_lstm, command_num, measurement_dim,
+    vae_params and ordinal come from agent_cfg.model_cfg, its frame and
+    PPO coefficients from agent_cfg itself, as the JAX loader reads them
+    (`memory` is not read: the reference's configs have no such key);
+    train_cfg.num_processes defaults to env_cfg.num_processes; eval_cfg's
+    `load_episode` list is the EvalConfig's `load_episodes`."""
     cfg = Config.fromfile(path)
-    model_cfg = dict(dict(cfg.get("agent_cfg", {})).get("model_cfg", {}))
+    agent_src = dict(cfg.get("agent_cfg", {}))
+    model_cfg = dict(agent_src.get("model_cfg", {}))
+    agent = AgentConfig(
+        use_lstm=model_cfg.get("use_lstm", True),
+        command_num=model_cfg.get("command_num", 4),
+        measurement_dim=model_cfg.get("measurement_dim", 18),
+        frame=agent_src.get("frame", 8),
+        ent_coeff=agent_src.get("ent_coeff", 0.01),
+        value_coeff=agent_src.get("value_coeff", 0.1),
+        clip_coeff=agent_src.get("clip_coeff", 1.0),
+        clip=agent_src.get("clip", 0.1),
+        vae_params=model_cfg.get("vae_params", "CoPM"),
+        ordinal=model_cfg.get("ordinal", False))
     train_src = dict(cfg.get("train_cfg", {}))
     env = dict(cfg.get("env_cfg", {}))
     if "num_processes" in env:
@@ -42,6 +56,6 @@ def load_experiment(path: str) -> Dict[str, Any]:
             src["load_episodes"] = tuple(src.pop("load_episode"))
         eval_cfg = _fill(EvalConfig, src)
     return {"rollout": _fill(RolloutConfig, dict(cfg.get("rollout_cfg", {}))),
-            "agent": _fill(AgentConfig, model_cfg),
+            "agent": agent,
             "train": _fill(TrainConfig, train_src), "env": env,
             "eval": eval_cfg, "raw": cfg}

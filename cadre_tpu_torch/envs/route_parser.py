@@ -125,3 +125,19 @@ def interpolate_route(points: np.ndarray, resolution: float = 1.0
         for i in range(1, n + 1):
             out.append(a + seg * (i / n))
     return np.asarray(out)
+
+
+def downsample_route(route_xy: np.ndarray, sample_factor: float = 50.0
+                     ) -> List[int]:
+    """Indices of waypoints about `sample_factor` meters apart, the
+    endpoints kept (leaderboard route_manipulation.downsample_route)."""
+    ids = [0]
+    dist = 0.0
+    for i in range(1, len(route_xy)):
+        dist += float(np.hypot(*(route_xy[i] - route_xy[i - 1])))
+        if dist > sample_factor:
+            ids.append(i)
+            dist = 0.0
+    if ids[-1] != len(route_xy) - 1:
+        ids.append(len(route_xy) - 1)
+    return ids

@@ -27,7 +27,9 @@ Their sampling is argmax(logits + Gumbel noise): the noise is an argument
 (`gumbel`, a (steer [N, 33], throttle [N, 3]) pair) that the training
 loops draw (`rl.train.agent_gumbel`) or a test injects. As in the
 reference, the LSTM sees a stale zero carry on every act
-(ppo_agent/agent.py:38-40, 123-124).
+(ppo_agent/agent.py:38-40, 123-124). The banks' memory (LSTM,
+transformer or none) and ordinal head follow the AgentConfig, as in the
+JAX package; only the API sets them (no CLI flag does).
 """
 from __future__ import annotations
 
@@ -41,7 +43,12 @@ import torch
 from cadre_tpu_torch.configs.agent_config import AgentConfig
 from cadre_tpu_torch.configs.danet_config import DANetParams, danet_params
 from cadre_tpu_torch.models.danet import DANet
-from cadre_tpu_torch.models.policy import Carry, PolicyBank, PolicyOutput
+from cadre_tpu_torch.models.policy import (
+    Carry,
+    PolicyBank,
+    PolicyOutput,
+    memory_kind,
+)
 from cadre_tpu_torch.rl.distributions import gumbel as draw_gumbel
 from cadre_tpu_torch.rl.ppo import PPOConfig, make_optimizer, update_step
 from cadre_tpu_torch.rl.rollout import Minibatch, RolloutBuffer, insert
@@ -134,10 +141,10 @@ class CadreAgent:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             encoder = DANet(danet_cfg, latent_only=True)
-            steer = PolicyBank(agent_cfg.command_num,
-                               agent_cfg.num_steer_outputs, f)
-            throttle = PolicyBank(agent_cfg.command_num,
-                                  agent_cfg.num_throttle_outputs, f)
+            steer = policy_bank(agent_cfg, agent_cfg.command_num,
+                                agent_cfg.num_steer_outputs, f)
+            throttle = policy_bank(agent_cfg, agent_cfg.command_num,
+                                   agent_cfg.num_throttle_outputs, f)
         if encoder_state is not None:
             keys = encoder.state_dict().keys()
             encoder.load_state_dict({k: v for k, v in encoder_state.items()
@@ -300,7 +307,21 @@ class CadreAgent:
                          throttle_cmd, hidden: Carry):
         """Next-state values for GAE (ppo_agent/agent.py:143-164): each
         signal's stored [seq, F] observation unrolled through its command's
-        LSTM from `hidden`, the value of the last step."""
+        LSTM from `hidden`, the value of the last step; with `use_lstm`
+        False, the value of the last step's features.
+
+        With `use_lstm` set and a memory other than the LSTM, the JAX
+        package's `_bootstrap_value` unrolls that memory as an LSTM and
+        fails (an AttributeError: a TransformerMemory has no `cell`, memory
+        'none' has no module); this raises a ValueError instead."""
+        cfg = self.agent_cfg
+        if cfg.use_lstm and memory_kind(cfg.memory) != "lstm":
+            raise ValueError(
+                f"get_value with memory={cfg.memory!r} and use_lstm=True: "
+                "the JAX package's _bootstrap_value unrolls every use_lstm "
+                "memory as an LSTM and fails here; the device iteration "
+                "bootstraps through act_from_hist instead")
+
         def one(bank, obs_seq, cmd):
             cmd = self._on_device(np.asarray([cmd]).reshape(1), torch.long)
             with torch.no_grad():
@@ -365,6 +386,14 @@ class CadreAgent:
                                 ckpt.load_pytree(path + ".opt"))
         else:
             opt.load_state_dict(ckpt.load_pt(path)["opt"])
+
+
+def policy_bank(agent_cfg: AgentConfig, banks: int, outputs: int,
+                features: int) -> PolicyBank:
+    """A PolicyBank of `banks` command banks with the memory and head that
+    `agent_cfg` asks for (the JAX package's `CadreAgent.create`)."""
+    return PolicyBank(banks, outputs, features, memory=agent_cfg.memory,
+                      use_lstm=agent_cfg.use_lstm, ordinal=agent_cfg.ordinal)
 
 
 def snapshot_banks(path: str, agent: CadreAgent) -> Dict[str, StateDict]:
@@ -447,7 +476,7 @@ class Ensemble(NamedTuple):
         for name, outputs in (("steer", cfg.num_steer_outputs),
                               ("throttle", cfg.num_throttle_outputs)):
             with torch.device("meta"):
-                bank = PolicyBank(k * cfg.command_num, outputs, f)
+                bank = policy_bank(cfg, k * cfg.command_num, outputs, f)
             bank.load_state_dict({key: torch.cat([t[name][key] for t in trees])
                                   for key in trees[0][name]}, assign=True)
             banks.append(bank.to(agent.device).requires_grad_(False))

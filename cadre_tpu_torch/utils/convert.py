@@ -4,7 +4,8 @@ Every function takes plain numpy data (nested dicts of arrays, as
 `jax.tree.map(np.asarray, ...)` gives) and imports nothing of JAX:
   danet_from_flax       DANet flax variables -> DANet state_dict
   zoo_from_flax         any zoo module's flax variables -> its state_dict
-  policy_from_flax      one stacked policy bank -> PolicyBank state_dict
+  policy_from_flax      one stacked policy bank (LSTM, transformer or no
+                        memory) -> PolicyBank state_dict
   policy_to_flax        its inverse, as numpy in the JAX bank's layout
   env_state_from_numpy  a JaxEnvState's fields -> EnvState
   route_bank_from_numpy a RouteBank's fields -> RouteBank
@@ -219,12 +220,43 @@ def zoo_from_flax(model: nn.Module,
     return out
 
 
+def _transformer_from_flax(out: StateDict, p: Mapping[str, Any]) -> None:
+    """A stacked flax TransformerMemory -> `lstm.*` of a BankedTransformer:
+    Dense kernels [C, in, out] -> [C, out, in], DenseGeneral kernels
+    [C, F, H, D] -> [C, H, D, F] and [C, H, D, F] -> [C, F, H, D],
+    LayerNorm scale -> weight."""
+    for name, sub in p.items():
+        key = f"lstm.{name}"
+        if name == "pos_embed":
+            out[key] = _t(sub)
+        elif name.startswith("ln"):
+            out[key + ".weight"] = _t(sub["scale"])
+            out[key + ".bias"] = _t(sub["bias"])
+        elif name.startswith("attn_"):
+            for proj in ("query", "key", "value"):
+                out[f"{key}.{proj}.weight"] = _t(np.transpose(
+                    sub[proj]["kernel"], (0, 2, 3, 1)))
+                out[f"{key}.{proj}.bias"] = _t(sub[proj]["bias"])
+            out[f"{key}.out.weight"] = _t(np.transpose(
+                sub["out"]["kernel"], (0, 3, 1, 2)))
+            out[f"{key}.out.bias"] = _t(sub["out"]["bias"])
+        else:                                   # in_proj, mlp1_i, mlp2_i
+            out[key + ".weight"] = _t(np.transpose(sub["kernel"], (0, 2, 1)))
+            out[key + ".bias"] = _t(sub["bias"])
+
+
 def policy_from_flax(bank: Mapping[str, Any]) -> StateDict:
-    """One stacked flax policy bank {'ac', 'lstm'} (leading command axis)
-    -> the state_dict of the port's PolicyBank."""
+    """One stacked flax policy bank (leading command axis) -> the
+    state_dict of the port's PolicyBank. Its memory is what `bank` holds
+    under 'lstm': the LSTM's 'rnn', the TransformerMemory's modules, or,
+    with memory 'none', no 'lstm' key at all."""
     out: StateDict = {}
-    for k, v in bank["lstm"]["rnn"].items():
-        out[f"lstm.{k}"] = _t(v)
+    mem = bank.get("lstm")
+    if mem is not None and "rnn" in mem:
+        for k, v in mem["rnn"].items():
+            out[f"lstm.{k}"] = _t(v)
+    elif mem is not None:
+        _transformer_from_flax(out, mem)
     ac = bank["ac"]
 
     def banked(key, p):
@@ -238,25 +270,61 @@ def policy_from_flax(bank: Mapping[str, Any]) -> StateDict:
     return out
 
 
+def _sorted(tree):
+    """Dict keys in sorted order at every level, as flax lays them out."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
 def policy_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     """A PolicyBank state_dict (or any mapping of its names to tensors,
-    e.g. Adam's moments) -> the stacked flax bank {'ac', 'lstm'} as
-    float32 numpy, keys sorted as flax sorts them."""
+    e.g. Adam's moments) -> the stacked flax bank {'ac'[, 'lstm']} as
+    float32 numpy, keys sorted as flax sorts them: the inverse of
+    `policy_from_flax` for each memory."""
     def a(name):
         return np.array(state_dict[name].detach().cpu().float().numpy())
 
+    def perm(name, axes):
+        return np.ascontiguousarray(np.transpose(a(name), axes))
+
     def banked(key):
-        return {"bias": a(key + ".bias"),
-                "kernel": np.ascontiguousarray(
-                    np.transpose(a(key + ".weight"), (0, 2, 1)))}
+        return {"bias": a(key + ".bias"), "kernel": perm(key + ".weight",
+                                                         (0, 2, 1))}
 
     ac = {"control": {name: banked(f"control.{name}")
                       for name in ("fc1", "fc2", "fc3")}}
     ac.update({name: banked(name)
                for name in ("critic_fc1", "critic_fc2", "critic_fc3")})
-    rnn = {k: a(f"lstm.{k}")
-           for k in ("bias_hh", "bias_ih", "weight_hh", "weight_ih")}
-    return {"ac": ac, "lstm": {"rnn": rnn}}
+    out: Dict[str, Any] = {"ac": ac}
+    if "lstm.weight_ih" in state_dict:
+        out["lstm"] = {"rnn": {k: a(f"lstm.{k}") for k in
+                               ("bias_hh", "bias_ih", "weight_hh",
+                                "weight_ih")}}
+    elif "lstm.pos_embed" in state_dict:
+        mem: Dict[str, Any] = {"pos_embed": a("lstm.pos_embed")}
+        for name in state_dict:
+            parts = name.split(".")
+            if parts[0] != "lstm" or len(parts) < 3:
+                continue
+            mod = parts[1]
+            if mod.startswith("ln"):
+                mem[mod] = {"bias": a(f"lstm.{mod}.bias"),
+                            "scale": a(f"lstm.{mod}.weight")}
+            elif mod.startswith("attn_"):
+                key = f"lstm.{mod}"
+                attn = {proj: {"bias": a(f"{key}.{proj}.bias"),
+                               "kernel": perm(f"{key}.{proj}.weight",
+                                              (0, 3, 1, 2))}
+                        for proj in ("query", "key", "value")}
+                attn["out"] = {"bias": a(f"{key}.out.bias"),
+                               "kernel": perm(f"{key}.out.weight",
+                                              (0, 2, 3, 1))}
+                mem[mod] = attn
+            else:
+                mem[mod] = banked(f"lstm.{mod}")
+        out["lstm"] = mem
+    return _sorted(out)
 
 
 def _tensor(x, device) -> torch.Tensor:

@@ -118,10 +118,26 @@ Phases, each of which must pass:
      2e-4, atol 2e-5), and the summed distributed update on the card
      against the CPU. Every process has a deadline: a process-group
      timeout, and a parent that kills what outlives its limit.
+ 13. the policy-bank options and the scenario harness: (a) a bf16 CoPM
+     agent with memory 'transformer' and the ordinal head trains one T=2
+     train_device iteration, then one whole counted iteration at
+     production size (N=32, T=200, 4 PPO epochs of 2 minibatches: two
+     paints and one dual attention per step and the bootstrap's), finite,
+     every parameter but the attention key biases (zero gradient) moved,
+     the act / update split and peak memory; (b) one train_device
+     iteration with use_lstm=False at T=20, launches counted; (c) 8
+     transformer + ordinal members written as .msgpack by save_snapshot,
+     read back bit for bit, and their ensemble eval of 25 pinned envs for
+     20 steps, launches counted; (d) act_batch and one fused update of
+     small transformer + ordinal banks on the card against the CPU; (e)
+     an .xosc storyboard written for a sim env's route, read by
+     load_openscenario and run by build_manager on that SimDrivingEnv
+     driven by an NpcAgent for 300 ticks, then ResultOutputProvider's
+     text and JUnit report (CPU work, no JAX, no tabulate).
 
 It prints one JSON line of kernel figures (launch counts of every phase's
-main path, `launches_msgpack_eval` of 12a and `launches_parallel` of 12b
-and of each 12c rank among them), the card's name and power limit, and,
+main path, `launches_msgpack_eval` of 12a, `launches_parallel` of 12b
+and of each 12c rank, and `launches_options` of 13a among them), the card's name and power limit, and,
 last, {"ok": true, "device": {...}}. It exits non-zero, printing no
 result, without a CUDA GPU or without the package beside it.
 
@@ -1187,11 +1203,28 @@ def phase_cpu_agreement():
     update_agreement()
 
 
-def update_agreement():
-    """One fused PPO update (E=2, M=2) of small f32 banks on the card and
-    on the CPU, from the same weights, buffers and permutations: LossAux
-    within 1e-5 relative, every updated tensor within 1% of the largest
-    change the CPU update made to it."""
+def _zero_gradient(key, shape, ordinal):
+    """The elements of a policy-bank tensor whose gradient is zero whatever
+    the data: the transformer's attention key biases (softmax(q k^T) does
+    not move when a row's scores shift by q . b) and, under the ordinal
+    head, the first raw logit's row of fc3 (log sigmoid(raw_0) enters
+    every ordinal logit alike). Adam moves them by rounding noise only."""
+    import torch
+
+    mask = torch.zeros(shape, dtype=torch.bool)
+    if key.endswith(".key.bias"):
+        mask[...] = True
+    elif ordinal and key.startswith("control.fc3."):
+        mask[:, 0] = True
+    return mask
+
+
+def update_agreement(tag: str = "5", **options):
+    """One fused PPO update (E=2, M=2) of small f32 banks (PolicyBank
+    `options`) on the card and on the CPU, from the same weights, buffers
+    and permutations: LossAux within 1e-5 relative, every updated tensor
+    within 1% of the largest change the CPU update made to it; elements of
+    `_zero_gradient` within Adam's bound on their E*M steps instead."""
     import numpy as np
     import torch
 
@@ -1224,7 +1257,7 @@ def update_agreement():
              .reshape(epochs * mbs, -1) for _ in range(2)]
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(12)
-        init = {s: PolicyBank(4, a, f).state_dict()
+        init = {s: PolicyBank(4, a, f, **options).state_dict()
                 for s, a in (("steer", 33), ("throttle", 3))}
     out = {}
     for dev in ("cpu", "cuda"):
@@ -1234,7 +1267,7 @@ def update_agreement():
 
         banks = {}
         for s, a in (("steer", 33), ("throttle", 3)):
-            banks[s] = PolicyBank(4, a, f).to(dev)
+            banks[s] = PolicyBank(4, a, f, **options).to(dev)
             banks[s].load_state_dict(init[s])
         update = make_fused_iteration_update(
             banks["steer"], banks["throttle"], PPOConfig(ppo_epoch=epochs),
@@ -1256,17 +1289,28 @@ def update_agreement():
     require(aux_err <= 1e-5, f"update cuda vs cpu: LossAux {aux_g} vs "
             f"{aux_c}, {aux_err:.3g} relative > 1e-5")
     worst = 0.0
+    adam_bound = 3.17 * PPOConfig().lr * epochs * mbs
     for key, c in p_c.items():
         before = init[key[0]][key[1]]
-        change = float((c - before).abs().max())
+        zero = _zero_gradient(key[1], c.shape, options.get("ordinal", False))
+        for moved in (c - before, p_g[key] - before):
+            require(float(moved[zero].abs().sum()) == 0.0 or float(
+                moved[zero].abs().max()) <= adam_bound,
+                    f"update cuda vs cpu: {key} moved beyond Adam's bound "
+                    f"where its gradient is zero")
+        if zero.all():
+            continue
+        change = float((c - before)[~zero].abs().max())
         require(change > 0, f"update cuda vs cpu: {key} did not move")
-        worst = max(worst, float((p_g[key] - c).abs().max()) / change)
+        worst = max(worst, float((p_g[key] - c)[~zero].abs().max())
+                    / change)
     require(worst <= 0.01, f"update cuda vs cpu: a tensor {worst:.3g} of "
             f"its largest change from the CPU's > 0.01")
-    print(f"[5] cuda vs cpu, one fused update (f={f}, T={t}, N={n}, E="
-          f"{epochs}, M={mbs}): LossAux {aux_err:.3g} relative (bound "
-          f"1e-5); parameters at most {worst:.3g} of each tensor's largest "
-          f"change (bound 0.01)")
+    print(f"[{tag}] cuda vs cpu, one fused update (f={f}, T={t}, N={n}, E="
+          f"{epochs}, M={mbs}{', ' if options else ''}"
+          f"{', '.join(f'{k}={v}' for k, v in options.items())}): LossAux "
+          f"{aux_err:.3g} relative (bound 1e-5); parameters at most "
+          f"{worst:.3g} of each tensor's largest change (bound 0.01)")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -3683,6 +3727,401 @@ def compare_kernel_times(roots) -> int:
     return 0
 
 
+# --------------------------------------------------------------- phase 13
+
+# the policy-bank options of the main path's full-width iteration
+OPTIONS = dict(memory="transformer", ordinal=True)
+# the use_lstm=False iteration's and the transformer ensemble eval's steps
+OPTION_STEPS = 20
+# ticks of the harness's storyboard run
+HARNESS_TICKS = 300
+
+
+def _options_agent(**options):
+    """A bf16 CoPM agent at production width with the banks `options`."""
+    from cadre_tpu_torch.configs.agent_config import AgentConfig
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.rl.agent import CadreAgent
+
+    return CadreAgent.create(danet_params(), AgentConfig(**options),
+                             bf16_encoder=True, device="cuda")
+
+
+def options_iteration():
+    """13a: the main path with memory 'transformer' and the ordinal head:
+    one train_device iteration at T=2 to warm up, then one whole counted
+    iteration at production size (N_ENVS envs, T_TRAIN steps, 4 PPO epochs
+    of 2 minibatches); returns its launch counts."""
+    import torch
+
+    from cadre_tpu_torch.configs.agent_config import (
+        RolloutConfig,
+        TrainConfig,
+    )
+    from cadre_tpu_torch.envs.torch_env import DrivingEnv, make_route_bank
+    from cadre_tpu_torch.rl.device_rollout import (
+        make_device_iteration,
+        train_device,
+    )
+    from cadre_tpu_torch.rl.fused_update import minibatch_layout
+
+    t0 = time.perf_counter()
+    agent = _options_agent(**OPTIONS)
+    env = DrivingEnv(make_route_bank(16, seed=0, device="cuda"),
+                     num_envs=N_ENVS, device="cuda")
+    train_cfg, rollout_cfg = TrainConfig(), RolloutConfig(num_steps=T_TRAIN)
+    rows = train_device(agent, env, 1, RolloutConfig(num_steps=2),
+                        train_cfg, seed=3, log_fn=None)
+    mem = agent.steer.lstm
+    n_mem = sum(p.numel() for p in mem.parameters())
+    print(f"[13a] set-up and a T=2 train_device warm-up "
+          f"{time.perf_counter() - t0:.2f} s; memory "
+          f"{agent.steer.memory} ({n_mem} parameters per signal, "
+          f"{mem.layers} blocks, heads of {mem.attn_0.query.weight.shape[2]})"
+          f", ordinal {agent.steer.ordinal}; warm-up losses "
+          f"{rows[0]['value_loss']:.5f}/{rows[0]['policy_loss']:.5f}")
+
+    iteration, init_carry = make_device_iteration(agent, env, rollout_cfg,
+                                                  train_cfg, seed=4)
+    carry = init_carry()
+    named = [(f"{sig}.{k}", p) for sig, bank in agent.banks().items()
+             for k, p in bank.named_parameters()]
+    before = [p.detach().clone() for _, p in named]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (carry, m), launches = _counted(lambda: iteration(agent.opt, carry))
+    float(m.checksum)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = {"paint": 2 * T_TRAIN, "dual_attention": T_TRAIN + 1,
+            "dual_attention_bwd": 0}
+    require(launches == want, f"13a iteration launches {launches}, not "
+            f"{want}")
+    for name, t in m._asdict().items():
+        if isinstance(t, torch.Tensor):
+            _finite(f"13a {name}", t)
+    still = []
+    for (name, p), b in zip(named, before):
+        _finite(f"13a {name}", p.detach())
+        if torch.equal(p.detach(), b):
+            still.append(name)
+    # the key biases' gradient is zero (see _zero_gradient): they may rest
+    require(all(n.endswith(".key.bias") for n in still),
+            f"13a: parameters that did not move: {still}")
+    steps = T_TRAIN * N_ENVS
+    eff_mb, mb_rows = minibatch_layout(steps, rollout_cfg.mini_batch_num)
+    update_s = seconds - m.rollout_seconds
+    print(f"[13a] transformer + ordinal iteration N={N_ENVS} T={T_TRAIN} "
+          f"E={train_cfg.ppo_epoch} M={eff_mb} ({mb_rows} rows per "
+          f"minibatch): {seconds:.3f} s, {steps / seconds:.1f} env-steps/s;"
+          f" rollout (act) {m.rollout_seconds:.3f} s "
+          f"({steps / m.rollout_seconds:.1f} env-steps/s), update "
+          f"{update_s:.3f} s ({100 * update_s / seconds:.1f}%); peak memory "
+          f"allocated {peak / 2**30:.2f} GiB; losses value "
+          f"{float(m.value_loss):.5f} policy {float(m.policy_loss):.5f} "
+          f"entropy {float(m.entropy_loss):.5f}; {len(named)} tensors, "
+          f"resting: {still}; launches {launches}")
+    return agent, launches
+
+
+def no_memory_iteration():
+    """13b: one train_device iteration of N_ENVS envs x OPTION_STEPS steps
+    with use_lstm=False (memory 'none': the newest frame's features), its
+    env reset included, launches counted."""
+    import torch
+
+    from cadre_tpu_torch.configs.agent_config import RolloutConfig
+    from cadre_tpu_torch.envs.torch_env import DrivingEnv, make_route_bank
+    from cadre_tpu_torch.rl.device_rollout import train_device
+
+    agent = _options_agent(use_lstm=False)
+    require(agent.steer.memory == "none"
+            and not hasattr(agent.steer, "lstm"),
+            "use_lstm=False built a memory")
+    env = DrivingEnv(make_route_bank(16, seed=0, device="cuda"),
+                     num_envs=N_ENVS, device="cuda")
+    before = [p.detach().clone() for p in agent.policy_parameters()]
+    t0 = time.perf_counter()
+    rows, launches = _counted(lambda: train_device(
+        agent, env, 1, RolloutConfig(num_steps=OPTION_STEPS), seed=5,
+        log_fn=None))
+    seconds = time.perf_counter() - t0
+    # train_device resets the envs first: their render and encode, then
+    # two paints and one encode per step and the bootstrap's encode
+    want = {"paint": 2 + 2 * OPTION_STEPS,
+            "dual_attention": OPTION_STEPS + 2, "dual_attention_bwd": 0}
+    require(launches == want, f"13b launches {launches}, not {want}")
+    params = agent.policy_parameters()
+    for i, p in enumerate(params):
+        _finite(f"13b policy parameter {i}", p.detach())
+    moved = sum(not torch.equal(a, b.detach())
+                for a, b in zip(before, params))
+    require(moved == len(params) and all(
+        math.isfinite(rows[0][k]) for k in ("value_loss", "policy_loss",
+                                            "entropy_loss")),
+            f"13b: {moved} of {len(params)} tensors moved, row {rows[0]}")
+    print(f"[13b] use_lstm=False iteration N={N_ENVS} T={OPTION_STEPS}: "
+          f"{seconds:.3f} s with its set-up, "
+          f"{rows[0]['env_steps_per_sec']:.1f} env-steps/s; losses "
+          f"{rows[0]['value_loss']:.5f}/{rows[0]['policy_loss']:.5f}/"
+          f"{rows[0]['entropy_loss']:.5f}; launches {launches}")
+
+
+def transformer_ensemble_eval(agent):
+    """13c: EVAL_MEMBERS random transformer + ordinal members written as
+    .msgpack snapshots by `agent.save_snapshot`, read back bit for bit, and
+    their ensemble eval of EVAL_ENVS envs pinned to the eval routes for
+    OPTION_STEPS steps, launches counted."""
+    import os
+
+    import torch
+
+    from cadre_tpu_torch.envs.torch_env import DrivingEnv
+    from cadre_tpu_torch.rl.agent import policy_bank, snapshot_banks
+    from cadre_tpu_torch.rl.device_eval import evaluate_device
+
+    cfg, f = agent.agent_cfg, agent.obs_dim
+    trained = {s: {k: v.clone() for k, v in b.state_dict().items()}
+               for s, b in agent.banks().items()}
+    paths, members = [], []
+    for seed in range(EVAL_MEMBERS):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            member = {s: policy_bank(cfg, cfg.command_num, a, f).state_dict()
+                      for s, a in (("steer", cfg.num_steer_outputs),
+                                   ("throttle", cfg.num_throttle_outputs))}
+        for s, bank in agent.banks().items():
+            bank.load_state_dict(member[s])
+        paths.append(os.path.join(_smoke_dir("smoke_options"),
+                                  f"member_{seed}.msgpack"))
+        agent.save_snapshot(paths[-1])
+        members.append(member)
+    for s, bank in agent.banks().items():
+        bank.load_state_dict(trained[s])
+    for path, member in zip(paths, members):
+        back = snapshot_banks(path, agent)
+        require(all(torch.equal(back[s][k], v.cpu())
+                    for s in member for k, v in member[s].items()),
+                f"13c: {path} did not read back bit for bit")
+    env = DrivingEnv(eval_bank("cuda"), EVAL_ENVS, eval_env_config(),
+                     device="cuda")
+    ids = list(range(EVAL_ENVS))
+    evaluate_device(agent, env, paths, max_steps=2, seed=1, route_ids=ids)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows, launches = _counted(lambda: evaluate_device(
+        agent, env, paths, max_steps=OPTION_STEPS, seed=7, route_ids=ids))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = {"paint": 2 + 2 * OPTION_STEPS,
+            "dual_attention": 1 + OPTION_STEPS, "dual_attention_bwd": 0}
+    require(launches == want, f"13c launches {launches}, not {want}")
+    _check_rows(rows, "13c")
+    size = os.path.getsize(paths[0]) / 2**20
+    print(f"[13c] eval of {EVAL_MEMBERS} transformer + ordinal .msgpack "
+          f"members ({size:.1f} MiB each) N={EVAL_ENVS} {OPTION_STEPS} "
+          f"steps: {seconds:.3f} s with the load, "
+          f"{EVAL_ENVS * OPTION_STEPS / seconds:.1f} eval env-steps/s; "
+          f"{len(rows)} rows; launches {launches}")
+
+
+def options_act_agreement():
+    """13d: act_batch of small f32 transformer + ordinal banks on the card
+    against the CPU from the same weights, window and Gumbel noise:
+    logits, log-probs and values within 1e-4, equal actions, the carry
+    handed back; then one fused update of such banks (update_agreement)."""
+    import torch
+
+    from cadre_tpu_torch.models.policy import PolicyBank
+    from cadre_tpu_torch.rl.distributions import gumbel
+
+    f, t, n = 50, 8, 6
+    gen = torch.Generator().manual_seed(13)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(13)
+        bank = PolicyBank(4, 33, f, **OPTIONS)
+    obs = torch.randn(t, n, f, generator=gen)
+    cmd = torch.randint(0, 4, (n,), generator=gen)
+    carry = (torch.randn(n, f, generator=gen), torch.randn(n, f,
+                                                         generator=gen))
+    noise = gumbel((n, 33), gen, "cpu")
+    with torch.no_grad():
+        out_c, carry_c = bank.act_batch(obs, cmd, carry, noise)
+        bank_g = bank.to("cuda")
+        out_g, carry_g = bank_g.act_batch(
+            obs.cuda(), cmd.cuda(), tuple(c.cuda() for c in carry),
+            noise.cuda())
+    err = max(float((getattr(out_g, k).cpu() - getattr(out_c, k)).abs().max())
+              for k in ("logits", "log_prob", "value"))
+    require(err <= 1e-4 and torch.equal(out_g.action.cpu(), out_c.action)
+            and torch.equal(carry_g[0].cpu(), carry[0]),
+            f"13d act cuda vs cpu: {err:.3g}, actions "
+            f"{out_g.action.tolist()} vs {out_c.action.tolist()}")
+    print(f"[13d] cuda vs cpu, transformer + ordinal act_batch (f={f}, "
+          f"T={t}, N={n}): max|err| {err:.3g} (bound 1e-4), actions equal")
+    update_agreement("13d", **OPTIONS)
+
+
+XOSC_HARNESS = """<?xml version="1.0"?>
+<OpenSCENARIO>
+  <ParameterDeclarations>
+    <ParameterDeclaration name="leadSpeed" parameterType="double" value="3.0"/>
+  </ParameterDeclarations>
+  <Entities>
+    <ScenarioObject name="hero"><Vehicle name="ego"/></ScenarioObject>
+    <ScenarioObject name="lead"><Vehicle name="car"/></ScenarioObject>
+    <ScenarioObject name="walker"><Pedestrian name="ped"/></ScenarioObject>
+  </Entities>
+  <Storyboard>
+    <Init><Actions>
+      <Private entityRef="lead">
+        <PrivateAction><TeleportAction><Position>
+          <WorldPosition x="{lx:.3f}" y="{ly:.3f}" h="{lh:.5f}"/>
+        </Position></TeleportAction></PrivateAction>
+        <PrivateAction><LongitudinalAction><SpeedAction>
+          <SpeedActionTarget><AbsoluteTargetSpeed value="$leadSpeed"/></SpeedActionTarget>
+        </SpeedAction></LongitudinalAction></PrivateAction>
+      </Private>
+      <Private entityRef="walker">
+        <PrivateAction><TeleportAction><Position>
+          <WorldPosition x="{wx:.3f}" y="{wy:.3f}" h="0"/>
+        </Position></TeleportAction></PrivateAction>
+      </Private>
+    </Actions></Init>
+    <Story name="s"><Act name="a">
+      <ManeuverGroup name="mg">
+        <Actors><EntityRef entityRef="lead"/></Actors>
+        <Maneuver name="m">
+          <Event name="speed_up" priority="overwrite">
+            <Action name="go"><PrivateAction><LongitudinalAction><SpeedAction>
+              <SpeedActionTarget><AbsoluteTargetSpeed value="6.0"/></SpeedActionTarget>
+            </SpeedAction></LongitudinalAction></PrivateAction></Action>
+            <StartTrigger><ConditionGroup><Condition name="t"><ByValueCondition>
+              <SimulationTimeCondition value="2.0" rule="greaterThan"/>
+            </ByValueCondition></Condition></ConditionGroup></StartTrigger>
+          </Event>
+        </Maneuver>
+      </ManeuverGroup>
+      <ManeuverGroup name="mg2">
+        <Actors><EntityRef entityRef="walker"/></Actors>
+        <Maneuver name="m2">
+          <Event name="walk" priority="overwrite">
+            <Action name="ctrl"><PrivateAction><ControllerAction>
+              <AssignControllerAction><Controller name="c"><Properties>
+                <Property name="module"
+                  value="cadre_tpu_torch.envs.actor_controls.PedestrianControl"/>
+              </Properties></Controller></AssignControllerAction>
+            </ControllerAction></PrivateAction></Action>
+            <StartTrigger><ConditionGroup><Condition name="e"><ByValueCondition>
+              <StoryboardElementStateCondition storyboardElementType="event"
+                storyboardElementRef="speed_up" state="completeState"/>
+            </ByValueCondition></Condition></ConditionGroup></StartTrigger>
+          </Event>
+        </Maneuver>
+      </ManeuverGroup>
+    </Act></Story>
+  </Storyboard>
+</OpenSCENARIO>
+"""
+
+
+def harness_run():
+    """13e: the CARLA-free harness (no JAX, no tabulate): a storyboard
+    written as .xosc 40 m ahead on a sim env's route, read by
+    load_openscenario, run by build_manager's triggers on a SimDrivingEnv
+    driven by an NpcAgent through the sensor contract for HARNESS_TICKS
+    ticks, then ResultOutputProvider's report (text file and JUnit)."""
+    import os
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    from cadre_tpu_torch.envs.autoagents import NpcAgent
+    from cadre_tpu_torch.envs.openscenario import (
+        build_manager,
+        load_openscenario,
+    )
+    from cadre_tpu_torch.envs.result_writer import ResultOutputProvider
+    from cadre_tpu_torch.envs.sim_env import SimDrivingEnv
+
+    t0 = time.perf_counter()
+    env = SimDrivingEnv(seed=4, vehicle_num=(0, 0))
+    env.reset()
+    route = env._route_xy
+    i = min(40, len(route) - 2)
+    d = route[i + 1] - route[i]
+    heading = math.atan2(d[1], d[0])
+    side = np.array([-math.sin(heading), math.cos(heading)])
+    walker = route[min(80, len(route) - 1)] + 6.0 * side
+    doc = XOSC_HARNESS.format(lx=route[i][0], ly=route[i][1], lh=heading,
+                              wx=walker[0], wy=walker[1])
+    out_dir = _smoke_dir("smoke_harness")
+    path = os.path.join(out_dir, "lead_and_walker.xosc")
+    with open(path, "w") as fh:
+        fh.write(doc)
+    cfg = load_openscenario(path)
+    mgr = build_manager(cfg, env)
+    lead, ped = env._obstacles[-2], env._obstacles[-1]
+    require(lead.speed == 3.0 and ped.kind == "walker",
+            f"13e: spawned {lead.kind}@{lead.speed} and {ped.kind}")
+    agent = NpcAgent()
+    plan = [((float(x), float(y)), 0) for x, y in route[::10]]
+    agent.set_global_plan(plan, plan)
+    start = lead.pos.copy()
+    done, ticks, info, speeds = False, 0, {}, []
+    while not done and ticks < HARNESS_TICKS:
+        mgr.tick(env)
+        data = {"GPS": (ticks, env._pos.copy()),
+                "IMU": (ticks, np.array([0.0, 0.0, math.radians(env._yaw)])),
+                "speed": (ticks, {"speed": env._speed})}
+        _, _, done, info = env.step(agent.run_step(data, ticks * env.dt))
+        speeds.append(lead.speed)
+        ticks += 1
+    board = getattr(env, "blackboard", {})
+    require(board.get("xosc:speed_up:done") and 6.0 in speeds[19:]
+            and board.get("xosc:walk:done")
+            and type(ped._control.controller).__name__ == "PedestrianControl"
+            and float(np.hypot(*(lead.pos - start))) > 3.0 * 2.0,
+            f"13e: storyboard did not run: {sorted(board)}, lead speeds "
+            f"{sorted(set(speeds))}")
+    # scripts/run_scenario.py's route-scaled budget of game time
+    timeout = 0.8 * float(np.hypot(*np.diff(route, axis=0).T).sum()) + 5.0
+    report = ResultOutputProvider(
+        "lead_and_walker", env._criteria, duration_game=ticks * env.dt,
+        duration_system=time.perf_counter() - t0, timeout=timeout,
+        timed_out=ticks * env.dt >= timeout,
+        other_actors=[f"{ob.kind}@{np.round(ob.pos, 1).tolist()}"
+                      for ob in env._obstacles])
+    text = report.write(stdout=False,
+                        filename=os.path.join(out_dir, "report.txt"),
+                        junit=os.path.join(out_dir, "report.xml"))
+    suite = ET.parse(os.path.join(out_dir, "report.xml")).getroot()
+    require("Results of Scenario: lead_and_walker" in text
+            and "╒" in text and int(suite.get("tests")) == len(env._criteria),
+            "13e: the report is not whole")
+    print(f"[13e] harness: {path} ({len(cfg.events)} events) on a sim env "
+          f"driven by an NpcAgent for {ticks} ticks "
+          f"({info.get('error_message') or 'still running'}), "
+          f"report {report.result()} with {len(env._criteria)} criteria in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for line in text.strip().splitlines()[:3]:
+        print(f"[13e]   {line}")
+
+
+def phase_options():
+    """The policy-bank options and the scenario harness; returns 13a's
+    launch counts."""
+    t0 = time.perf_counter()
+    agent, launches = options_iteration()
+    no_memory_iteration()
+    transformer_ensemble_eval(agent)
+    options_act_agreement()
+    harness_run()
+    print(f"[13] phase 13 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 def main(argv) -> int:
@@ -3726,6 +4165,7 @@ def main(argv) -> int:
         host_eval_launches, proc_launches = phase_host_eval(in_process)
         zoo_launches = phase_zoo()
         msgpack_launches, parallel = phase_utilities_and_mesh(pretrained)
+        options_launches = phase_options()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3739,6 +4179,7 @@ def main(argv) -> int:
         entry["launches_host_proc"] = proc_launches[name]
         entry["launches_zoo"] = zoo_launches[name]
         entry["launches_msgpack_eval"] = msgpack_launches[name]
+        entry["launches_options"] = options_launches[name]
         entry["launches_parallel"] = {
             "12b": parallel["12b"][name],
             "12c": [rank[name] for rank in parallel["12c"]]}

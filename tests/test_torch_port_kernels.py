@@ -344,8 +344,8 @@ def test_cuda_entry_points_raise_without_gpu():
 
 def test_port_imports_no_jax():
     """Every module of the port and chip_smoke.py, imported in a fresh
-    process, pull in neither JAX, flax, optax, msgpack nor the JAX
-    package."""
+    process, pull in neither JAX, flax, optax, msgpack, tabulate, pygame
+    nor the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cadre_tpu_torch as p\n"
@@ -354,7 +354,8 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'cadre_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'tabulate', "
+        "'pygame', 'cadre_tpu')]\n"
         "assert len(names) >= 15, names\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
