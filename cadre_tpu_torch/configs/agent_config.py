@@ -1,6 +1,6 @@
-"""Agent, rollout, training and eval configuration: the parts of
-cadre_tpu.configs.agent_config that the training loops and the host-env
-eval read."""
+"""Agent, rollout, training, CARLA env and eval configuration (the
+reference's config_files/agent_config.py and eval_agent_config.py), as
+cadre_tpu.configs.agent_config gives them."""
 from __future__ import annotations
 
 import dataclasses
@@ -82,6 +82,43 @@ class TrainConfig:
     save_interval: int = 100
     log_interval: int = 10
     num_processes: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvConfig:
+    """env_cfg (agent_config.py:60-125): the CARLA servers, their towns,
+    the traffic and the NoCrash route and scenario files. Not the device
+    env's config, which is `envs.torch_env.EnvConfig`."""
+
+    root_path: str = "result"
+    frame_rate: int = 10
+    timeout: float = 60.0
+    client_timeout: float = 60.0
+    vehicle_block_time: int = 400
+    min_speed: float = 5.0
+    max_speed: float = 9.0
+    target_speed: float = 7.0
+    max_degree: float = 90.0
+    host: str = "localhost"
+    training: bool = True
+    route_indexer: str = "priority"
+    num_processes: int = 4
+    ports: Tuple[int, ...] = (8010, 8020, 8030, 8040)
+    towns: Tuple[str, ...] = ("Town01",) * 4
+    amount: Tuple[int, int] = (150, 0)   # (vehicles, walkers)
+    seq_length: int = SEQ_LENGTH
+    routes: Tuple[str, ...] = (
+        "nocrash_route/Nocrash_follow_lane_turn_route.xml",
+        "nocrash_route/Nocrash_right_turn_route.xml",
+        "nocrash_route/Nocrash_left_turn_route.xml",
+        "nocrash_route/Nocrash_straight_turn_route.xml",
+    )
+    scenarios: Tuple[str, ...] = (
+        "nocrash_scenarios/follow_lane_nocrash_scenarios/Town01",
+        "leaderboard/data/all_towns_traffic_scenarios_public.json",
+        "leaderboard/data/all_towns_traffic_scenarios_public.json",
+        "nocrash_scenarios/straight_nocrash_scenarios/Town01",
+    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,11 +1,12 @@
 """Route planner of the host env.
 
 numpy copy of the JAX package's host planner (leaderboard
-team_code/planner.py:240-355 contract) for a route in meters: a deque of
-(position, RoadOption); `run_step(gps)` pops the waypoints passed within
-`min_distance` and returns (near_node, near_command, route_list up to
-`max_distance` of cumulative length ahead). The GPS form of the plan
-(`set_route`) comes with the CARLA env (ROADMAP.md queue A item 17).
+team_code/planner.py:240-355 contract): a deque of (position, RoadOption)
+built from the global plan, GPS lat/lon de-meaned and scaled to meters
+(`set_route`, the CARLA env's) or a route already in meters
+(`set_route_meters`, the sim env's); `run_step(gps)` pops the waypoints
+passed within `min_distance` and returns (near_node, near_command,
+route_list up to `max_distance` of cumulative length ahead).
 """
 from __future__ import annotations
 
@@ -16,16 +17,37 @@ import numpy as np
 
 from cadre_tpu_torch.envs.road_option import RoadOption
 
+# CARLA gps -> meters conversion of the reference (planner.py:248-249)
+GPS_MEAN = np.array([49.0, 49.0])
+GPS_SCALE = np.array([111324.60662786, 111324.60662786])
+
 
 class RoutePlanner:
     def __init__(self, min_distance: float, max_distance: float):
         self.route: deque = deque()
         self.min_distance = min_distance
         self.max_distance = max_distance
+        self.mean = GPS_MEAN.copy()
+        self.scale = GPS_SCALE.copy()
+
+    def set_route(self, global_plan: Sequence[Tuple], gps: bool = False
+                  ) -> None:
+        """global_plan: [({'lat','lon'} | (x, y), RoadOption), ...]."""
+        self.route.clear()
+        for pos, cmd in global_plan:
+            if gps:
+                p = np.array([pos["lat"], pos["lon"]], dtype=np.float64)
+                p = (p - self.mean) * self.scale
+            else:
+                p = np.asarray(pos, dtype=np.float64)[:2] - self.mean
+            self.route.append((p, cmd))
 
     def set_route_meters(self, points: Sequence[Tuple[float, float]],
                          commands: Sequence[RoadOption]) -> None:
-        """The route in meters: (point, command) pairs."""
+        """The route in meters: (point, command) pairs; the planner's
+        mean and scale become 0 and 1, as the JAX planner's do."""
+        self.mean = np.zeros(2)
+        self.scale = np.ones(2)
         self.route.clear()
         for p, c in zip(points, commands):
             self.route.append((np.asarray(p, dtype=np.float64), c))

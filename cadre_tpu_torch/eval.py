@@ -5,7 +5,10 @@ port's `save_snapshot` files, the JAX package's `.msgpack` snapshots or
 the reference's ppo_model_<N>.pt files, mixed as they come; globs
 allowed) drive `--episodes` episodes of
 the kinematic simulator (`--env sim`, with `--routes`, `--scenarios`,
-`--vehicles` and `--walkers`) or the replay env (`--env fake`) through
+`--vehicles` and `--walkers`), a CARLA server (`--env carla`: the `carla`
+package and a server at `--carla-host`:`--carla-port` that loads `--town`,
+on the same four options; the routes are run in order) or the replay env
+(`--env fake`) through
 `rl.evaluate.evaluate`, one averaged control a tick. Per-criterion rows go
 to <work-dir>/criteria_results.csv and the sim env's completion ratios to
 <work-dir>/eval_completion_ratio.csv; the last line printed is the mean
@@ -17,9 +20,6 @@ from __future__ import annotations
 import argparse
 import glob
 import os
-
-CARLA_UNPORTED = ("--env carla: the CARLA env, ROADMAP.md queue A item 17; "
-                  "not ported yet")
 
 
 def parse_args(argv=None):
@@ -43,14 +43,15 @@ def parse_args(argv=None):
                    help="trained encoder (.pt or .msgpack) to freeze in "
                         "the agent")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--carla-host", default="localhost")
+    p.add_argument("--carla-port", type=int, default=8010)
+    p.add_argument("--town", default="Town01")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     """Evaluate; returns the EvalEpisodeResults."""
     args = parse_args(argv)
-    if args.env == "carla":
-        raise NotImplementedError(CARLA_UNPORTED)
 
     from cadre_tpu_torch.configs.agent_config import EvalConfig
     from cadre_tpu_torch.configs.danet_config import danet_params
@@ -80,6 +81,14 @@ def main(argv=None):
         from cadre_tpu_torch.envs.fake_env import FakeDrivingEnv
 
         env = FakeDrivingEnv(seq_length=args.seq_length)
+    elif args.env == "carla":
+        from cadre_tpu_torch.envs.carla_env import CarlaDrivingEnv
+
+        env = CarlaDrivingEnv(
+            host=args.carla_host, port=args.carla_port, town=args.town,
+            routes_file=args.routes, scenario_file=args.scenarios,
+            vehicle_num=(args.vehicles, args.walkers), training=False,
+            seq_length=args.seq_length, work_dir=args.work_dir)
     else:
         from cadre_tpu_torch.envs.sim_env import SimDrivingEnv
 

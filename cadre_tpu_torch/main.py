@@ -14,6 +14,12 @@ The paths of the JAX package's `main.py`:
     traffic of each sim env, `--routes` drives it on a route XML's routes
     and `--scenarios` arms a scenario JSON's adversarial behaviours on
     them.
+  - `--env carla` trains on CARLA servers (`envs/carla_env.py`, the
+    `carla` package and a server per env, which this repository does not
+    ship): env k connects to `--carla-host` at `--carla-port` + 10 k and
+    loads `--town`, on `--routes` (required) with `--scenarios`, on the
+    same three paths as `--env sim`. Without the `carla` package it raises
+    ModuleNotFoundError.
   - `--env jax` runs the whole iteration (render, encode, act, step the
     batched device envs, then GAE and the PPO epochs) on the device
     through `rl.device_rollout.train_device`, and saves a snapshot at the
@@ -43,13 +49,6 @@ import datetime
 import functools
 import os
 
-# flags of the JAX CLI whose features the port does not have yet, by the
-# ROADMAP.md queue A item that ports them
-UNPORTED = {
-    "town": "the CARLA env, ROADMAP.md queue A item 17",
-}
-CARLA_UNPORTED = "--env carla: the CARLA env, ROADMAP.md queue A item 17"
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
@@ -57,7 +56,8 @@ def parse_args(argv=None):
     p.add_argument("--env", default="sim",
                    choices=["sim", "fake", "carla", "jax"],
                    help="'sim': the kinematic host simulator; 'fake': the "
-                        "replay env; 'jax': the batched device env, the "
+                        "replay env; 'carla': CARLA servers; 'jax': the "
+                        "batched device env, the "
                         "whole iteration on the device "
                         "(rl/device_rollout.py)")
     p.add_argument("--episodes", type=int, default=3000,
@@ -101,20 +101,34 @@ def parse_args(argv=None):
     p.add_argument("--mesh", default=None, choices=[None, "data"],
                    help="'data': data-parallel over the torchrun ranks "
                         "(alone: one rank)")
-    # not ported yet: raises (see UNPORTED)
-    p.add_argument("--town", default=None)
+    p.add_argument("--carla-host", default="localhost")
+    p.add_argument("--carla-port", type=int, default=8010,
+                   help="first server port; env k uses port+10*k "
+                        "(reference main.py:63-70 / start_server.sh)")
+    p.add_argument("--town", default="Town01", help="--env carla: the "
+                   "town each server loads")
     return p.parse_args(argv)
 
 
 def make_env(kind: str, rank: int, args, work_dir):
-    """The host env of worker `rank`: its seed is offset by the rank.
-    Picklable as a functools.partial, for the process envs."""
+    """The host env of worker `rank`: its seed is offset by the rank, and a
+    CARLA env's port by 10 * rank (start_server.sh). Picklable as a
+    functools.partial, for the process envs."""
     if kind == "fake":
         from cadre_tpu_torch.envs.fake_env import FakeDrivingEnv
 
         return FakeDrivingEnv(episode_length=args.num_steps,
                               seq_length=args.seq_length,
                               seed=args.seed + rank)
+    if kind == "carla":
+        from cadre_tpu_torch.envs.carla_env import CarlaDrivingEnv
+
+        return CarlaDrivingEnv(
+            host=args.carla_host, port=args.carla_port + 10 * rank,
+            town=args.town, routes_file=args.routes,
+            scenario_file=args.scenarios,
+            vehicle_num=(args.vehicles, args.walkers),
+            seq_length=args.seq_length, work_dir=work_dir, rank=rank)
     from cadre_tpu_torch.envs.sim_env import SimDrivingEnv
 
     return SimDrivingEnv(
@@ -130,19 +144,12 @@ def build_env(args, work_dir):
 
         return FakeDrivingEnv(episode_length=args.num_steps,
                               seq_length=args.seq_length)
-    return make_env("sim", 0, args, work_dir)
+    return make_env(args.env, 0, args, work_dir)
 
 
 def main(argv=None) -> str:
     """Train; returns the path of the last snapshot written."""
     args = parse_args(argv)
-    for name, what in UNPORTED.items():
-        if getattr(args, name):
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')}: {what}; not ported yet")
-    if args.env == "carla":
-        raise NotImplementedError(f"{CARLA_UNPORTED}; not ported yet")
-
     mesh, device, rank, world = None, args.device, 0, 1
     if args.mesh == "data":
         if args.env != "jax" and args.num_envs < 2:

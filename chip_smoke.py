@@ -134,10 +134,29 @@ Phases, each of which must pass:
      load_openscenario and run by build_manager on that SimDrivingEnv
      driven by an NpcAgent for 300 ticks, then ResultOutputProvider's
      text and JUnit report (CPU work, no JAX, no tabulate).
+ 14. the CARLA env and the last three CLIs, on tests/torch_carla_stub.py
+     (an in-process fake of the `carla` client API installed as `carla`:
+     there is no CARLA server here; every figure is the stub world's):
+     (a) `main --env carla --num-envs 4` in process, one stub world at
+     each EnvConfig port (a red light on the first; Scenario1, 3 and 2
+     triggers), one train_vec iteration at T=200 with its launches (one
+     dual attention per tick and the bootstrap's), env-steps/s, the act /
+     env / update split, the scenario actors spawned and the CARLA-side
+     host time per tick (sensor fan-in, planner, control + criteria, the
+     stub's tick); (b) `--num-envs 1 --episodes 1` through `train`; (c)
+     `python -m cadre_tpu_torch.eval --env carla` of (a)'s and (b)'s
+     snapshots over one episode of a 12 m route, its rows printed; (d)
+     `simple_test`, its PNG read back equal to the last tick's frames;
+     (e) `run_scenario` for a registry scenario and 13e's `.xosc`; (f)
+     `run_nocrash_eval` at N=32, T=200, two iterations, the eval of the
+     two snapshots over 25 Town01 routes for 200 steps, its paint and
+     dual-attention launches counted, its rows printed.
 
 It prints one JSON line of kernel figures (launch counts of every phase's
 main path, `launches_msgpack_eval` of 12a, `launches_parallel` of 12b
-and of each 12c rank, and `launches_options` of 13a among them), the card's name and power limit, and,
+and of each 12c rank, `launches_options` of 13a, `launches_carla` of 14a
+and `launches_nocrash` of 14f among them), the card's name and power
+limit, and,
 last, {"ok": true, "device": {...}}. It exits non-zero, printing no
 result, without a CUDA GPU or without the package beside it.
 
@@ -153,6 +172,14 @@ directory holding `cadre_tpu_torch/`, built there at first use) on the same
 inputs, one process per ROOT in the order given, two ways: a CUDA graph of
 200 calls, and 200 calls issued one by one. Give the checkouts to compare
 as A B B A to see the spread between runs.
+
+    python3 chip_smoke.py --phase-times ROOT [ROOT ...]
+
+runs phases 1, 2, 4 and 9 of each checkout ROOT with that checkout's own
+chip_smoke.py, one process per ROOT in the order given, and prints phase
+4's iteration line and phase 9's train_vec and `train` lines of each: the
+same-card comparison of the device and the host-env iterations of two
+commits.
 """
 from __future__ import annotations
 
@@ -628,9 +655,12 @@ ATTENTION_SHAPES = ((32, 128, 16), (256, 128, 16), (25, 128, 16),
                     (PERCEPTION_BATCH, 128, 16), (2, 32, 4))
 # the host-env trainer's calls (phase 9, f32 encoder): the newest frame of
 # each of N_HOST envs on an incremental tick, their 8-frame windows on a
-# refresh tick
+# refresh tick; and the CARLA env trainer's newest frames (phase 14a,
+# CARLA_ENVS envs; its refresh ticks are B=32)
 N_HOST = 8
-HOST_ATTENTION_SHAPES = ((N_HOST, 128, 16), (8 * N_HOST, 128, 16))
+CARLA_ENVS = 4          # 14a's envs: one stub server at each EnvConfig port
+HOST_ATTENTION_SHAPES = ((N_HOST, 128, 16), (8 * N_HOST, 128, 16),
+                         (CARLA_ENVS, 128, 16))
 # the backward kernel's shapes (f32 only): the trainer's and the small
 # head's, timed; and (B, C, Cqk, H, W) held to the plain version only: every
 # cluster size (C = 32-128), P = 49 (K not a multiple of 8) and P = 64
@@ -3727,6 +3757,34 @@ def compare_kernel_times(roots) -> int:
     return 0
 
 
+# the phases `--phase-times` runs from each checkout, and the lines it keeps
+PHASE_TIMES = ("phase_card", "phase_build", "phase_slice", "phase_host_env")
+PHASE_LINES = ("[4] iteration", "[9] train_vec", "[9] train (")
+
+
+def compare_phase_times(roots) -> int:
+    """Phase 4's device iteration and phase 9's host-env iteration and
+    `train` episode of several checkouts, each run by the checkout's own
+    chip_smoke.py in a process of its own, in the order given (A B B A
+    shows the spread between runs); prints each run's figure lines."""
+    import os
+
+    code = "import chip_smoke as cs\n" + "".join(
+        f"cs.{name}()\n" for name in PHASE_TIMES)
+    print(f"[p] card: {card_line()}")
+    for root in roots:
+        root = os.path.abspath(root)
+        out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            print(out.stdout[-3000:] + out.stderr[-3000:], file=sys.stderr)
+            raise PhaseError(f"phases 4 and 9 of {root} failed")
+        for line in out.stdout.splitlines():
+            if line.startswith(PHASE_LINES):
+                print(f"[p] {os.path.relpath(root)}: {line}")
+    return 0
+
+
 # --------------------------------------------------------------- phase 13
 
 # the policy-bank options of the main path's full-width iteration
@@ -4122,6 +4180,379 @@ def phase_options():
     return launches
 
 
+# --------------------------------------------------------------- phase 14
+
+CARLA_SINGLE_STEPS = 20  # 14b's `train` episode
+NOCRASH_ITERATIONS = 2  # 14f
+NOCRASH_EVAL_ROUTES = 25
+NOCRASH_EVAL_SHORT = 3
+
+
+def _carla_stub():
+    """tests/torch_carla_stub.py, the in-process fake of the `carla`
+    client API (this machine has no CARLA server), installed as `carla`;
+    returns the stub module."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_carla_stub.py")
+    spec = importlib.util.spec_from_file_location("torch_carla_stub", path)
+    stub = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(stub)
+    sys.modules["carla"] = stub.make_module()
+    return stub
+
+
+def _carla_files():
+    """A 200 m straight route and a 12 m one on the stub's road, and a
+    scenario JSON whose Scenario1 / Scenario3 / Scenario2 triggers lie
+    within the trigger radius of the start, under build/; returns their
+    paths."""
+    import json
+    import os
+
+    work = _smoke_dir("smoke_carla")
+    paths = {}
+    for name, end in (("long", 200.0), ("short", 12.0)):
+        paths[name] = os.path.join(work, f"{name}.xml")
+        with open(paths[name], "w") as f:
+            f.write('<routes><route id="0" map="Town01">'
+                    '<waypoint x="0" y="0" z="0"/>'
+                    f'<waypoint x="{end}" y="0" z="0"/></route></routes>')
+    events = [{"scenario_type": stype, "available_event_configurations": [
+        {"transform": {"x": x, "y": 0.0, "z": 0.0, "yaw": 0.0}}]}
+        for stype, x in (("Scenario1", 3.0), ("Scenario3", 8.0),
+                         ("Scenario2", 10.0))]
+    paths["scenarios"] = os.path.join(work, "scenarios.json")
+    with open(paths["scenarios"], "w") as f:
+        json.dump({"available_scenarios": [{"Town01": events}]}, f)
+    return paths
+
+
+class _MethodTimer:
+    """Host seconds and calls of methods, by wrapping them on their
+    classes until `restore()`."""
+
+    def __init__(self, methods):
+        self.seconds, self.calls = {}, {}
+        self._saved = []
+        for owner, name in methods:
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[name] = self.seconds.get(name, 0.0) + \
+                    time.perf_counter() - t0
+                self.calls[name] = self.calls.get(name, 0) + 1
+
+        return timed
+
+    def restore(self):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def _captured(module, name):
+    """Wrap `module.name` so that its last return value is kept; returns
+    (holder, restore)."""
+    fn = getattr(module, name)
+    held = {}
+
+    def keep(*args, **kwargs):
+        held["out"] = fn(*args, **kwargs)
+        return held["out"]
+
+    setattr(module, name, keep)
+    return held, lambda: setattr(module, name, fn)
+
+
+def carla_train(stub, files):
+    """14a and 14b: `main --env carla` in process on four stub worlds at
+    EnvConfig.ports (a red-light junction on the first), with the
+    scenario JSON: one train_vec iteration of CARLA_ENVS envs x T_HOST
+    steps, then one `train` episode of CARLA_SINGLE_STEPS steps. Launches
+    counted, the act / env / update split and the CARLA-side host time
+    per tick. Returns (14a's launches, both snapshots)."""
+    import os
+    import shutil
+
+    from cadre_tpu_torch import main as pmain
+    from cadre_tpu_torch.configs.agent_config import EnvConfig
+    from cadre_tpu_torch.envs.carla_env import CarlaDrivingEnv
+    from cadre_tpu_torch.rl import train as ptrain
+    from cadre_tpu_torch.rl import vec_train
+
+    ports = EnvConfig().ports[:CARLA_ENVS]
+    worlds = {port: stub.World("Town01") for port in ports}
+    junction = stub.World("Town01", junction_x=40.0)
+    light = stub.TrafficLight(junction, stub.Transform(stub.Location(38.0)))
+    light.set_state(stub.TrafficLightState.Red)
+    junction._actors.append(light)
+    worlds[ports[0]] = junction
+    stub.Client._worlds = dict(worlds)
+    timer = _MethodTimer([(CarlaDrivingEnv, "_world_step"),
+                          (stub.World, "tick"),
+                          (CarlaDrivingEnv, "_world_tick"),
+                          (CarlaDrivingEnv, "_planner_step"),
+                          (CarlaDrivingEnv, "spawn_scenario_actor")])
+    stats, restore = _captured(vec_train, "train_vec")
+    work = _smoke_dir("smoke_carla_vec")
+    shutil.rmtree(work, ignore_errors=True)
+    argv = ["--env", "carla", "--town", "Town01", "--device", "cuda",
+            "--carla-port", str(ports[0]), "--routes", files["long"],
+            "--scenarios", files["scenarios"], "--work-dir", work]
+    try:
+        t0 = time.perf_counter()
+        path, launches = _counted(lambda: pmain.main(
+            [*argv, "--num-envs", str(CARLA_ENVS), "--num-steps",
+             str(T_HOST), "--iterations", "1"]))
+        seconds = time.perf_counter() - t0
+    finally:
+        restore()
+    require(launches == {"paint": 0, "dual_attention": T_HOST + 1,
+                         "dual_attention_bwd": 0},
+            f"14a launches {launches}, not 0 / {T_HOST + 1} / 0")
+    require(os.path.exists(path), f"14a wrote no {path}")
+    heroes = {port: sum(a.attributes.get("role_name") == "hero"
+                        for a in world.get_actors())
+              for port, world in worlds.items()}
+    require(all(heroes.values()), f"14a: heroes by port {heroes}")
+    spawned = timer.calls.get("spawn_scenario_actor", 0)
+    require(spawned > 0, "14a: no trigger spawned a scenario actor")
+    s = stats["out"][0]
+    losses = [s.value_loss, s.policy_loss, s.entropy_loss]
+    require(all(map(math.isfinite, losses)), f"14a losses {losses}")
+    ticks = timer.calls["_world_tick"]
+    step_s = timer.seconds["_world_step"] - timer.seconds["tick"]
+    steps = T_HOST * CARLA_ENVS
+    iteration_s = sum(s.phase_seconds.values())
+    split = ", ".join(f"{k} {v:.3f} s ({100 * v / iteration_s:.1f}%)"
+                      for k, v in s.phase_seconds.items())
+    print(f"[14a] main --env carla --num-envs {CARLA_ENVS} --num-steps "
+          f"{T_HOST} --iterations 1 (stub world, f32 encoder, ports "
+          f"{list(ports)}): {seconds:.3f} s with its set-up; the iteration "
+          f"{iteration_s:.3f} s, {steps / iteration_s:.1f} env-steps/s; "
+          f"{split}; {s.episodes_finished} episodes ended; {spawned} "
+          f"scenario actors spawned; losses {losses[0]:.5f}/"
+          f"{losses[1]:.5f}/{losses[2]:.5f}; launches {launches}")
+    print(f"[14a] CARLA-side host time per tick over {ticks} ticks (resets "
+          f"included): sensor fan-in (get_data, waiting on the 20 Hz "
+          f"speedometer thread) "
+          f"{1e3 * timer.seconds['_world_tick'] / ticks:.3f} ms, planner "
+          f"{1e3 * timer.seconds['_planner_step'] / ticks:.3f} ms, control"
+          f" + light refresh + criteria "
+          f"{1e3 * step_s / timer.calls['_world_step']:.3f} ms, the stub "
+          f"server's tick "
+          f"{1e3 * timer.seconds['tick'] / timer.calls['tick']:.3f} ms")
+
+    held, restore = _captured(ptrain, "train")
+    rollout, restore_rollout = _captured(ptrain, "collect_rollout")
+    stub.Client._worlds = dict(worlds)
+    single = _smoke_dir("smoke_carla_one")
+    shutil.rmtree(single, ignore_errors=True)
+    argv[argv.index("--work-dir") + 1] = single
+    try:
+        t0 = time.perf_counter()
+        path1, one = _counted(lambda: pmain.main(
+            [*argv, "--num-envs", "1", "--episodes", "1", "--num-steps",
+             str(CARLA_SINGLE_STEPS)]))
+        seconds = time.perf_counter() - t0
+    finally:
+        restore()
+        restore_rollout()
+        timer.restore()
+    # the bootstrap acts unless the rollout's last step ended the episode
+    acts = CARLA_SINGLE_STEPS + (0 if rollout["out"][1] else 1)
+    require(one == {"paint": 0, "dual_attention": acts,
+                    "dual_attention_bwd": 0},
+            f"14b launches {one}, not 0 / {acts} / 0")
+    require(os.path.exists(path1), f"14b wrote no {path1}")
+    e = held["out"][0]
+    print(f"[14b] main --env carla --num-envs 1 --episodes 1 --num-steps "
+          f"{CARLA_SINGLE_STEPS} (train): {seconds:.3f} s with its set-up;"
+          f" losses {e.value_loss:.5f}/{e.policy_loss:.5f}/"
+          f"{e.entropy_loss:.5f}; launches {one}")
+    return launches, [path, path1]
+
+
+def carla_eval(stub, files, members):
+    """14c: `python -m cadre_tpu_torch.eval --env carla` in process
+    (training=False: the sequential RouteIndexer) of 14a's and 14b's
+    snapshots over one episode of the 12 m route with the scenarios, one
+    dual-attention launch per tick; its rows printed."""
+    import os
+    import shutil
+
+    from cadre_tpu_torch import eval as peval
+
+    stub.Client._worlds = {8010: stub.World("Town01")}
+    work = _smoke_dir("smoke_carla_eval")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    results, launches = _counted(lambda: peval.main(
+        ["--env", "carla", "--device", "cuda", "--snapshots", *members,
+         "--episodes", "1", "--routes", files["short"], "--scenarios",
+         files["scenarios"], "--vehicles", "0", "--walkers", "0",
+         "--town", "Town01", "--carla-port", "8010", "--work-dir", work]))
+    seconds = time.perf_counter() - t0
+    ticks = sum(r.steps for r in results)
+    require(len(results) == 1 and ticks > 0, f"14c: {results}")
+    require(launches == {"paint": 0, "dual_attention": ticks,
+                         "dual_attention_bwd": 0},
+            f"14c launches {launches}, not 0 / {ticks} / 0")
+    r = results[0]
+    require(0.0 <= r.completion_ratio <= 100.0
+            and 0.0 <= r.driving_score <= 100.0, f"14c: bad {r}")
+    with open(os.path.join(work, "criteria_results.csv")) as f:
+        rows = f.read().strip().splitlines()
+    require(len(rows) == 2 and rows[0].startswith("RouteCompletionTest"),
+            f"14c: criteria CSV {rows}")
+    print(f"[14c] eval --env carla, K={len(members)} members (14a's and "
+          f"14b's snapshots), one episode of the 12 m route: {ticks} ticks "
+          f"in {seconds:.3f} s with the load, {ticks / seconds:.1f} "
+          f"ticks/s; launches {launches}")
+    print(f"[14c]   row: {vars(r)}")
+    for line in rows:
+        print(f"[14c]   {line}")
+
+
+def carla_clis():
+    """14d and 14e: `simple_test` (its PNG read back equal to the last
+    tick's 8 frames, one dual-attention launch per act) and
+    `run_scenario` for one registry scenario and for phase 13's .xosc
+    (no launches: no model acts), which prints each report."""
+    import os
+
+    import numpy as np
+
+    from cadre_tpu_torch import run_scenario, simple_test
+    from cadre_tpu_torch.perception.visualize import read_png
+    from cadre_tpu_torch.rl.agent import CadreAgent
+
+    png = os.path.join(_smoke_dir("smoke_carla_clis"), "frames.png")
+    timer = _MethodTimer([(CadreAgent, "act")])
+    try:
+        t0 = time.perf_counter()
+        tick, launches = _counted(lambda: simple_test.main(
+            ["--env", "carla", "--device", "cuda", "--out", png]))
+        seconds = time.perf_counter() - t0
+    finally:
+        timer.restore()
+    acts = timer.calls["act"]
+    require(launches == {"paint": 0, "dual_attention": acts,
+                         "dual_attention_bwd": 0},
+            f"14d launches {launches}, not 0 / {acts} / 0")
+    frames = read_png(png)
+    require(frames.shape == (144, 8 * 256, 3) and np.array_equal(
+        frames, np.concatenate(list(tick["rgb"]), axis=1)),
+            f"14d: {png} does not read back as the last tick's frames")
+    print(f"[14d] simple_test --env carla (the sim env, as the JAX "
+          f"script's): {acts} acts in {seconds:.3f} s; {png} "
+          f"{frames.shape} reads back equal; launches {launches}")
+
+    xosc = os.path.join(_smoke_dir("smoke_harness"), "lead_and_walker.xosc")
+    for what, args in (("registry", ["--scenario", "dynamic_object_crossing",
+                                     "--timeout", "20"]),
+                       ("xosc", ["--openscenario", xosc, "--seed", "4",
+                                 "--agent", "npc", "--timeout", "30"])):
+        report = os.path.join(_smoke_dir("smoke_carla_clis"),
+                              f"report_{what}.txt")
+        t0 = time.perf_counter()
+        code, launches = _counted(lambda: run_scenario.main(
+            [*args, "--output-file", report]))
+        seconds = time.perf_counter() - t0
+        require(code in (0, 1) and launches == {
+            "paint": 0, "dual_attention": 0, "dual_attention_bwd": 0},
+                f"14e {what}: exit {code}, launches {launches}")
+        with open(report) as f:
+            text = f.read()
+        require("Results of Scenario" in text, f"14e {what}: no report")
+        print(f"[14e] run_scenario {' '.join(args)}: exit {code} in "
+              f"{seconds:.3f} s (its report printed above)")
+
+
+def carla_nocrash():
+    """14f: `run_nocrash_eval` at production width (bf16 encoder) in
+    process: NOCRASH_ITERATIONS device iterations of N_ENVS x T_HOST on a
+    write_lane_routes XML, a snapshot after each, then the eval of both
+    over NOCRASH_EVAL_ROUTES Town01 routes of another XML, tier empty,
+    T_HOST steps. Launches counted: the env reset's two paints and one
+    encode, then two paints and one dual attention per step and the
+    bootstrap's dual attention per iteration, and the same for the
+    eval."""
+    import os
+    import shutil
+
+    from cadre_tpu_torch import run_nocrash_eval
+    from cadre_tpu_torch.envs.town_maps import write_lane_routes
+
+    work = _smoke_dir("smoke_nocrash")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    train = write_lane_routes(os.path.join(work, "train.xml"), 16)
+    evalx = write_lane_routes(os.path.join(work, "eval.xml"),
+                              NOCRASH_EVAL_ROUTES, n_short=NOCRASH_EVAL_SHORT)
+    t0 = time.perf_counter()
+    art, launches = _counted(lambda: run_nocrash_eval.main(
+        ["--device", "cuda", "--num-envs", str(N_ENVS), "--steps",
+         str(T_HOST), "--iterations", str(NOCRASH_ITERATIONS),
+         "--snap-every", "1", "--eval-members", "2", "--tiers", "empty",
+         "--eval-steps", str(T_HOST), "--train-routes", train,
+         "--eval-routes", f"Town01={evalx}", "--workdir",
+         os.path.join(work, "run")]))
+    seconds = time.perf_counter() - t0
+    train_paint = 2 + 2 * T_HOST * NOCRASH_ITERATIONS
+    train_attention = 1 + (T_HOST + 1) * NOCRASH_ITERATIONS
+    want = {"paint": train_paint + 2 + 2 * T_HOST,
+            "dual_attention": train_attention + 1 + T_HOST,
+            "dual_attention_bwd": 0}
+    require(launches == want, f"14f launches {launches}, not {want}")
+    tier = art["eval"]["Town01"]["empty"]
+    require(tier["routes"] == NOCRASH_EVAL_ROUTES and tier["episodes"] > 0
+            and art["protocol"]["ensemble_members"] == 2,
+            f"14f: eval {({k: v for k, v in tier.items() if k != 'rows'})}")
+    for row in tier["rows"]:
+        require(0.0 <= row["completion"] <= 1.0 + 1e-6, f"14f row {row}")
+    print(f"[14f] run_nocrash_eval N={N_ENVS} T={T_HOST} x "
+          f"{NOCRASH_ITERATIONS} iterations + the eval of 2 members over "
+          f"{NOCRASH_EVAL_ROUTES} Town01 routes, {T_HOST} steps, tier "
+          f"empty: {seconds:.3f} s; launches {launches} (training: "
+          f"{train_paint} paints, {train_attention} dual attentions)")
+    for row in art["train"]["rows"]:
+        print(f"[14f]   train {row}")
+    print(f"[14f]   eval Town01/empty: completion {tier['mean_completion']},"
+          f" driving score {tier['mean_driving_score']}, errors "
+          f"{tier['errors']}, {tier['episodes']} episodes")
+    for row in tier["rows"]:
+        print(f"[14f]   eval row {row}")
+    return launches
+
+
+def phase_carla():
+    """The CARLA env on the stub world and the last three CLIs; returns
+    14a's and 14f's launch counts."""
+    t0 = time.perf_counter()
+    stub = _carla_stub()
+    try:
+        files = _carla_files()
+        launches, members = carla_train(stub, files)
+        carla_eval(stub, files, members)
+    finally:
+        stub.Client._worlds = {}
+        sys.modules.pop("carla", None)
+    carla_clis()
+    nocrash = carla_nocrash()
+    print(f"[14] phase 14 in {time.perf_counter() - t0:.1f} s")
+    return launches, nocrash
+
+
 # ---------------------------------------------------------------- main
 
 def main(argv) -> int:
@@ -4143,12 +4574,14 @@ def main(argv) -> int:
         return 2
     if argv[:1] == ["--mesh-step"] and len(argv) == 2:
         return mesh_step_worker(argv[1])
-    if argv[:1] == ["--kernel-times"] and len(argv) > 1:
-        try:
-            return compare_kernel_times(argv[1:])
-        except PhaseError as exc:
-            print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
-            return 1
+    for flag, compare in (("--kernel-times", compare_kernel_times),
+                          ("--phase-times", compare_phase_times)):
+        if argv[:1] == [flag] and len(argv) > 1:
+            try:
+                return compare(argv[1:])
+            except PhaseError as exc:
+                print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+                return 1
     if argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -4166,6 +4599,7 @@ def main(argv) -> int:
         zoo_launches = phase_zoo()
         msgpack_launches, parallel = phase_utilities_and_mesh(pretrained)
         options_launches = phase_options()
+        carla_launches, nocrash_launches = phase_carla()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4180,6 +4614,8 @@ def main(argv) -> int:
         entry["launches_zoo"] = zoo_launches[name]
         entry["launches_msgpack_eval"] = msgpack_launches[name]
         entry["launches_options"] = options_launches[name]
+        entry["launches_carla"] = carla_launches[name]
+        entry["launches_nocrash"] = nocrash_launches[name]
         entry["launches_parallel"] = {
             "12b": parallel["12b"][name],
             "12c": [rank[name] for rank in parallel["12c"]]}

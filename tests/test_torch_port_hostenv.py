@@ -815,13 +815,20 @@ def test_cli_host_envs_train_and_save(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--env=carla", "--town=Town01"])
-def test_cli_unported_host_flag_raises(flag):
-    """Flags of the JAX CLI whose features wait for a later item raise,
-    naming it."""
+def test_cli_unported_host_flag_raises(flag, tmp_path, monkeypatch):
+    """The CARLA flags of the JAX CLI are ported: `--town` is accepted,
+    and without a `carla` package `--env carla` raises the
+    ModuleNotFoundError naming it (the JAX CLI's), falling back to no
+    other env."""
     from cadre_tpu_torch import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item"):
-        main.main(["--env", "sim", "--small", "--device", "cpu", flag])
+    monkeypatch.setitem(sys.modules, "carla", None)
+    assert main.parse_args(["--env", "sim", flag]).town == "Town01"
+    carla = [flag] if flag == "--env=carla" else [flag, "--env=carla"]
+    with pytest.raises(ModuleNotFoundError, match="carla") as err:
+        main.main(["--env", "sim", "--small", "--device", "cpu",
+                   "--work-dir", str(tmp_path), *carla])
+    assert err.value.name == "carla"
 
 
 @pytest.mark.parametrize("args", [["--env", "sim", "--num-envs", "2"],

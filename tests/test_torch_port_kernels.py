@@ -344,8 +344,9 @@ def test_cuda_entry_points_raise_without_gpu():
 
 def test_port_imports_no_jax():
     """Every module of the port and chip_smoke.py, imported in a fresh
-    process, pull in neither JAX, flax, optax, msgpack, tabulate, pygame
-    nor the JAX package."""
+    process, pull in neither JAX, flax, optax, msgpack, tabulate, pygame,
+    the JAX package nor `carla` (the CARLA env imports it when an env is
+    made)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cadre_tpu_torch as p\n"
@@ -355,7 +356,7 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'tabulate', "
-        "'pygame', 'cadre_tpu')]\n"
+        "'pygame', 'cadre_tpu', 'carla')]\n"
         "assert len(names) >= 15, names\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -539,9 +539,11 @@ def test_eval_cli_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("args", [["--env", "carla"], []])
-def test_eval_cli_refuses(args, tmp_path):
-    """--env carla raises naming item 17; without --device cpu and without
-    a GPU the eval raises instead of running on the CPU."""
+def test_eval_cli_refuses(args, tmp_path, monkeypatch):
+    """Without a `carla` package --env carla raises the
+    ModuleNotFoundError naming it (the JAX CLI's) and evaluates no other
+    env; without --device cpu and without a GPU the eval raises instead
+    of running on the CPU."""
     from cadre_tpu_torch import eval as peval
 
     snap = tmp_path / "m.pt"
@@ -549,8 +551,10 @@ def test_eval_cli_refuses(args, tmp_path):
     argv = [*args, "--snapshots", str(snap), "--small", "--work-dir",
             str(tmp_path / "w")]
     if args:
-        with pytest.raises(NotImplementedError, match="item 17"):
-            peval.main(argv)
+        monkeypatch.setitem(sys.modules, "carla", None)
+        with pytest.raises(ModuleNotFoundError, match="carla") as err:
+            peval.main([*argv, "--device", "cpu", "--town", "Town01"])
+        assert err.value.name == "carla"
         return
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present: the default device works")

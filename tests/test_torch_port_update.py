@@ -507,13 +507,19 @@ def test_cli_trains_and_saves_a_snapshot(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--env=carla", "--town=Town01"])
-def test_cli_unported_flag_raises(flag):
-    """The flags of the JAX CLI whose features the port does not have yet
-    (the CARLA env's) raise, naming the ROADMAP item that ports them."""
+def test_cli_unported_flag_raises(flag, tmp_path, monkeypatch):
+    """The CARLA env's flags of the JAX CLI are ported: `--town` is
+    accepted, and without a `carla` package `--env carla` raises the
+    ModuleNotFoundError naming it instead of training another env."""
     from cadre_tpu_torch import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item"):
-        main.main(["--env", "jax", "--small", "--device", "cpu", flag])
+    monkeypatch.setitem(sys.modules, "carla", None)
+    assert main.parse_args(["--env", "jax", flag]).town == "Town01"
+    carla = [flag] if flag == "--env=carla" else [flag, "--env=carla"]
+    with pytest.raises(ModuleNotFoundError, match="carla") as err:
+        main.main(["--env", "jax", "--small", "--device", "cpu",
+                   "--work-dir", str(tmp_path), *carla])
+    assert err.value.name == "carla"
 
 
 def test_cli_without_gpu_raises():
