@@ -1,6 +1,9 @@
 // Backward of the fused position (PAM) and channel (CAM) attention of the
-// DANet head, f32: per batch row, a thread-block cluster of C / 32 CAM
-// blocks and one PAM block, every product on the tensor cores in 3xTF32.
+// DANet head, f32: per batch row, a thread-block cluster of CAM blocks and
+// one PAM block, every product on the tensor cores in 3xTF32. Two kernels:
+// the first (below) for P <= 64, C <= 128, D <= 32, the main path's heads
+// (resnet18/34 at 144x256); the wide one ("wide kernel" below) for the
+// rest of the domain the wrapper takes, P <= 256, C <= 512, D <= 64.
 //
 // Replaces: no TPU kernel. The JAX package differentiates the plain
 // cadre_tpu/ops/dual_attention.py::pam_apply / cam_apply with XLA's
@@ -37,7 +40,7 @@
 // memory on every step (8 loads for 16 FMA), which capped a block at about
 // a quarter of the FMA rate, and the tensor cores sat idle.
 //
-// Design (0.0216 ms at B = 48, same card):
+// Design of the first kernel (0.0216 ms at B = 48, same card):
 // - Grid (nc, B + ceil(B / nc)) of 256-thread blocks, nc = C / 32 (1-4),
 //   launched with cudaLaunchKernelEx in clusters of (nc, 1, 1). Row y < B
 //   is batch row y's CAM cluster; the rows after it hold one PAM block per
@@ -100,9 +103,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 32;        // Gram rows of one CAM rank
-constexpr int kMaxC = 128;       // limits the wrapper enforces
-constexpr int kMaxP = 64;
-constexpr int kMaxD = 32;
+constexpr int kNarrowC = 128;    // what the narrow kernel takes
+constexpr int kNarrowP = 64;
+constexpr int kNarrowD = 32;
+constexpr int kMaxC = 512;       // what the wide kernel takes (the wrapper's
+constexpr int kMaxP = 256;       // limits)
+constexpr int kMaxD = 64;
+constexpr int kMaxRanks = 8;     // a portable cluster
+constexpr int kCC = 128;         // channels of a slab of dy and v (wide PAM)
 
 // A row stride of at least n words, a multiple of 4 (16-byte rows) and
 // 4 mod 8, so that the 8 x 4 lanes of a fragment load along rows hit
@@ -394,7 +402,7 @@ __device__ void cam_rank(const float* __restrict__ x,
   // a warp holds 4 rows, all at once: Bm = softmax(rowmax(G) - G), dgc's
   // share sum(Bm * H), dN = Bm * (gc H - rowsum(gc H * Bm));
   // bm <- gc Bm, dn <- dN
-  constexpr int kPer = kMaxC / 32, kR = kRows / kWarps;
+  constexpr int kPer = kNarrowC / 32, kR = kRows / kWarps;
   float dg_part = 0.0f;
   {
     float n[kR][kPer], h[kR][kPer], m[kR], sum[kR], dot[kR];
@@ -527,30 +535,30 @@ __device__ void cam_rank(const float* __restrict__ x,
 // ------------------------------------------------------- PAM block
 
 // PAM's row softmax and chain rule, rows warp, warp + 8, ... of a warp
-// all at once (R of them; rows past P are all zeros and are not stored):
+// all at once (R of them; rows past `rows` are all zeros and are not
+// stored), over P columns (at most 32 kPer):
 // A = softmax(E) over as, dE = A * (gp G - rowsum(gp G * A)) over es;
 // returns this lane's share of dgp, sum(A * G).
-template <int R>
-__device__ float pam_softmax(float* as, float* es, int P, int lda, float g,
-                             int warp, int lane) {
-  constexpr int kPer = kMaxP / 32;
+template <int R, int kPer>
+__device__ float pam_softmax(float* as, float* es, int rows, int P, int lda,
+                             float g, int warp, int lane) {
   float e[R][kPer], m[R], sum[R];
 #pragma unroll
   for (int rr = 0; rr < R; ++rr) {
     const int p = warp + kWarps * rr;
-    const float* arow = as + min(p, P - 1) * lda;
+    const float* arow = as + min(p, rows - 1) * lda;
     m[rr] = -INFINITY;
 #pragma unroll
     for (int s = 0; s < kPer; ++s) {
       const int r = lane + 32 * s;
-      e[rr][s] = p < P && r < P ? arow[r] : -INFINITY;
+      e[rr][s] = p < rows && r < P ? arow[r] : -INFINITY;
       m[rr] = fmaxf(m[rr], e[rr][s]);
     }
   }
   warp_max_n(m);
 #pragma unroll
   for (int rr = 0; rr < R; ++rr) {
-    const bool row = warp + kWarps * rr < P;
+    const bool row = warp + kWarps * rr < rows;
     sum[rr] = 0.f;
 #pragma unroll
     for (int s = 0; s < kPer; ++s) {
@@ -565,13 +573,13 @@ __device__ float pam_softmax(float* as, float* es, int P, int lda, float g,
   for (int rr = 0; rr < R; ++rr) {
     const int p = warp + kWarps * rr;
     const float inv = sum[rr] > 0.f ? 1.f / sum[rr] : 0.f;
-    const float* grow = es + min(p, P - 1) * lda;
+    const float* grow = es + min(p, rows - 1) * lda;
     dot[rr] = 0.f;
 #pragma unroll
     for (int s = 0; s < kPer; ++s) {
       const int r = lane + 32 * s;
       e[rr][s] *= inv;                                   // A[p][r]
-      gr[rr][s] = p < P && r < P ? grow[r] : 0.f;
+      gr[rr][s] = p < rows && r < P ? grow[r] : 0.f;
       dg_part = fmaf(e[rr][s], gr[rr][s], dg_part);
       dot[rr] = fmaf(g * gr[rr][s], e[rr][s], dot[rr]);
     }
@@ -580,7 +588,7 @@ __device__ float pam_softmax(float* as, float* es, int P, int lda, float g,
 #pragma unroll
   for (int rr = 0; rr < R; ++rr) {
     const int p = warp + kWarps * rr;
-    if (p >= P) continue;
+    if (p >= rows) continue;
 #pragma unroll
     for (int s = 0; s < kPer; ++s) {
       const int r = lane + 32 * s;
@@ -638,10 +646,11 @@ __device__ void pam_block(const float* __restrict__ q,
   }
   __syncthreads();
 
-  const float dg_part = P <= 5 * kWarps
-                            ? pam_softmax<5>(as, es, P, lda, g, warp, lane)
-                            : pam_softmax<kMaxP / kWarps>(as, es, P, lda, g,
-                                                          warp, lane);
+  const float dg_part =
+      P <= 5 * kWarps
+          ? pam_softmax<5, kNarrowP / 32>(as, es, P, P, lda, g, warp, lane)
+          : pam_softmax<kNarrowP / kWarps, kNarrowP / 32>(as, es, P, P, lda, g,
+                                                    warp, lane);
   __syncthreads();
 
   // dv^T = gp dy^T A, [C, P], K = P (masked): 16 channels by all of P
@@ -679,7 +688,362 @@ __device__ void pam_block(const float* __restrict__ q,
   if (threadIdx.x == 0) *dg = total;
 }
 
-// ------------------------------------------------------- kernel
+// ------------------------------------------------------- wide kernel
+//
+// Shapes past the narrow kernel's (P > 64, C > 128 or D > 32: deep
+// backbones' C = 512, D = 64 heads, cameras of more than 5 x 8 features)
+// need another split: the narrow CAM rank holds x, two [32, C] matrices
+// and an [nc, P, 32] receive buffer (312 KB at C = 512, P = 40), and the
+// narrow PAM block two [P, P] matrices beside v and dy (over 1 MB at
+// P = 256, C = 512). This kernel keeps every block's shared memory to
+// [P, 32] slabs and [32, 32] or [32, P] tiles:
+// - CAM: a cluster of S = C / 32 ranks (at most 8; above C = 256 a rank
+//   takes two 32-row groups, so that the cluster stays portable), rank r
+//   owning groups g = r, r + S, ... of Gram rows and of dx_c columns.
+//   Pass 1, per group g and chunk c of 32 columns: G[g, c] = x_g^T x_c and
+//   H[g, c] = dy_g^T x_c, folded into each row's running min mu_i (the
+//   softmax of rowmax(G) - G is exp(min_j G_ij - G_ij) / S_i), sum
+//   S_i = sum_j exp(mu_i - G_ij) and W_i = sum_j H_ij exp(mu_i - G_ij),
+//   rescaled as mu falls; then dot_i = gc W_i / S_i and the rank's share
+//   of dgc, sum_i W_i / S_i. Each rank stores (mu, 1 / S, dot) of its
+//   rows into every rank's shared memory (distributed shared memory:
+//   3 C floats a rank, where the narrow kernel sends [P, C]). Pass 2, per
+//   group g and chunk c: G[c, g], H[c, g] and H[g, c] again, from them
+//   M = gc Bm[c, g] and N = dN[c, g] + dN[g, c]^T with every row's
+//   statistics, and dx_c[:, g] = dy_g + sum_c (dy_c M - x_c N) in
+//   registers. That is 7 C^2 P multiply-adds a row against the narrow
+//   kernel's 5, for no [P, C] exchange.
+// - PAM: one block per batch row (no cluster barrier). Pass 1, per chunk
+//   of 32 query rows: E = q_Q k^T and G = dy_Q v^T over all keys (v and
+//   dy in 128-channel slabs), whole rows, so their softmax and chain rule
+//   run as in the narrow block; dq_Q = dE_Q k; A_Q and dE_Q go to a
+//   [B, 2, P, P'] f32 scratch the wrapper allocates, transposed (P' = P
+//   rounded up to 4). Pass 2, per chunk K of 32 keys: dk_K = dE[:, K]^T q
+//   and dv_K = gp A[:, K]^T dy (dy in 32-channel slabs), reading the
+//   scratch back. The attention is still recomputed from the inputs, not
+//   saved by the forward; the scratch lives for this launch only.
+// Shared memory: 167 KB (CAM) and 179 KB (PAM) at P = 256, C = 512,
+// D = 64; 43 KB and 64 KB at P = 40. Gamma shares as in the narrow
+// kernel, [2, B, S].
+
+__host__ __device__ inline int wide_ranks(int C) {
+  const int nc = C / kRows;
+  return nc <= kMaxRanks ? nc : (nc + 1) / 2;
+}
+__host__ __device__ inline int scratch_ld(int P) { return (P + 3) / 4 * 4; }
+
+__host__ __device__ inline size_t cam_wide_floats(int P, int C) {
+  return 4 * static_cast<size_t>(P) * ld4(kRows) +
+         3 * static_cast<size_t>(kRows) * ld4(kRows) + 3 * static_cast<size_t>(C);
+}
+__host__ __device__ inline size_t pam_wide_floats(int P, int D) {
+  const size_t pass1 = static_cast<size_t>(kRows) * ld4(D) +
+                       2 * static_cast<size_t>(kRows) * ld4(kCC) +
+                       2 * static_cast<size_t>(kRows) * ld4(P);
+  const size_t pass2 = 2 * static_cast<size_t>(kRows) * ld4(P) +
+                       static_cast<size_t>(P) * ld4(kRows);
+  return static_cast<size_t>(P) * ld4(D) + (pass1 > pass2 ? pass1 : pass2);
+}
+size_t wide_smem_bytes(int P, int C, int D) {
+  const size_t a = cam_wide_floats(P, C), b = pam_wide_floats(P, D);
+  return (a > b ? a : b) * sizeof(float);
+}
+
+template <int R>
+__device__ __forceinline__ void warp_min_n(float (&v)[R]) {
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      v[r] = fminf(v[r], __shfl_xor_sync(0xffffffffu, v[r], o));
+}
+
+// CAM rank r of S of one batch row (see above). x, dy, dx: [P, C].
+__device__ void cam_rank_wide(const float* __restrict__ x,
+                              const float* __restrict__ dy, float g,
+                              float* __restrict__ dx, float* __restrict__ dg,
+                              int P, int C, int r, int S, float* sm,
+                              float* red) {
+  constexpr int ld = ld4(kRows);
+  constexpr int kR = kRows / kWarps;          // rows of a warp in pass 1
+  const int nc = C / kRows;
+  float* xg = sm;                      // [P][ld]: x[:, I_g]
+  float* dyg = xg + P * ld;            // [P][ld]: dy[:, I_g]
+  float* xc = dyg + P * ld;            // [P][ld]: x[:, I_c]
+  float* dyc = xc + P * ld;            // [P][ld]: dy[:, I_c]
+  float* t1 = dyc + P * ld;            // [32][ld]: G, then M
+  float* t2 = t1 + kRows * ld;         // [32][ld]: H[c, g], then N
+  float* t3 = t2 + kRows * ld;         // [32][ld]: H[g, c]
+  float* mu = t3 + kRows * ld;         // [C]: row min of G
+  float* inv = mu + C;                 // [C]: 1 / S
+  float* dot = inv + C;                // [C]: gc W / S
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = 16 * (warp & 1), n0 = 8 * (warp >> 1);   // a 32 x 32 tile
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive();                    // this block has started
+  float dg_part = 0.0f;
+  bool peers_started = false;
+
+  // pass 1: the statistics of the rows of this rank's groups
+  for (int grp = r; grp < nc; grp += S) {
+    const int g0 = kRows * grp;
+    load_rows4(xg, ld, x, P, kRows, C, g0);
+    load_rows4(dyg, ld, dy, P, kRows, C, g0);
+    float m[kR], s[kR], w[kR];
+#pragma unroll
+    for (int rr = 0; rr < kR; ++rr) {
+      m[rr] = INFINITY;
+      s[rr] = w[rr] = 0.f;
+    }
+    for (int c = 0; c < nc; ++c) {
+      load_rows4(xc, ld, x, P, kRows, C, kRows * c);
+      cp_wait_all();
+      __syncthreads();
+      float acc[2][1][4];
+      zero(acc);
+      warp_mma3(acc, {View{xg, 1, ld, kRows}, View{dyg, 1, ld, kRows}},
+                {m0, m0}, 2, View{xc, 1, ld, kRows}, n0, P);
+      store_tile(acc[0], m0, n0, kRows, kRows,
+                 [&](int i, int j, float v) { t1[i * ld + j] = v; });
+      store_tile(acc[1], m0, n0, kRows, kRows,
+                 [&](int i, int j, float v) { t3[i * ld + j] = v; });
+      __syncthreads();
+      float gv[kR], hv[kR], cm[kR], es[kR], eh[kR];
+#pragma unroll
+      for (int rr = 0; rr < kR; ++rr) {
+        const int i = warp + kWarps * rr;
+        gv[rr] = t1[i * ld + lane];
+        hv[rr] = t3[i * ld + lane];
+        cm[rr] = gv[rr];
+      }
+      warp_min_n(cm);
+#pragma unroll
+      for (int rr = 0; rr < kR; ++rr) {
+        const float nm = fminf(m[rr], cm[rr]);
+        const float scale = expf(nm - m[rr]);    // 0 on the first chunk
+        es[rr] = expf(nm - gv[rr]);
+        eh[rr] = es[rr] * hv[rr];
+        s[rr] *= scale;
+        w[rr] *= scale;
+        m[rr] = nm;
+      }
+      warp_sum_n(es);
+      warp_sum_n(eh);
+#pragma unroll
+      for (int rr = 0; rr < kR; ++rr) {
+        s[rr] += es[rr];
+        w[rr] += eh[rr];
+      }
+    }
+    if (!peers_started) {
+      cluster_wait();                  // every peer has started
+      peers_started = true;
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int rr = 0; rr < kR; ++rr) {
+        const int i = g0 + warp + kWarps * rr;
+        const float is = 1.f / s[rr];
+        dg_part += w[rr] * is;
+        for (int q = 0; q < S; ++q) {
+          float* to = cluster.map_shared_rank(mu, q);
+          to[i] = m[rr];
+          to[C + i] = is;
+          to[2 * C + i] = g * w[rr] * is;
+        }
+      }
+    }
+  }
+  if (!peers_started) cluster_wait();
+  cluster_arrive();                    // this rank's statistics are sent
+  cluster_wait();                      // every rank's have arrived; no rank
+                                       // touches another's memory after this
+
+  // pass 2: dx_c[:, I_g] for this rank's groups, P rows in m16 tiles
+  // (warp w: tiles w and w + 8) by 32 columns
+  const int mtiles = (P + 15) / 16;
+  const int mt = (warp < mtiles) + (warp + kWarps < mtiles);
+  for (int grp = r; grp < nc; grp += S) {
+    const int g0 = kRows * grp;
+    if (S < nc) {                      // else x_g and dy_g are still loaded
+      __syncthreads();                 // the last group's dx is stored
+      load_rows4(xg, ld, x, P, kRows, C, g0);
+      load_rows4(dyg, ld, dy, P, kRows, C, g0);
+    }
+    float acc[2][4][4];
+    zero(acc);
+    for (int c = 0; c < nc; ++c) {
+      const int c0 = kRows * c;
+      load_rows4(xc, ld, x, P, kRows, C, c0);
+      load_rows4(dyc, ld, dy, P, kRows, C, c0);
+      cp_wait_all();
+      __syncthreads();
+      {
+        // t1 = G[c, g] = x_c^T x_g, t2 = H[c, g] = dy_c^T x_g,
+        // t3 = H[g, c] = dy_g^T x_c
+        float a2[2][1][4], a1[1][1][4];
+        zero(a2);
+        zero(a1);
+        warp_mma3(a2, {View{xc, 1, ld, kRows}, View{dyc, 1, ld, kRows}},
+                  {m0, m0}, 2, View{xg, 1, ld, kRows}, n0, P);
+        warp_mma3(a1, {View{dyg, 1, ld, kRows}}, {m0}, 1,
+                  View{xc, 1, ld, kRows}, n0, P);
+        store_tile(a2[0], m0, n0, kRows, kRows,
+                   [&](int i, int j, float v) { t1[i * ld + j] = v; });
+        store_tile(a2[1], m0, n0, kRows, kRows,
+                   [&](int i, int j, float v) { t2[i * ld + j] = v; });
+        store_tile(a1[0], m0, n0, kRows, kRows,
+                   [&](int i, int j, float v) { t3[i * ld + j] = v; });
+      }
+      __syncthreads();
+      // M[i, j] = gc Bm[c_i, g_j]; N[i, j] = dN[c_i, g_j] + dN[g_j, c_i]
+      for (int e = threadIdx.x; e < kRows * kRows; e += kThreads) {
+        const int i = e / kRows, j = e % kRows;
+        const int ci = c0 + i, gj = g0 + j;
+        const float gij = t1[i * ld + j];
+        const float bc = expf(mu[ci] - gij) * inv[ci];
+        const float bg = expf(mu[gj] - gij) * inv[gj];
+        const float ncg = bc * (g * t2[i * ld + j] - dot[ci]);
+        const float ngc = bg * (g * t3[j * ld + i] - dot[gj]);
+        t1[i * ld + j] = g * bc;
+        t2[i * ld + j] = ncg + ngc;
+      }
+      __syncthreads();
+      if (mt > 0) {
+        const int ms[2] = {16 * warp, 16 * (warp + kWarps)};
+        warp_mma3(acc, {View{dyc, ld, 1, P}, View{dyc, ld, 1, P}}, ms, mt,
+                  View{t1, 1, ld, kRows}, 0, kRows);
+        warp_mma3<2, 4, true>(acc, {View{xc, ld, 1, P}, View{xc, ld, 1, P}},
+                              ms, mt, View{t2, 1, ld, kRows}, 0, kRows);
+      }
+      __syncthreads();                 // before the next chunk's loads
+    }
+    for (int i = 0; i < mt; ++i) {
+      store_tile(acc[i], 16 * (warp + kWarps * i), 0, P, kRows,
+                 [&](int p, int j, float v) {
+                   dx[p * C + g0 + j] = dyg[p * ld + j] + v;
+                 });
+    }
+  }
+  const float total = block_sum(dg_part, red);
+  if (threadIdx.x == 0) *dg = total;
+}
+
+// PAM of one batch row (see above); scr: this row's [2][P][P'] scratch.
+// q, k, dq, dk: [P, D]; v, dy, dv: [P, C].
+__device__ void pam_block_wide(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const float* __restrict__ dy, float g,
+                               float* __restrict__ dq, float* __restrict__ dk,
+                               float* __restrict__ dv, float* __restrict__ dg,
+                               float* __restrict__ scr, int P, int C, int D,
+                               float* sm, float* red) {
+  constexpr int ldc = ld4(kCC), ld32 = ld4(kRows);
+  const int ldq = ld4(D), lde = ld4(P), sp = scratch_ld(P);
+  const int nchunks = (P + kRows - 1) / kRows, ntd = (D + 7) / 8;
+  float* kq = sm;                      // [P][ldq]: k (pass 1), q (pass 2)
+  float* qs = kq + P * ldq;            // pass 1: [32][ldq] q_Q
+  float* dys = qs + kRows * ldq;       //         [32][ldc] dy_Q slab
+  float* vs = dys + kRows * ldc;       //         [32][ldc] v_K slab
+  float* es = vs + kRows * ldc;        //         [32][lde] E, then A
+  float* gs = es + kRows * lde;        //         [32][lde] G, then dE
+  float* at = kq + P * ldq;            // pass 2: [32][lde] A[:, K]^T
+  float* det = at + kRows * lde;       //         [32][lde] dE[:, K]^T
+  float* dyc = det + kRows * lde;      //         [P][ld32] dy slab
+  float* sa = scr;                     // [P][sp]: A^T
+  float* se = scr + static_cast<size_t>(P) * sp;   // [P][sp]: dE^T
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = 16 * (warp & 1), n0 = 8 * (warp >> 1);   // a 32 x 32 tile
+  float dg_part = 0.f;
+  load_rows(kq, ldq, k, P, D);
+
+  // pass 1, per chunk of query rows
+  for (int qc = 0; qc < nchunks; ++qc) {
+    const int q0 = kRows * qc, nq = min(kRows, P - q0);
+    load_rows(qs, ldq, q + q0 * D, nq, D);
+    for (int kc = 0; kc < nchunks; ++kc) {
+      const int k0 = kRows * kc, nk = min(kRows, P - k0);
+      float ag[1][1][4], ae[1][1][4];
+      zero(ag);
+      zero(ae);
+      for (int c0 = 0; c0 < C; c0 += kCC) {
+        const int cw = min(kCC, C - c0);
+        load_rows4(dys, ldc, dy + q0 * C, nq, cw, C, c0);
+        load_rows4(vs, ldc, v + k0 * C, nk, cw, C, c0);
+        cp_wait_all();
+        __syncthreads();
+        warp_mma3(ag, {View{dys, ldc, 1, nq}}, {m0}, 1,
+                  View{vs, ldc, 1, nk}, n0, cw);
+        __syncthreads();
+      }
+      warp_mma3(ae, {View{qs, ldq, 1, nq}}, {m0}, 1,
+                View{kq + k0 * ldq, ldq, 1, nk}, n0, D);
+      store_tile(ae[0], m0, n0, nq, nk,
+                 [&](int i, int j, float e) { es[i * lde + k0 + j] = e; });
+      store_tile(ag[0], m0, n0, nq, nk,
+                 [&](int i, int j, float e) { gs[i * lde + k0 + j] = e; });
+    }
+    __syncthreads();
+    dg_part += pam_softmax<kRows / kWarps, kMaxP / 32>(es, gs, nq, P, lde, g,
+                                                       warp, lane);
+    __syncthreads();
+    // dq_Q = dE_Q k, [32, D], K = P: items of 16 x 8
+    for (int item = warp; item < 2 * ntd; item += kWarps) {
+      const int im = 16 * (item & 1), in = 8 * (item >> 1);
+      float acc[1][1][4];
+      zero(acc);
+      warp_mma3(acc, {View{gs, lde, 1, nq}}, {im}, 1, View{kq, 1, ldq, D}, in,
+                P);
+      store_tile(acc[0], im, in, nq, D,
+                 [&](int i, int d, float s) { dq[(q0 + i) * D + d] = s; });
+    }
+    // A_Q^T and dE_Q^T into the scratch, coalesced along the queries
+    for (int e = threadIdx.x; e < nq * P; e += kThreads) {
+      const int key = e / nq, i = e % nq;
+      sa[key * sp + q0 + i] = es[i * lde + key];
+      se[key * sp + q0 + i] = gs[i * lde + key];
+    }
+    __syncthreads();
+  }
+
+  // pass 2, per chunk of keys
+  load_rows(kq, ldq, q, P, D);
+  for (int kc = 0; kc < nchunks; ++kc) {
+    const int k0 = kRows * kc, nk = min(kRows, P - k0);
+    load_rows4(at, lde, sa + k0 * sp, nk, sp, sp, 0);
+    load_rows4(det, lde, se + k0 * sp, nk, sp, sp, 0);
+    cp_wait_all();
+    __syncthreads();
+    // dk_K = dE[:, K]^T q, [32, D], K = P
+    for (int item = warp; item < 2 * ntd; item += kWarps) {
+      const int im = 16 * (item & 1), in = 8 * (item >> 1);
+      float acc[1][1][4];
+      zero(acc);
+      warp_mma3(acc, {View{det, lde, 1, nk}}, {im}, 1, View{kq, 1, ldq, D},
+                in, P);
+      store_tile(acc[0], im, in, nk, D,
+                 [&](int i, int d, float s) { dk[(k0 + i) * D + d] = s; });
+    }
+    // dv_K = gp A[:, K]^T dy, [32, C], K = P, 32 channels at a time
+    for (int c0 = 0; c0 < C; c0 += kRows) {
+      load_rows4(dyc, ld32, dy, P, kRows, C, c0);
+      cp_wait_all();
+      __syncthreads();
+      float acc[1][1][4];
+      zero(acc);
+      warp_mma3(acc, {View{at, lde, 1, nk}}, {m0}, 1,
+                View{dyc, 1, ld32, kRows}, n0, P);
+      store_tile(acc[0], m0, n0, nk, kRows, [&](int i, int c, float s) {
+        dv[(k0 + i) * C + c0 + c] = g * s;
+      });
+      __syncthreads();
+    }
+  }
+  const float total = block_sum(dg_part, red);
+  if (threadIdx.x == 0) *dg = total;
+}
+
+// ------------------------------------------------------- kernels
 
 // Block (r, y), y < B: CAM rank r (its cluster rank) of batch row y;
 // block (x, y), y >= B: the PAM block of batch row (y - B) nc + x, if
@@ -719,27 +1083,50 @@ dual_attention_bwd_kernel(const float* __restrict__ q,
   }
 }
 
-// Opts the kernel in to the dynamic shared memory of the largest shape the
-// wrapper allows and to the largest shared-memory carveout, once per
-// device (the attributes are the device's, so later launches there skip
-// the host calls).
-cudaError_t opt_in_smem() {
-  static std::atomic<unsigned long long> done{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(dual_attention_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_bytes(kMaxP, kMaxC, kMaxD)));
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(dual_attention_bwd_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+// The same grid and share layout with S = wide_ranks(C) blocks to a
+// cluster; scratch: [B, 2, P, scratch_ld(P)] f32 for the PAM blocks. Two
+// blocks an SM (128 registers, a few bytes of spills): at one (178
+// registers) only 15 clusters of 8 were active at once, and B = 48,
+// C = 512 took 0.795 ms against 0.535 (H100 80GB HBM3, 700 W).
+__global__ void __launch_bounds__(kThreads, 2)
+dual_attention_bwd_wide_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const float* __restrict__ gp,
+                               const float* __restrict__ xc,
+                               const float* __restrict__ gc,
+                               const float* __restrict__ dyp,
+                               const float* __restrict__ dyc,
+                               float* __restrict__ dq, float* __restrict__ dk,
+                               float* __restrict__ dv, float* __restrict__ dxc,
+                               float* __restrict__ dgamma,
+                               float* __restrict__ scratch, int B, int P,
+                               int C, int D) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float red[kWarps];
+  const int S = wide_ranks(C);
+  const bool cam = blockIdx.y < B;
+  const int rank = blockIdx.x;
+  const int b = cam ? blockIdx.y : (blockIdx.y - B) * S + blockIdx.x;
+  if (b >= B) return;                  // past the last PAM block
+  const size_t ov = static_cast<size_t>(b) * P * C;
+  const size_t oq = static_cast<size_t>(b) * P * D;
+  float* share = dgamma + static_cast<size_t>(b) * S;
+  if (cam) {
+    cam_rank_wide(xc + ov, dyc + ov, gc[0], dxc + ov,
+                  share + static_cast<size_t>(B) * S + rank, P, C, rank, S,
+                  sm, red);
+  } else {
+    if (threadIdx.x > 0 && threadIdx.x < S) share[threadIdx.x] = 0.f;
+    pam_block_wide(q + oq, k + oq, v + ov, dyp + ov, gp[0], dq + oq, dk + oq,
+                   dv + ov, share,
+                   scratch + static_cast<size_t>(b) * 2 * P * scratch_ld(P),
+                   P, C, D, sm, red);
   }
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
+}
+
+bool narrow(int P, int C, int D) {
+  return P <= kNarrowP && C <= kNarrowC && D <= kNarrowD;
 }
 
 bool takes(int P, int C, int D) {
@@ -747,15 +1134,54 @@ bool takes(int P, int C, int D) {
          D >= 1 && D <= kMaxD;
 }
 
-// The launch of B batch rows: a grid of (nc, B + ceil(B / nc)) blocks in
-// clusters of (nc, 1, 1), nc = C / 32.
+int cluster_size(int P, int C, int D) {
+  return narrow(P, C, D) ? C / kRows : wide_ranks(C);
+}
+
+// Opts both kernels in to the dynamic shared memory of the largest shape
+// each takes and to the largest shared-memory carveout, once per device
+// (the attributes are the device's, so later launches there skip the host
+// calls).
+cudaError_t opt_in_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      dual_attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes(kNarrowP, kNarrowC, kNarrowD)));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(dual_attention_bwd_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        dual_attention_bwd_wide_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(wide_smem_bytes(kMaxP, kMaxC, kMaxD)));
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(dual_attention_bwd_wide_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// The launch of B batch rows: a grid of (S, B + ceil(B / S)) blocks in
+// clusters of (S, 1, 1), S = cluster_size(P, C, D).
 void configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B,
                int P, int C, int D, cudaStream_t stream) {
-  const int size = C / kRows;
+  const int size = cluster_size(P, C, D);
   cfg = cudaLaunchConfig_t{};
   cfg.gridDim = dim3(size, B + (B + size - 1) / size, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem_bytes(P, C, D);
+  cfg.dynamicSmemBytes =
+      narrow(P, C, D) ? smem_bytes(P, C, D) : wide_smem_bytes(P, C, D);
   cfg.stream = stream;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = size;
@@ -769,43 +1195,60 @@ void configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B,
 
 // q, k, dq, dk: [B, P, D]; v, x_cam, dy_pam, dy_cam, dv, dx_cam: [B, P, C];
 // gamma_pam, gamma_cam: [1]; all f32, contiguous, on the device; v, x_cam,
-// dy_pam, dy_cam and dx_cam 16-byte aligned. dgamma: [2, B * C / 32] f32;
-// row 0 gets each batch row's share of dgamma_pam (then C / 32 - 1 zeros),
-// row 1 each CAM rank's share of dgamma_cam, so that one sum over the
-// last axis gives both. 1 <= P <= 64, C a multiple of 32 up to
-// 128, 1 <= D <= 32 (the wrapper checks). Returns cudaGetLastError() (or
+// dy_pam, dy_cam and dx_cam 16-byte aligned. dgamma: [2, B * S] f32,
+// S = dual_attention_bwd_cluster_size(P, C, D); row 0 gets each batch
+// row's share of dgamma_pam (then S - 1 zeros), row 1 each CAM rank's
+// share of dgamma_cam, so that one sum over the last axis gives both.
+// scratch: [B, 2, P, (P + 3) / 4 * 4] f32, read only by the wide kernel
+// (P > 64, C > 128 or D > 32). 1 <= P <= 256, C a multiple of 32 up to
+// 512, 1 <= D <= 64 (the wrapper checks). Returns cudaGetLastError() (or
 // the error of the shared-memory opt-in or of the launch).
 extern "C" int dual_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* gamma_pam,
     const void* x_cam, const void* gamma_cam, const void* dy_pam,
     const void* dy_cam, void* dq, void* dk, void* dv, void* dx_cam,
-    void* dgamma, int B, int P, int C, int D, void* stream) {
+    void* dgamma, void* scratch, int B, int P, int C, int D, void* stream) {
   if (!takes(P, C, D) || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = opt_in_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   configure(cfg, attr, B, P, C, D, static_cast<cudaStream_t>(stream));
-  err = cudaLaunchKernelEx(
-      &cfg, dual_attention_bwd_kernel, static_cast<const float*>(q),
-      static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(gamma_pam), static_cast<const float*>(x_cam),
-      static_cast<const float*>(gamma_cam), static_cast<const float*>(dy_pam),
-      static_cast<const float*>(dy_cam), static_cast<float*>(dq),
-      static_cast<float*>(dk), static_cast<float*>(dv),
-      static_cast<float*>(dx_cam), static_cast<float*>(dgamma), B, P, C, D);
+  const float* args[8] = {
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(gamma_pam),
+      static_cast<const float*>(x_cam), static_cast<const float*>(gamma_cam),
+      static_cast<const float*>(dy_pam), static_cast<const float*>(dy_cam)};
+  if (narrow(P, C, D)) {
+    err = cudaLaunchKernelEx(
+        &cfg, dual_attention_bwd_kernel, args[0], args[1], args[2], args[3],
+        args[4], args[5], args[6], args[7], static_cast<float*>(dq),
+        static_cast<float*>(dk), static_cast<float*>(dv),
+        static_cast<float*>(dx_cam), static_cast<float*>(dgamma), B, P, C, D);
+  } else {
+    err = cudaLaunchKernelEx(
+        &cfg, dual_attention_bwd_wide_kernel, args[0], args[1], args[2],
+        args[3], args[4], args[5], args[6], args[7], static_cast<float*>(dq),
+        static_cast<float*>(dk), static_cast<float*>(dv),
+        static_cast<float*>(dx_cam), static_cast<float*>(dgamma),
+        static_cast<float*>(scratch), B, P, C, D);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Bytes of dynamic shared memory one block uses, which chip_smoke.py
-// reports beside the kernel's times.
+// reports beside the kernel's times; -1 for a shape it does not take.
 extern "C" long long dual_attention_bwd_smem_bytes(int P, int C, int D) {
-  return static_cast<long long>(smem_bytes(P, C, D));
+  if (!takes(P, C, D)) return -1;
+  return static_cast<long long>(narrow(P, C, D) ? smem_bytes(P, C, D)
+                                                : wide_smem_bytes(P, C, D));
 }
 
-// Blocks in one cluster.
-extern "C" int dual_attention_bwd_cluster_size(int C) { return C / kRows; }
+// Blocks in one cluster (S); -1 for a shape the kernel does not take.
+extern "C" int dual_attention_bwd_cluster_size(int P, int C, int D) {
+  return takes(P, C, D) ? cluster_size(P, C, D) : -1;
+}
 
 // How many of a shape's clusters the device can hold at once
 // (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
@@ -818,6 +1261,10 @@ extern "C" int dual_attention_bwd_active_clusters(int P, int C, int D) {
   configure(cfg, attr, 1, P, C, D, nullptr);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(
-      &n, reinterpret_cast<const void*>(dual_attention_bwd_kernel), &cfg);
+      &n,
+      narrow(P, C, D)
+          ? reinterpret_cast<const void*>(dual_attention_bwd_kernel)
+          : reinterpret_cast<const void*>(dual_attention_bwd_wide_kernel),
+      &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }

@@ -24,7 +24,10 @@ kernel: its gradient is XLA's autodiff of the plain functions, which
 here. `dual_attention_backward_blocked` spells out the kernel's algebra in
 its order, for the tests. A call in another type that needs a gradient raises: a kernel never
 returns outputs detached from inputs that require one.
-All tensors are NHWC: x, v [B, H, W, C]; q, k [B, H, W, Cqk].
+All tensors are NHWC: x, v [B, H, W, C]; q, k [B, H, W, Cqk]. Both kernels
+take every head the JAX package builds, P = H * W up to 256, C a multiple
+of 32 up to 512, Cqk up to 64; on CUDA tensors any other shape raises
+ValueError before a launch.
 """
 from __future__ import annotations
 
@@ -42,7 +45,13 @@ backward_launches = 0     # backward kernel launches (dual_attention_backward)
 _ENTRY = {torch.float32: "dual_attention_f32",
           torch.bfloat16: "dual_attention_bf16"}
 _BWD_ENTRY = {torch.float32: "dual_attention_bwd_f32"}
-_MAX_P, _MAX_C, _MAX_D = 64, 128, 32    # what the kernels take (with C % 32)
+# what the kernels take (with C % 32): every head the JAX package builds,
+# resnet50-152's C = 512, Cqk = 64 and cameras of up to 16 x 16 features
+_MAX_P, _MAX_C, _MAX_D = 256, 512, 64
+# the backward's first kernel takes P <= 64, C <= 128, Cqk <= 32 (resnet18
+# and 34 at 144x256); its wide kernel the rest
+_NARROW_P, _NARROW_C, _NARROW_D = 64, 128, 32
+_MAX_RANKS = 8            # CAM ranks of a wide cluster: a portable size
 
 
 def pam_apply(x, q, k, v, gamma) -> torch.Tensor:
@@ -71,12 +80,44 @@ def cam_apply(x, gamma) -> torch.Tensor:
 
 
 def _check_shape(p: int, c: int, d: int) -> None:
-    """Raise unless the kernel takes P positions, C channels, D = Cqk."""
+    """Raise unless the kernels take P positions, C channels, D = Cqk."""
     if not (1 <= p <= _MAX_P and 32 <= c <= _MAX_C and c % 32 == 0
             and 1 <= d <= _MAX_D):
         raise ValueError(f"dual_attention: the kernel takes 1 <= P <= "
                          f"{_MAX_P}, C a multiple of 32 up to {_MAX_C} and "
                          f"1 <= Cqk <= {_MAX_D}; got P={p}, C={c}, Cqk={d}")
+
+
+def backward_narrow(p: int, c: int, d: int) -> bool:
+    """Whether the backward runs its first kernel (else its wide one)."""
+    return p <= _NARROW_P and c <= _NARROW_C and d <= _NARROW_D
+
+
+def backward_cluster_size(p: int, c: int, d: int) -> int:
+    """CAM ranks per batch row of the backward (the blocks of a cluster):
+    one per 32 Gram rows, and in the wide kernel at most _MAX_RANKS, a
+    rank then taking two groups of 32 rows."""
+    groups = c // 32
+    if backward_narrow(p, c, d) or groups <= _MAX_RANKS:
+        return groups
+    return (groups + 1) // 2
+
+
+def smem_bytes(b: int, p: int, c: int, d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the forward kernel launched
+    on B rows of this shape (CUDA only: the plan reads the SM count)."""
+    fn = _build.load("dual_attention").dual_attention_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return int(fn(b, p, c, d, int(dtype == torch.bfloat16)))
+
+
+def backward_smem_bytes(p: int, c: int, d: int) -> int:
+    """Dynamic shared memory of one block of the backward kernel."""
+    fn = _build.load("dual_attention_bwd").dual_attention_bwd_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return int(fn(p, c, d))
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,7 +180,7 @@ def _dual_attention_cuda(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam):
 def _bwd_entry(dtype: torch.dtype):
     """The backward kernel's C entry for `dtype`, loaded and typed once."""
     fn = getattr(_build.load("dual_attention_bwd"), _BWD_ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + \
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -151,12 +192,17 @@ def dual_attention_backward(q, k, v, gamma_pam, x_cam, gamma_cam, dy_pam,
     by the backward kernel (CUDA tensors, f32): (dx_pam, dq, dk, dv,
     dgamma_pam, dx_cam, dgamma_cam), each gamma's gradient shaped and typed
     as the gamma. x_pam is not an input: its gradient is dy_pam. The
-    attention matrices are recomputed from the inputs, not saved. One
-    launch: per batch row a cluster of C / 32 CAM blocks, each owning 32
-    rows of the C x C Gram and exchanging its share of dx_cam through
-    distributed shared memory, and one PAM block; every product in 3xTF32
-    on the tensor cores (as accurate as f32 at these shapes;
-    `dual_attention_backward_blocked` is the same algebra on the CPU).
+    attention matrices are recomputed from the inputs, not saved by the
+    forward. One launch: per batch row a cluster of CAM blocks and one PAM
+    block, every product in 3xTF32 on the tensor cores (as accurate as f32
+    at these shapes; `dual_attention_backward_blocked` is the same algebra
+    on the CPU). Up to P = 64, C = 128, Cqk = 32 (`backward_narrow`) the
+    C / 32 CAM ranks each own 32 rows of the C x C Gram and exchange their
+    shares of dx_cam through distributed shared memory; past that the
+    wide kernel's ranks (at most 8: `backward_cluster_size`) exchange
+    only each Gram row's softmax statistics and own 32 columns of dx_cam
+    each, and its PAM block runs over chunks of 32 queries, then of 32
+    keys, through a [B, 2, P, P'] scratch allocated here for the launch.
     Each gamma's gradient is a sum over B * P * C terms, taken in a fixed
     order (per block in the kernel, one share per block, then the shares
     summed here over a fixed axis), so two calls on the same inputs give
@@ -188,17 +234,22 @@ def dual_attention_backward(q, k, v, gamma_pam, x_cam, gamma_cam, dy_pam,
     gc = _gamma(gamma_cam, dtype, x_cam.device)
     dq, dk = torch.empty_like(q), torch.empty_like(k)
     dv, dx_cam = torch.empty_like(v), torch.empty_like(x_cam)
-    # one share per block, C / 32 per batch row in each row of part: row
-    # 0 the PAM block's of dgamma_pam (padded with zeros), row 1 the CAM
-    # ranks' of dgamma_cam; one reduction over the last axis sums both
-    part = torch.empty(2, b * (c // 32), dtype=torch.float32,
-                       device=x_cam.device)
+    # one share per block, S per batch row in each row of part: row 0 the
+    # PAM block's of dgamma_pam (padded with zeros), row 1 the CAM ranks'
+    # of dgamma_cam; one reduction over the last axis sums both
+    part = torch.empty(2, b * backward_cluster_size(p, c, d),
+                       dtype=torch.float32, device=x_cam.device)
+    # the wide kernel's PAM blocks keep A^T and dE^T here between passes
+    scratch = (None if backward_narrow(p, c, d) else
+               torch.empty(b, 2, p, (p + 3) // 4 * 4, dtype=torch.float32,
+                           device=x_cam.device))
     if b:
         _build.check(_bwd_entry(dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gp.data_ptr(),
             x_cam.data_ptr(), gc.data_ptr(), dy_pam.data_ptr(),
             dy_cam.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dx_cam.data_ptr(), part.data_ptr(), b, p, c, d,
+            dx_cam.data_ptr(), part.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), b, p, c, d,
             _build.cuda_stream(x_cam)), "dual_attention backward")
         backward_launches += 1
     sums = part.sum(dim=1)
@@ -248,16 +299,10 @@ def _matmul(a: torch.Tensor, b: torch.Tensor, products: str) -> torch.Tensor:
 def dual_attention_backward_blocked(q, k, v, gamma_pam, x_cam, gamma_cam,
                                     dy_pam, dy_cam, products="f32"):
     """The backward kernel's algebra, in its order, on any device and
-    dtype: the outputs of `dual_attention_backward`. CAM rank r owns the
-    Gram rows I_r = [32 r, 32 r + 32): G_r = x[:, I_r]^T x and
-    H_r = dy[:, I_r]^T x, Bm_r and dN_r from their rows, its partial
-    T_r = dy[:, I_r] (gc Bm_r) - x[:, I_r] dN_r and its own
-    L_r = x dN_r^T; dx_cam[:, I_r] = dy[:, I_r] + (T_0 + T_1 + ...)[:, I_r]
-    - L_r, the partials summed in rank order. One share of dgamma_pam (the
-    PAM block's) and one of dgamma_cam per rank, per batch row, summed as
-    the wrapper sums them ([2, B C / 32], PAM's share padded with zeros).
-    `products` is "f32" or "3xtf32" (see `_matmul`).
-    Used by the tests only."""
+    dtype: the outputs of `dual_attention_backward`, by the first kernel's
+    blocking where it runs (`backward_narrow`), else by the wide one's.
+    `products` is "f32" or "3xtf32" (see `_matmul`). Used by the tests
+    only."""
     b, h, w, c = x_cam.shape
     p, d = h * w, q.shape[-1]
     gp = gamma_pam.reshape(()).to(x_cam.dtype)
@@ -266,8 +311,31 @@ def dual_attention_backward_blocked(q, k, v, gamma_pam, x_cam, gamma_cam,
     def mm(a, bb):
         return _matmul(a, bb, products)
 
-    qf, kf = q.reshape(b, p, d), k.reshape(b, p, d)
-    vf, dyp = v.reshape(b, p, c), dy_pam.reshape(b, p, c)
+    args = (q.reshape(b, p, d), k.reshape(b, p, d), v.reshape(b, p, c),
+            dy_pam.reshape(b, p, c), x_cam.reshape(b, p, c),
+            dy_cam.reshape(b, p, c), gp, gc, mm)
+    if backward_narrow(p, c, d):
+        dq, dk, dv, dx, part = _blocked_narrow(*args)
+    else:
+        dq, dk, dv, dx, part = _blocked_wide(*args)
+    sums = part.reshape(2, -1).sum(dim=1)
+    return (dy_pam, dq.reshape(q.shape), dk.reshape(k.shape),
+            dv.reshape(v.shape),
+            sums[0].reshape(gamma_pam.shape).to(gamma_pam.dtype),
+            dx.reshape(x_cam.shape),
+            sums[1].reshape(gamma_cam.shape).to(gamma_cam.dtype))
+
+
+def _blocked_narrow(qf, kf, vf, dyp, x, dy, gp, gc, mm):
+    """The first kernel: one PAM block per row over all P x P scores; CAM
+    rank r owns the Gram rows I_r = [32 r, 32 r + 32): G_r = x[:, I_r]^T x
+    and H_r = dy[:, I_r]^T x, Bm_r and dN_r from their rows, its partial
+    T_r = dy[:, I_r] (gc Bm_r) - x[:, I_r] dN_r and its own
+    L_r = x dN_r^T; dx_cam[:, I_r] = dy[:, I_r] + (T_0 + T_1 + ...)[:, I_r]
+    - L_r, the partials summed in rank order. One share of dgamma_pam (the
+    PAM block's) and one of dgamma_cam per rank, per batch row
+    ([2, B, C / 32], PAM's share padded with zeros)."""
+    b, p, c = x.shape
     att = torch.softmax(mm(qf, kf.transpose(1, 2)), dim=-1)
     g_pam = mm(dyp, vf.transpose(1, 2))
     share_pam = (att * g_pam).sum(dim=(1, 2))
@@ -277,7 +345,6 @@ def dual_attention_backward_blocked(q, k, v, gamma_pam, x_cam, gamma_cam,
     dq = mm(de, kf)
     dk = mm(de.transpose(1, 2), qf)
 
-    x, dy = x_cam.reshape(b, p, c), dy_cam.reshape(b, p, c)
     partials, local, shares = [], [], []
     for r in range(c // 32):
         rows = slice(32 * r, 32 * r + 32)
@@ -299,13 +366,93 @@ def dual_attention_backward_blocked(q, k, v, gamma_pam, x_cam, gamma_cam,
     pad = torch.zeros(b, c // 32 - 1, dtype=share_pam.dtype,
                       device=share_pam.device)
     part = torch.stack([torch.cat([share_pam[:, None], pad], dim=1),
-                        torch.stack(shares, dim=1)]).reshape(2, -1)
-    sums = part.sum(dim=1)
-    return (dy_pam, dq.reshape(q.shape), dk.reshape(k.shape),
-            dv.reshape(v.shape),
-            sums[0].reshape(gamma_pam.shape).to(gamma_pam.dtype),
-            dx.reshape(x_cam.shape),
-            sums[1].reshape(gamma_cam.shape).to(gamma_cam.dtype))
+                        torch.stack(shares, dim=1)])
+    return dq, dk, dv, dx, part
+
+
+def _blocked_wide(qf, kf, vf, dyp, x, dy, gp, gc, mm):
+    """The wide kernel. PAM, one block per row: per chunk of 32 query rows
+    Q, E_Q = q_Q k^T and G_Q = dy_Q v^T over all keys, A_Q = softmax(E_Q),
+    dE_Q = A_Q (gp G_Q - rowsum(gp G_Q A_Q)), dq_Q = dE_Q k; then per chunk
+    of 32 keys K, dk_K = dE[:, K]^T q and dv_K = gp A[:, K]^T dy. CAM, S
+    ranks (`backward_cluster_size`), rank r owning the 32-row groups
+    g = r, r + S, ...: per group, over chunks c of 32 columns, each row's
+    running min mu of G = x^T x, S = sum exp(mu - G) and
+    W = sum H exp(mu - G) (H = dy^T x), rescaled as mu falls; with every
+    row's (mu, 1 / S, gc W / S), per chunk M = gc Bm[c, g],
+    N = dN[c, g] + dN[g, c]^T and dx_cam[:, g] = dy_g + sum_c (dy_c M -
+    x_c N). Shares: the PAM block's sum(A G); each rank's sum of W / S over
+    its rows ([2, B, S], PAM's padded with zeros)."""
+    b, p, c = x.shape
+    chunks = range(0, p, 32)
+    kt = kf.transpose(1, 2)
+    vt = vf.transpose(1, 2)
+    atts, des, dqs = [], [], []
+    share_pam = torch.zeros(b, dtype=x.dtype, device=x.device)
+    for q0 in chunks:
+        att = torch.softmax(mm(qf[:, q0:q0 + 32], kt), dim=-1)
+        g_q = mm(dyp[:, q0:q0 + 32], vt)
+        share_pam = share_pam + (att * g_q).sum(dim=(1, 2))
+        da = gp * g_q
+        de = att * (da - (da * att).sum(dim=-1, keepdim=True))
+        dqs.append(mm(de, kf))
+        atts.append(att)
+        des.append(de)
+    att_t = torch.cat(atts, dim=1).transpose(1, 2)     # [B, keys, queries]
+    de_t = torch.cat(des, dim=1).transpose(1, 2)
+    dk = torch.cat([mm(de_t[:, k0:k0 + 32], qf) for k0 in chunks], dim=1)
+    dv = gp * torch.cat([mm(att_t[:, k0:k0 + 32], dyp) for k0 in chunks],
+                        dim=1)
+
+    groups = c // 32
+    ranks = backward_cluster_size(p, c, qf.shape[-1])
+    mu = torch.empty(b, c, dtype=x.dtype, device=x.device)
+    inv, dot = torch.empty_like(mu), torch.empty_like(mu)
+    shares = torch.zeros(b, ranks, dtype=x.dtype, device=x.device)
+
+    def cols(t, g):
+        return t[:, :, 32 * g:32 * g + 32]
+
+    for g in range(groups):
+        xg, dyg = cols(x, g), cols(dy, g)
+        m = torch.full((b, 32), float("inf"), dtype=x.dtype, device=x.device)
+        s = torch.zeros_like(m)
+        w = torch.zeros_like(m)
+        for ci in range(groups):
+            xc = cols(x, ci)
+            g_gc = mm(xg.transpose(1, 2), xc)
+            h_gc = mm(dyg.transpose(1, 2), xc)
+            nm = torch.minimum(m, g_gc.amin(dim=-1))
+            scale = torch.exp(nm - m)
+            e = torch.exp(nm[..., None] - g_gc)
+            s = s * scale + e.sum(dim=-1)
+            w = w * scale + (e * h_gc).sum(dim=-1)
+            m = nm
+        rows = slice(32 * g, 32 * g + 32)
+        mu[:, rows], inv[:, rows] = m, 1 / s
+        dot[:, rows] = gc * w * inv[:, rows]
+        shares[:, g % ranks] += (w * inv[:, rows]).sum(dim=-1)
+    dxs = []
+    for g in range(groups):
+        xg, dyg = cols(x, g), cols(dy, g)
+        rows = slice(32 * g, 32 * g + 32)
+        acc = torch.zeros_like(dyg)
+        for ci in range(groups):
+            xc, dyc = cols(x, ci), cols(dy, ci)
+            crow = slice(32 * ci, 32 * ci + 32)
+            g_cg = mm(xc.transpose(1, 2), xg)          # [B, c rows, g cols]
+            h_cg = mm(dyc.transpose(1, 2), xg)
+            h_gc = mm(dyg.transpose(1, 2), xc)
+            bc = torch.exp(mu[:, crow, None] - g_cg) * inv[:, crow, None]
+            bg = torch.exp(mu[:, None, rows] - g_cg) * inv[:, None, rows]
+            n_cg = bc * (gc * h_cg - dot[:, crow, None])
+            n_gc = bg * (gc * h_gc.transpose(1, 2) - dot[:, None, rows])
+            acc = acc + mm(dyc, gc * bc)
+            acc = acc + mm(-xc, n_cg + n_gc)
+        dxs.append(dyg + acc)
+    pad = torch.zeros(b, ranks - 1, dtype=x.dtype, device=x.device)
+    part = torch.stack([torch.cat([share_pam[:, None], pad], dim=1), shares])
+    return (torch.cat(dqs, dim=1), dk, dv, torch.cat(dxs, dim=-1), part)
 
 
 class DualAttention(torch.autograd.Function):

@@ -12,12 +12,15 @@ Phases, each of which must pass:
      bit-equal on random, tile-edge and main-path tables and on those of
      an eval-tier env and a hazard env, dual attention at every shape the
      port calls it with (the eval's B=25, the trainer's B=48 f32 and the
-     host-env trainer's f32 B=8 and B=64 among them), its backward kernel
-     at B=48, at phase 5's small head and at every cluster size (C = 32 to
-     128), P = 49 and 64 and Cqk = 32, with non-zero gammas, two calls
-     bit-equal, and a bf16 call that needs a gradient refused; timings
-     against each kernel's bound and, for dual attention and its backward,
-     a PyTorch yardstick;
+     host-env trainer's f32 B=8 and B=64 among them; the resnet50 head,
+     C=512 and Cqk=64, at B=32, 256 and 48; a 288x512 camera's P=144) and
+     at every position tile and register template it picks (P up to 256),
+     its backward kernel at B=48 (C=128 and 512, P=40 and 144), at phase
+     5's small head and at every cluster size of its two kernels (C = 32
+     to 512, one or two 32-row groups a rank), P = 1 to 256 and Cqk up to
+     64, with non-zero gammas, two calls bit-equal, and a bf16 call that
+     needs a gradient refused; timings against each kernel's bound and,
+     for dual attention and its backward, a PyTorch yardstick;
   4. the main path: a bf16 CoPM agent at production width drives 32 device
      envs for a 20-step rollout, then trains one whole iteration at
      production size (T=200, 4 PPO epochs of 2 minibatches) after a T=2
@@ -151,12 +154,23 @@ Phases, each of which must pass:
      `run_nocrash_eval` at N=32, T=200, two iterations, the eval of the
      two snapshots over 25 Town01 routes for 200 steps, its paint and
      dual-attention launches counted, its rows printed.
+ 15. the deep-backbone CoPM at full width (144x256, resnet50: the head's
+     K2 and K3 at C=512, Cqk=64): (a) experiment_params('auto_danet',
+     backbone='resnet50') through PerceptionTrainer, 20 timed steps on
+     one batch at B=48, f32, TF32 off, after a warm-up, one K2 and one K3
+     each, a falling loss, frames/s, peak memory and a profile; (b) one
+     DABetaVAE step on a resnet50 trunk; (c) the bf16 encoder latent at
+     B=32 and 256, frames/s; (d) one whole device iteration (N=32, T=200,
+     E=4, M=2) with that encoder: 400 paints and 201 K2; (e) one f32
+     pretraining step of a resnet18 DANet on a 288x512 camera (the head's
+     P=144). Peak memory and the device's idle share for each.
 
 It prints one JSON line of kernel figures (launch counts of every phase's
 main path, `launches_msgpack_eval` of 12a, `launches_parallel` of 12b
-and of each 12c rank, `launches_options` of 13a, `launches_carla` of 14a
-and `launches_nocrash` of 14f among them), the card's name and power
-limit, and,
+and of each 12c rank, `launches_options` of 13a, `launches_carla` of 14a,
+`launches_nocrash` of 14f and `launches_deep` of 15a and 15d among them;
+under `shapes` each kernel's figures at every timed shape), the card's
+name and power limit, and,
 last, {"ok": true, "device": {...}}. It exits non-zero, printing no
 result, without a CUDA GPU or without the package beside it.
 
@@ -170,15 +184,17 @@ times the paint, dual-attention and (where a checkout has it) the
 dual-attention backward wrappers of each checkout ROOT (a
 directory holding `cadre_tpu_torch/`, built there at first use) on the same
 inputs, one process per ROOT in the order given, two ways: a CUDA graph of
-200 calls, and 200 calls issued one by one. Give the checkouts to compare
-as A B B A to see the spread between runs.
+200 calls, and 200 calls issued one by one; a shape a checkout refuses
+(ValueError) reads n/a. Give the checkouts to compare as A B B A to see
+the spread between runs.
 
     python3 chip_smoke.py --phase-times ROOT [ROOT ...]
 
-runs phases 1, 2, 4 and 9 of each checkout ROOT with that checkout's own
-chip_smoke.py, one process per ROOT in the order given, and prints phase
-4's iteration line and phase 9's train_vec and `train` lines of each: the
-same-card comparison of the device and the host-env iterations of two
+runs phases 1, 2, 4, 8 and 9 of each checkout ROOT with that checkout's
+own chip_smoke.py, one process per ROOT in the order given, and prints
+phase 4's iteration line, phase 8b's pretraining line and phase 9's
+train_vec and `train` lines of each: the same-card comparison of the
+device iteration, pretraining and the host-env iterations of two
 commits.
 """
 from __future__ import annotations
@@ -335,6 +351,11 @@ def phase_build() -> None:
           f"(one nvcc per source, in parallel)")
     for name, log in sorted(_build.build_log.items()):
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                # the kernel's mangled name, cut to its name and template
+                entry = line.split("'")[1] if "'" in line else line
+                entry = entry[entry.rfind("dual_attention"):][:48]
+                print(f"[2] {name}: entry {entry}")
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[2] {name}: {line.strip()}")
 
@@ -647,132 +668,161 @@ def _attention_library(x, q, k, v, gp, xc, gc):
     return gp * out_p + x, gc * out_c + xc
 
 
-# (B, C, Cqk) of every call the port makes: the production head at the
-# main path's batch (N_ENVS), at B=256, at the eval's B=EVAL_ENVS and at
-# the perception trainer's B=PERCEPTION_BATCH, and phase 5's small head
+# (B, C, Cqk, H, W) of every call the port makes, timed: the production
+# head (resnet18/34 at 144x256: C=128, Cqk=16, P=40) at the main path's
+# batch (N_ENVS), at B=256, at the eval's B=EVAL_ENVS and at the
+# perception trainer's B=PERCEPTION_BATCH, and phase 5's small head; the
+# deep backbones' head (resnet50-152: C=512, Cqk=64) on phase 15's device
+# iteration (B=32), at B=256 and in its pretraining (B=48); a 288x512
+# camera's head (P=144) at the trainer's batch
 PERCEPTION_BATCH = 48
-ATTENTION_SHAPES = ((32, 128, 16), (256, 128, 16), (25, 128, 16),
-                    (PERCEPTION_BATCH, 128, 16), (2, 32, 4))
+ATTENTION_SHAPES = ((32, 128, 16, 5, 8), (256, 128, 16, 5, 8),
+                    (25, 128, 16, 5, 8), (PERCEPTION_BATCH, 128, 16, 5, 8),
+                    (2, 32, 4, 5, 8), (32, 512, 64, 5, 8),
+                    (256, 512, 64, 5, 8), (PERCEPTION_BATCH, 512, 64, 5, 8),
+                    (PERCEPTION_BATCH, 128, 16, 9, 16))
+# held to the plain version only, both types: every CAM position tile the
+# wide f32 kernel picks (48, 32 and 16 positions at C = 160, 256 and 512)
+# and the bf16 one (64) past one tile, each wide template with a narrow C
+# or P, P = 256 (the most the kernels take) with Cqk = 64, odd P, P = 1,
+# and the narrow kernel at Cqk = 33 (past the 32 it used to take) and
+# Cqk = 1
+ATTENTION_EDGE_SHAPES = ((3, 160, 20, 7, 11), (3, 256, 32, 9, 16),
+                         (3, 512, 64, 16, 16), (3, 128, 16, 16, 16),
+                         (3, 512, 64, 1, 1), (3, 96, 33, 5, 8),
+                         (3, 32, 1, 1, 1), (3, 320, 40, 7, 7))
 # the host-env trainer's calls (phase 9, f32 encoder): the newest frame of
 # each of N_HOST envs on an incremental tick, their 8-frame windows on a
 # refresh tick; and the CARLA env trainer's newest frames (phase 14a,
 # CARLA_ENVS envs; its refresh ticks are B=32)
 N_HOST = 8
 CARLA_ENVS = 4          # 14a's envs: one stub server at each EnvConfig port
-HOST_ATTENTION_SHAPES = ((N_HOST, 128, 16), (8 * N_HOST, 128, 16),
-                         (CARLA_ENVS, 128, 16))
-# the backward kernel's shapes (f32 only): the trainer's and the small
-# head's, timed; and (B, C, Cqk, H, W) held to the plain version only: every
-# cluster size (C = 32-128), P = 49 (K not a multiple of 8) and P = 64
-# (the most the kernel takes), odd Cqk and Cqk = 32
-BACKWARD_SHAPES = ((PERCEPTION_BATCH, 128, 16), (2, 32, 4))
+HOST_ATTENTION_SHAPES = ((N_HOST, 128, 16, 5, 8), (8 * N_HOST, 128, 16, 5, 8),
+                         (CARLA_ENVS, 128, 16, 5, 8))
+# the backward kernel's shapes (f32 only), (B, C, Cqk, H, W): the
+# trainer's, the small head's, and the deep backbones' and the 288x512
+# camera's at the trainer's batch, timed; and held to the plain version
+# only: every cluster size of the first kernel (C = 32-128), P = 49 (K not
+# a multiple of 8) and P = 64 (the most it takes), odd Cqk and Cqk = 32;
+# of the wide kernel every cluster size (S = 1-8 ranks: C = 32-256, P > 64
+# or Cqk > 32), ranks of two groups (C = 288: 2,2,2,2,1; C = 512: 2 each),
+# P = 144 and 256 with Cqk = 64, odd P, P = 3 (at P = 1 the softmax over
+# one key is constant, so dq and dk are zero)
+BACKWARD_SHAPES = ((PERCEPTION_BATCH, 128, 16, 5, 8), (2, 32, 4, 5, 8),
+                   (PERCEPTION_BATCH, 512, 64, 5, 8),
+                   (PERCEPTION_BATCH, 128, 16, 9, 16))
 BACKWARD_EDGE_SHAPES = ((3, 64, 8, 5, 8), (3, 96, 12, 5, 8),
                         (3, 32, 5, 7, 7), (3, 128, 32, 7, 7),
-                        (3, 128, 32, 8, 8), (3, 64, 17, 8, 8))
+                        (3, 128, 32, 8, 8), (3, 64, 17, 8, 8),
+                        (3, 32, 4, 9, 9), (3, 64, 8, 9, 9),
+                        (3, 96, 33, 5, 8), (3, 128, 16, 16, 16),
+                        (3, 160, 20, 7, 11), (3, 192, 24, 5, 8),
+                        (3, 224, 28, 5, 8), (3, 256, 32, 9, 16),
+                        (3, 288, 36, 5, 8), (3, 512, 64, 9, 16),
+                        (3, 512, 64, 16, 16), (3, 512, 64, 1, 3))
+
+
+def _tag(b, c, d, h, w, dtype=None):
+    kind = "" if dtype is None else " " + str(dtype).split(".")[-1]
+    return f"B={b} P={h * w} C={c} Cqk={d}{kind}"
+
+
+def _attention_check(args, bf16):
+    """The kernel's outputs against the plain versions' on `args`: (PAM
+    error, CAM error, the bound's text); raises past PERF.md's bounds."""
+    import torch
+
+    from cadre_tpu_torch.ops import dual_attention as da
+
+    op, oc = da.fused_dual_attention(*args)
+    rp = da.pam_apply(*args[:5])
+    rc = da.cam_apply(args[5], args[6])
+    torch.cuda.synchronize()
+    err_p = float((op.float() - rp.float()).abs().max())
+    err_c = float((oc.float() - rc.float()).abs().max())
+    if not bf16:
+        require(err_p <= 2e-4, f"PAM err {err_p:.3g} > 2e-4")
+        require(err_c <= 2e-3, f"CAM err {err_c:.3g} > 2e-3")
+        return err_p, err_c, "f32 atol 2e-4 PAM / 2e-3 CAM"
+    ulps = []
+    for out, ref, x in ((op, rp, args[0]), (oc, rc, args[5])):
+        scale = torch.maximum(ref.float().abs(), x.float().abs())
+        ulps.append(float(((out.float() - ref.float()).abs()
+                           / _bf16_ulp(scale)).max()))
+    require(max(ulps) <= BF16_ULP_BOUND,
+            f"{max(ulps)} bf16 ulps > {BF16_ULP_BOUND}")
+    return err_p, err_c, (f"bf16 {ulps[0]:.1f}/{ulps[1]:.1f} ulps "
+                          f"<= {BF16_ULP_BOUND}")
 
 
 def check_dual_attention(gen, device):
-    import ctypes
-
+    """The forward kernel against the plain versions at every shape of
+    ATTENTION_SHAPES (both types), HOST_ATTENTION_SHAPES (f32) and
+    ATTENTION_EDGE_SHAPES (both types), with timings at the first two;
+    returns the kernels line's entry: the main path's figures (B=32,
+    bf16, P=40, C=128) and, under `shapes`, every timed shape's."""
     import torch
 
-    from cadre_tpu_torch.ops import _build
     from cadre_tpu_torch.ops import dual_attention as da
 
-    smem_fn = _build.load("dual_attention").dual_attention_smem_bytes
-    smem_fn.argtypes = [ctypes.c_int] * 4
-    smem_fn.restype = ctypes.c_longlong
-    main = None
-    for b, c, d in ATTENTION_SHAPES + HOST_ATTENTION_SHAPES:
-        host = (b, c, d) in HOST_ATTENTION_SHAPES
-        for dtype in (torch.float32,) if host else (torch.float32,
-                                                     torch.bfloat16):
-            bf16 = dtype == torch.bfloat16
-            p = 40
-            smem = smem_fn(p, c, d, int(bf16))
-            args = _attention_inputs(b, c, d, dtype, gen, device)
-            op, oc = da.fused_dual_attention(*args)
-            rp = da.pam_apply(*args[:5])
-            rc = da.cam_apply(args[5], args[6])
-            torch.cuda.synchronize()
-            err_p = float((op.float() - rp.float()).abs().max())
-            err_c = float((oc.float() - rc.float()).abs().max())
-            tag = f"B={b} C={c} Cqk={d} {str(dtype).split('.')[-1]}"
-            if not bf16:
-                require(err_p <= 2e-4, f"dual_attention {tag}: PAM err "
-                        f"{err_p:.3g} > 2e-4")
-                require(err_c <= 2e-3, f"dual_attention {tag}: CAM err "
-                        f"{err_c:.3g} > 2e-3")
-                tol = "f32 atol 2e-4 PAM / 2e-3 CAM"
-            else:
-                ulps = []
-                for out, ref, x in ((op, rp, args[0]), (oc, rc, args[5])):
-                    scale = torch.maximum(ref.float().abs(), x.float().abs())
-                    ulps.append(float(((out.float() - ref.float()).abs()
-                                       / _bf16_ulp(scale)).max()))
-                require(max(ulps) <= BF16_ULP_BOUND,
-                        f"dual_attention {tag}: {max(ulps)} bf16 ulps > "
-                        f"{BF16_ULP_BOUND}")
-                tol = (f"bf16 {ulps[0]:.1f}/{ulps[1]:.1f} ulps "
-                       f"<= {BF16_ULP_BOUND}")
-            ms = device_ms(lambda: da.fused_dual_attention(*args))
-            lib_ms = device_ms(lambda: _attention_library(*args))
-            call_ms = time_ms(lambda: da.fused_dual_attention(*args), 200)
-            lib_call_ms = time_ms(lambda: _attention_library(*args), 200)
-            plain_ms = time_ms(lambda: (da.pam_apply(*args[:5]),
-                                        da.cam_apply(args[5], args[6])), 20)
-            elem = 2 if bf16 else 4
-            nbytes = b * (5 * p * c + 2 * p * d) * elem + 8
-            # E = q k^T, A v, the symmetric gram x^T x (one product per
-            # pair) and x B^T, each 2 FLOP a multiply-add
-            flops = b * 2.0 * (p * p * d + p * p * c + p * c * (c + 1) // 2
-                               + p * c * c)
-            peak = BF16_TC_FLOPS if bf16 else FP32_FLOPS
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / peak * 1e3
+    shapes = {}
+    timed = [(s, t) for s in ATTENTION_SHAPES
+             for t in (torch.float32, torch.bfloat16)]
+    timed += [(s, torch.float32) for s in HOST_ATTENTION_SHAPES]
+    edges = [(s, t) for s in ATTENTION_EDGE_SHAPES
+             for t in (torch.float32, torch.bfloat16)]
+    for (b, c, d, h, w), dtype in timed + edges:
+        bf16 = dtype == torch.bfloat16
+        p = h * w
+        tag = _tag(b, c, d, h, w, dtype)
+        smem = da.smem_bytes(b, p, c, d, dtype)
+        args = _attention_inputs(b, c, d, dtype, gen, device, h, w)
+        try:
+            err_p, err_c, tol = _attention_check(args, bf16)
+        except PhaseError as exc:
+            raise PhaseError(f"dual_attention {tag}: {exc}") from None
+        if ((b, c, d, h, w), dtype) in edges:
             print(f"[3] dual_attention {tag}: max|err| PAM {err_p:.3g} CAM "
-                  f"{err_c:.3g} ({tol}); kernel {ms:.4f} ms, library "
-                  f"{lib_ms:.4f} ms (graphs of 200 calls); issued one by "
-                  f"one: kernel {call_ms:.4f} ms, library {lib_call_ms:.4f} "
-                  f"ms (200 calls), plain {plain_ms:.4f} ms (20 calls); "
-                  f"bound {max(t_bytes, t_ops):.5f} ms "
-                  f"({'bytes' if t_bytes >= t_ops else 'operations'}); "
-                  f"{smem} B shared memory per block")
-            if (b, c, d) == ATTENTION_SHAPES[0] and bf16:
-                main = dict(
-                    name="dual_attention", route="cuda",
-                    source="cadre_tpu_torch/csrc/dual_attention.cu",
-                    replaces="cadre_tpu/ops/pallas_dual_attention.py:63 "
-                             "(dual_attention_pallas)",
-                    max_abs_err=max(err_p, err_c), ms=ms, plain_ms=plain_ms,
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    library_ms=lib_ms, call_ms=call_ms,
-                    library_call_ms=lib_call_ms,
-                    shapes=f"B={b} P=40 C={c} Cqk={d} bf16")
-            elif (b, c, d) in ATTENTION_SHAPES[1:3] and bf16:
-                require(main is not None, "dual_attention: B=32 not run")
-                main.update({f"ms_b{b}": ms, f"library_ms_b{b}": lib_ms,
-                             f"call_ms_b{b}": call_ms,
-                             f"library_call_ms_b{b}": lib_call_ms,
-                             f"bound_ms_b{b}": max(t_bytes, t_ops)})
-            elif host:
-                require(main is not None, "dual_attention: B=32 not run")
-                main.update({f"ms_b{b}_f32": ms,
-                             f"library_ms_b{b}_f32": lib_ms,
-                             f"call_ms_b{b}_f32": call_ms,
-                             f"library_call_ms_b{b}_f32": lib_call_ms,
-                             f"plain_ms_b{b}_f32": plain_ms,
-                             f"bound_ms_b{b}_f32": max(t_bytes, t_ops),
-                             f"bound_by_b{b}_f32": "bytes" if t_bytes >= t_ops
-                             else "operations"})
-            elif b == PERCEPTION_BATCH and not bf16:
-                require(main is not None, "dual_attention: B=32 not run")
-                main.update({"ms_b48_f32": ms, "library_ms_b48_f32": lib_ms,
-                             "call_ms_b48_f32": call_ms,
-                             "plain_ms_b48_f32": plain_ms,
-                             "bound_ms_b48_f32": max(t_bytes, t_ops)})
-    return main
+                  f"{err_c:.3g} ({tol}); {smem} B shared memory per block")
+            continue
+        ms = device_ms(lambda: da.fused_dual_attention(*args))
+        lib_ms = device_ms(lambda: _attention_library(*args))
+        call_ms = time_ms(lambda: da.fused_dual_attention(*args), 200)
+        lib_call_ms = time_ms(lambda: _attention_library(*args), 200)
+        plain_ms = time_ms(lambda: (da.pam_apply(*args[:5]),
+                                    da.cam_apply(args[5], args[6])), 20)
+        elem = 2 if bf16 else 4
+        nbytes = b * (5 * p * c + 2 * p * d) * elem + 8
+        # E = q k^T, A v, the symmetric gram x^T x (one product per
+        # pair) and x B^T, each 2 FLOP a multiply-add
+        flops = b * 2.0 * (p * p * d + p * p * c + p * c * (c + 1) // 2
+                           + p * c * c)
+        peak = BF16_TC_FLOPS if bf16 else FP32_FLOPS
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / peak * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"[3] dual_attention {tag}: max|err| PAM {err_p:.3g} CAM "
+              f"{err_c:.3g} ({tol}); kernel {ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms (graphs of 200 calls); issued one by "
+              f"one: kernel {call_ms:.4f} ms, library {lib_call_ms:.4f} "
+              f"ms (200 calls), plain {plain_ms:.4f} ms (20 calls); "
+              f"bound {max(t_bytes, t_ops):.5f} ms ({bound_by}); "
+              f"{smem} B shared memory per block")
+        shapes[tag] = dict(
+            max_abs_err=max(err_p, err_c), ms=ms, call_ms=call_ms,
+            plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by=bound_by, library_ms=lib_ms,
+            library_call_ms=lib_call_ms, smem_bytes=smem)
+    main = _tag(*ATTENTION_SHAPES[0], torch.bfloat16)
+    return dict(
+        name="dual_attention", route="cuda",
+        source="cadre_tpu_torch/csrc/dual_attention.cu",
+        replaces="cadre_tpu/ops/pallas_dual_attention.py:63 "
+                 "(dual_attention_pallas)",
+        **{k: shapes[main][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "call_ms", "library_call_ms")},
+        shape=main, shapes=shapes)
 
 
 def _backward_inputs(b, c, d, gen, device, h=5, w=8):
@@ -803,7 +853,9 @@ def _backward_work(b, c, d, p=40):
     a value per row for each gamma (dx_pam is dy_pam itself); the products
     are E = q k^T, dy v^T, A^T dy, dE k, dE^T q (PAM) and x^T x, dy^T x,
     dy Bm, x S (CAM), each 2 FLOP a multiply-add; the gram x^T x is
-    symmetric, so it needs one product per pair, c (c + 1) / 2 of them."""
+    symmetric, so it needs one product per pair, c (c + 1) / 2 of them.
+    What a kernel recomputes (the wide kernel's CAM passes) is not work
+    the function needs and does not count."""
     nbytes = b * p * (4 * d + 6 * c) * 4 + 2 * b * 4
     macs = b * (3 * p * p * d + 2 * p * p * c + 3 * p * c * c
                 + p * c * (c + 1) // 2)
@@ -822,39 +874,30 @@ def _library_grads(x, q, k, v, gp, xc, gc, dyp, dyc):
         return torch.autograd.grad(_attention_library(*ins), ins, (dyp, dyc))
 
 
-def _bwd_lib_fn(name, argtypes, restype):
-    import ctypes
-
-    from cadre_tpu_torch.ops import _build
-
-    fn = getattr(_build.load("dual_attention_bwd"), name)
-    fn.argtypes = [ctypes.c_int] * argtypes
-    fn.restype = restype
-    return fn
-
-
 def check_dual_attention_backward(gen, device):
     """The backward kernel against autograd through the plain versions, at
     every shape of BACKWARD_SHAPES and BACKWARD_EDGE_SHAPES, twice with
     bit-equal outputs; its cluster size, shared memory and active clusters;
     timings at BACKWARD_SHAPES; a bf16 call that needs a gradient must
-    raise."""
+    raise. Returns the kernels line's entry: the trainer's figures (B=48,
+    P=40, C=128) and, under `shapes`, every timed shape's."""
     import ctypes
 
     import torch
 
+    from cadre_tpu_torch.ops import _build
     from cadre_tpu_torch.ops import dual_attention as da
 
-    smem_fn = _bwd_lib_fn("dual_attention_bwd_smem_bytes", 3,
-                          ctypes.c_longlong)
-    size_fn = _bwd_lib_fn("dual_attention_bwd_cluster_size", 1, ctypes.c_int)
-    active_fn = _bwd_lib_fn("dual_attention_bwd_active_clusters", 3,
-                            ctypes.c_int)
-    entry = None
-    shapes = [(b, c, d, 5, 8) for b, c, d in BACKWARD_SHAPES]
-    for b, c, d, h, w in shapes + list(BACKWARD_EDGE_SHAPES):
+    lib = _build.load("dual_attention_bwd")
+    active_fn = lib.dual_attention_bwd_active_clusters
+    size_fn = lib.dual_attention_bwd_cluster_size
+    for fn in (active_fn, size_fn):
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+    shapes = {}
+    for b, c, d, h, w in BACKWARD_SHAPES + BACKWARD_EDGE_SHAPES:
         p = h * w
-        tag = f"B={b} P={p} C={c} Cqk={d} f32"
+        tag = _tag(b, c, d, h, w, torch.float32)
         args, x = _backward_inputs(b, c, d, gen, device, h, w)
         got = da.dual_attention_backward(*args)
         again = da.dual_attention_backward(*args)
@@ -874,11 +917,18 @@ def check_dual_attention_backward(gen, device):
         active = active_fn(p, c, d)
         require(active > 0, f"dual_attention_bwd {tag}: no cluster can be "
                 f"active ({active})")
-        layout = (f"clusters of {size_fn(c)} CAM blocks and one PAM block "
-                  f"per row, {smem_fn(p, c, d)} B shared memory per block, "
+        # the wrapper sizes the gamma shares by its own copy of the rule
+        size, smem = da.backward_cluster_size(p, c, d), \
+            da.backward_smem_bytes(p, c, d)
+        require(size == size_fn(p, c, d), f"dual_attention_bwd {tag}: "
+                f"cluster size {size} in the wrapper, {size_fn(p, c, d)} in "
+                f"the kernel")
+        kernel = "first" if da.backward_narrow(p, c, d) else "wide"
+        layout = (f"{kernel} kernel, clusters of {size} CAM blocks and one "
+                  f"PAM block per row, {smem} B shared memory per block, "
                   f"{active} clusters active at once")
         errs = ", ".join(f"{k} {v:.2g}" for k, v in worst.items())
-        if (b, c, d) not in BACKWARD_SHAPES:
+        if (b, c, d, h, w) not in BACKWARD_SHAPES:
             print(f"[3] dual_attention_bwd {tag}: max error / scale {errs} "
                   f"(bounds 1e-4 PAM / 1e-3 CAM), two calls bit-equal; "
                   f"{layout}")
@@ -891,38 +941,29 @@ def check_dual_attention_backward(gen, device):
         lib_both_ms = device_ms(lambda: _library_grads(*lib_in, *args[6:]))
         lib_fwd_ms = device_ms(lambda: _attention_library(*lib_in))
         lib_ms = lib_both_ms - lib_fwd_ms
-        nbytes, flops = _backward_work(b, c, d)
+        nbytes, flops = _backward_work(b, c, d, p)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOPS * 1e3
         t_tc = 3 * flops / TF32_TC_FLOPS * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
         print(f"[3] dual_attention_bwd {tag}: max error / scale {errs} "
               f"(bounds 1e-4 PAM / 1e-3 CAM), two calls bit-equal; kernel "
               f"{ms:.4f} ms (graph of 200), {call_ms:.4f} ms issued one by "
               f"one, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
               f"(graphs: autograd forward + backward {lib_both_ms:.4f} less "
               f"forward {lib_fwd_ms:.4f}); bound {max(t_bytes, t_ops):.5f} "
-              f"ms ({'bytes' if t_bytes >= t_ops else 'operations'}: "
-              f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP of f32 FMA at "
-              f"67 TFLOP/s); in 3xTF32 on the tensor cores "
-              f"{max(t_bytes, t_tc):.5f} ms (3 x {flops / 1e9:.3f} GFLOP at "
-              f"495 TFLOP/s {t_tc:.5f} ms, bytes {t_bytes:.5f} ms); "
-              f"{layout}")
-        if b == PERCEPTION_BATCH:
-            entry = dict(
-                name="dual_attention_bwd", route="cuda",
-                source="cadre_tpu_torch/csrc/dual_attention_bwd.cu",
-                replaces="none: XLA autodiff of cadre_tpu/ops/"
-                         "dual_attention.py:22-58 (pam_apply, cam_apply)",
-                max_abs_err=max(float((g - w_).abs().max())
-                                for g, w_ in zip(got, want)),
-                max_rel_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_ms_3xtf32=max(t_bytes, t_tc),
-                library_ms=lib_ms, call_ms=call_ms,
-                cluster_blocks=size_fn(c), smem_bytes=smem_fn(p, c, d),
-                active_clusters=active,
-                shapes=f"B={b} P={p} C={c} Cqk={d} f32")
+              f"ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} "
+              f"GFLOP of f32 FMA at 67 TFLOP/s); in 3xTF32 on the tensor "
+              f"cores {max(t_bytes, t_tc):.5f} ms (3 x {flops / 1e9:.3f} "
+              f"GFLOP at 495 TFLOP/s {t_tc:.5f} ms, bytes {t_bytes:.5f} "
+              f"ms); {layout}")
+        shapes[tag] = dict(
+            max_abs_err=max(float((g - w_).abs().max())
+                            for g, w_ in zip(got, want)),
+            max_rel_err=worst, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops), bound_by=bound_by,
+            bound_ms_3xtf32=max(t_bytes, t_tc), library_ms=lib_ms,
+            cluster_blocks=size, smem_bytes=smem, active_clusters=active)
     x, q, k, v, gp, xc, gc = _attention_inputs(2, 32, 4, torch.bfloat16,
                                                gen, device)
     try:
@@ -933,7 +974,17 @@ def check_dual_attention_backward(gen, device):
     require(refused, "a bf16 dual attention that needs a gradient ran")
     print("[3] dual_attention bf16 with a gradient needed: refused "
           "(no bf16 backward kernel)")
-    return entry
+    main = _tag(*BACKWARD_SHAPES[0], torch.float32)
+    return dict(
+        name="dual_attention_bwd", route="cuda",
+        source="cadre_tpu_torch/csrc/dual_attention_bwd.cu",
+        replaces="none: XLA autodiff of cadre_tpu/ops/"
+                 "dual_attention.py:22-58 (pam_apply, cam_apply)",
+        **{k: shapes[main][k] for k in (
+            "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_ms_3xtf32", "library_ms", "call_ms",
+            "cluster_blocks", "smem_bytes", "active_clusters")},
+        shape=main, shapes=shapes)
 
 
 def phase_kernels():
@@ -3651,7 +3702,8 @@ def _timing_inputs(device):
     """The inputs both kernels are timed on, by case: paint on the main
     path's fig and rgb tables of one env step at N_ENVS and on random
     tables of the same row counts; dual attention at every shape and type
-    of ATTENTION_SHAPES. Made from fixed seeds."""
+    of ATTENTION_SHAPES and its backward at every shape of
+    BACKWARD_SHAPES. Made from fixed seeds."""
     import torch
 
     gen = torch.Generator(device=device)
@@ -3664,14 +3716,15 @@ def _timing_inputs(device):
         n, h, w, _ = base.shape
         cases[f"paint random {name}"] = ("paint", (base, _paint_tables(
             n, h, w, *random_rows[name], gen, device)))
-    for b, c, d in ATTENTION_SHAPES:
+    for b, c, d, h, w in ATTENTION_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            tag = f"dual_attention B={b} C={c} {str(dtype).split('.')[-1]}"
-            cases[tag] = ("dual_attention",
-                          _attention_inputs(b, c, d, dtype, gen, device))
-    for b, c, d in BACKWARD_SHAPES:
-        cases[f"dual_attention_bwd B={b} C={c} float32"] = (
-            "dual_attention_bwd", _backward_inputs(b, c, d, gen, device)[0])
+            cases[f"dual_attention {_tag(b, c, d, h, w, dtype)}"] = (
+                "dual_attention",
+                _attention_inputs(b, c, d, dtype, gen, device, h, w))
+    for b, c, d, h, w in BACKWARD_SHAPES:
+        cases[f"dual_attention_bwd {_tag(b, c, d, h, w, torch.float32)}"] = (
+            "dual_attention_bwd",
+            _backward_inputs(b, c, d, gen, device, h, w)[0])
     return cases
 
 
@@ -3704,6 +3757,11 @@ def time_kernels_of(root: str, inputs: str) -> int:
         def call(fn=fns[kernel], args=args):
             return fn(*args)
 
+        try:
+            call()
+        except ValueError:                # a shape this checkout refuses
+            times[case] = None
+            continue
         times[case] = {"graph_ms": device_ms(call),
                        "one_by_one_ms": time_ms(call, 200)}
     print(json.dumps({"root": root, "times": times}))
@@ -3743,7 +3801,7 @@ def compare_kernel_times(roots) -> int:
                          f"{r['times'][case]['graph_ms']:.4f} / "
                          f"{r['times'][case]['one_by_one_ms']:.4f}"
                          for r in runs)
-        print(f"[t] {case:34s} {figs}")
+        print(f"[t] {case:50s} {figs}")
     def per_step(run, kind, how):
         return sum(run["times"][f"paint {kind} {n}"][how]
                    for n in ("fig", "rgb"))
@@ -3752,21 +3810,24 @@ def compare_kernel_times(roots) -> int:
         figs = "  ".join(f"{per_step(r, kind, 'graph_ms'):.4f} / "
                          f"{per_step(r, kind, 'one_by_one_ms'):.4f}"
                          for r in runs)
-        print(f"[t] {'paint ' + kind + ' per env step':34s} {figs}")
+        print(f"[t] {'paint ' + kind + ' per env step':50s} {figs}")
     print(json.dumps({"runs": runs}))
     return 0
 
 
 # the phases `--phase-times` runs from each checkout, and the lines it keeps
-PHASE_TIMES = ("phase_card", "phase_build", "phase_slice", "phase_host_env")
-PHASE_LINES = ("[4] iteration", "[9] train_vec", "[9] train (")
+PHASE_TIMES = ("phase_card", "phase_build", "phase_slice", "phase_perception",
+               "phase_host_env")
+PHASE_LINES = ("[4] iteration", "[8b] 20 steps", "[9] train_vec",
+               "[9] train (")
 
 
 def compare_phase_times(roots) -> int:
-    """Phase 4's device iteration and phase 9's host-env iteration and
-    `train` episode of several checkouts, each run by the checkout's own
-    chip_smoke.py in a process of its own, in the order given (A B B A
-    shows the spread between runs); prints each run's figure lines."""
+    """Phase 4's device iteration, phase 8b's pretraining steps and phase
+    9's host-env iteration and `train` episode of several checkouts, each
+    run by the checkout's own chip_smoke.py in a process of its own, in the
+    order given (A B B A shows the spread between runs); prints each run's
+    figure lines."""
     import os
 
     code = "import chip_smoke as cs\n" + "".join(
@@ -3778,7 +3839,7 @@ def compare_phase_times(roots) -> int:
                              capture_output=True, text=True, timeout=900)
         if out.returncode != 0:
             print(out.stdout[-3000:] + out.stderr[-3000:], file=sys.stderr)
-            raise PhaseError(f"phases 4 and 9 of {root} failed")
+            raise PhaseError(f"phases 4, 8 and 9 of {root} failed")
         for line in out.stdout.splitlines():
             if line.startswith(PHASE_LINES):
                 print(f"[p] {os.path.relpath(root)}: {line}")
@@ -4553,6 +4614,253 @@ def phase_carla():
     return launches, nocrash
 
 
+# --------------------------------------------------------------- phase 15
+
+# the deep-backbone CoPM: the JAX package's DANetParams(backbone=...) with a
+# Bottleneck ResNet, whose head runs K2 and K3 at C=512, Cqk=64
+DEEP_BACKBONE = "resnet50"
+DEEP_STEPS = 20                 # timed resnet50 pretraining steps
+WIDE_CAMERA = dict(image_height=288, image_width=512, feat_h=9, feat_w=16)
+
+
+def _deep_trainer(cfg, stats, model=None):
+    from cadre_tpu_torch.configs.danet_config import PerceptionTrainParams
+    from cadre_tpu_torch.perception.trainer import PerceptionTrainer
+
+    return PerceptionTrainer(
+        cfg, PerceptionTrainParams(batch_size=PERCEPTION_BATCH),
+        steps_per_epoch=PERCEPTION_SHARDS, seed=0,
+        seg_class_weight=stats.seg_class_weight,
+        light_class_weight=stats.light_class_weight, device="cuda",
+        model=model)
+
+
+def _one_counted_step(trainer, batch, what, tag):
+    """A warm-up step (cuDNN's choices), then one step under the profiler
+    with its launches counted (one K2, one K3) and its peak memory."""
+    import torch
+
+    trainer.train_step(batch, sync=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, launches = _counted(lambda: profile(
+        lambda: trainer.train_step(batch, sync=False), what, 1,
+        "train step", tag=tag))
+    peak = torch.cuda.max_memory_allocated()
+    want = {"paint": 0, "dual_attention": 1, "dual_attention_bwd": 1}
+    require(launches == want, f"{what}: launches {launches}, not {want}")
+    for name, v in losses.items():
+        _finite(f"{what} loss {name}", v)
+    print(f"[{tag}] {what}: total loss {float(losses['total']):.1f}; peak "
+          f"memory allocated {peak / 2**30:.2f} GiB; launches {launches}")
+    return launches
+
+
+def deep_pretraining(batch, stats):
+    """15a: the resnet50 DANet (experiment_params('auto_danet',
+    backbone=...)) trained at B=PERCEPTION_BATCH, f32, TF32 off, for
+    DEEP_STEPS steps on one batch after a warm-up step: one K2 and one K3
+    per step, a falling loss, frames/s, peak memory, a profile."""
+    import torch
+
+    from cadre_tpu_torch.configs.experiments import experiment_params
+
+    cfg = experiment_params("auto_danet", backbone=DEEP_BACKBONE)
+    trainer = _deep_trainer(cfg, stats)
+    params = dict(trainer.model.named_parameters())
+    watch = ("backbone.layer4.2.conv3.weight", "da_head.conv5a.0.weight",
+             "da_head.sa.gamma", "da_head.sc.gamma")
+    before = {n: params[n].detach().clone() for n in watch}
+    trainer.train_step(batch, sync=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, launches = _counted(lambda: [
+        trainer.train_step(batch, sync=False) for _ in range(DEEP_STEPS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = {"paint": 0, "dual_attention": DEEP_STEPS,
+            "dual_attention_bwd": DEEP_STEPS}
+    require(launches == want, f"resnet50 pretraining launches {launches}, "
+            f"not {want}")
+    totals = [float(l["total"]) for l in losses]
+    for step in losses:
+        for name, v in step.items():
+            _finite(f"resnet50 pretraining loss {name}", v)
+    require(totals[-1] < totals[0], f"resnet50 total did not fall over "
+            f"{DEEP_STEPS} steps: {totals[0]:.1f} -> {totals[-1]:.1f}")
+    moved = {n: float((params[n].detach() - before[n]).abs().max())
+             for n in watch}
+    require(all(v > 0 for v in moved.values()), f"not moved: {moved}")
+    for name, p in params.items():
+        _finite(f"resnet50 parameter {name}", p.detach())
+    print(f"[15a] {DEEP_STEPS} resnet50 DANet steps on one batch at B="
+          f"{PERCEPTION_BATCH} (auto_danet, 144x256, head C=512 Cqk=64 P=40, "
+          f"f32, TF32 off): {seconds:.3f} s, "
+          f"{DEEP_STEPS * PERCEPTION_BATCH / seconds:.1f} train frames/s "
+          f"({seconds / DEEP_STEPS * 1e3:.2f} ms per step); peak memory "
+          f"allocated {peak / 2**30:.2f} GiB; total loss {totals[0]:.1f} -> "
+          f"{totals[-1]:.1f}; largest moves {moved}; launches {launches}")
+    prof_steps = 3
+    profile(lambda: [trainer.train_step(batch, sync=False)
+                     for _ in range(prof_steps)],
+            f"{prof_steps} resnet50 train steps (B={PERCEPTION_BATCH})",
+            prof_steps, "train step", tag="15a")
+    return launches
+
+
+def deep_da_beta_vae(batch, stats):
+    """15b: one step of auto_da_beta_vae on a resnet50 trunk."""
+    from cadre_tpu_torch.configs.experiments import experiment_params
+    from cadre_tpu_torch.models.registry import build_model
+
+    cfg = experiment_params("auto_da_beta_vae", backbone=DEEP_BACKBONE)
+    trainer = _deep_trainer(cfg, stats,
+                            build_model("da_beta_vae", cfg, seed=0))
+    _one_counted_step(trainer, batch, f"resnet50 DABetaVAE step (B="
+                      f"{PERCEPTION_BATCH}, f32)", "15b")
+
+
+def deep_encoder():
+    """15c: the resnet50 CoPM's bf16 latent at B=N_ENVS and 256 (frames/s,
+    one K2 a call, peak memory, a profile); returns the agent."""
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.rl.agent import CadreAgent
+
+    agent = CadreAgent.create(danet_params(backbone=DEEP_BACKBONE),
+                              bf16_encoder=True, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    for b in (N_ENVS, 256):
+        x = torch.rand(b, 144, 256, 4, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            agent.encoder.latent(x)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            z, launches = _counted(lambda: agent.encoder.latent(x))
+            require(launches["dual_attention"] == 1 and tuple(z.shape) == (
+                b, agent.danet_cfg.latent_dim), f"resnet50 latent B={b}: "
+                f"{tuple(z.shape)}, launches {launches}")
+            _finite(f"resnet50 latent B={b}", z)
+            ms = time_ms(lambda: agent.encoder.latent(x), 10)
+            peak = torch.cuda.max_memory_allocated()
+            print(f"[15c] resnet50 encoder bf16 B={b}: {ms:.3f} ms, "
+                  f"{b / ms * 1e3:.1f} frames/s; peak memory allocated "
+                  f"{peak / 2**30:.2f} GiB; launches {launches}")
+            if b == 256:
+                profile(lambda: [agent.encoder.latent(x) for _ in range(3)],
+                        "3 resnet50 latents (B=256, bf16)", 3, "latent",
+                        tag="15c")
+    return agent
+
+
+def deep_iteration(agent):
+    """15d: one whole device iteration (N_ENVS envs, T_TRAIN steps, 4 PPO
+    epochs of 2 minibatches) with the resnet50 bf16 encoder after a T=2
+    warm-up: two paints and one K2 per step and the bootstrap's K2; its
+    env-steps/s, peak memory, and a profile of 5 rollout steps. Returns
+    the counted iteration's launches."""
+    import torch
+
+    from cadre_tpu_torch.configs.agent_config import (
+        RolloutConfig,
+        TrainConfig,
+    )
+    from cadre_tpu_torch.envs.torch_env import DrivingEnv, make_route_bank
+    from cadre_tpu_torch.rl.device_rollout import (
+        make_device_iteration,
+        make_device_rollout,
+    )
+
+    env = DrivingEnv(make_route_bank(16, seed=0, device="cuda"),
+                     num_envs=N_ENVS, device="cuda")
+    warm, init_carry = make_device_iteration(
+        agent, env, RolloutConfig(num_steps=2), TrainConfig(), seed=3)
+    carry, _ = warm(agent.opt, init_carry())
+    iteration, _ = make_device_iteration(
+        agent, env, RolloutConfig(num_steps=T_TRAIN), TrainConfig(), seed=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (carry, m), launches = _counted(lambda: iteration(agent.opt, carry))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = {"paint": 2 * T_TRAIN, "dual_attention": T_TRAIN + 1,
+            "dual_attention_bwd": 0}
+    require(launches == want, f"resnet50 iteration launches {launches}, "
+            f"not {want}")
+    for name, t in m._asdict().items():
+        if isinstance(t, torch.Tensor):
+            _finite(f"resnet50 iteration {name}", t)
+    steps = T_TRAIN * N_ENVS
+    print(f"[15d] iteration with the resnet50 bf16 encoder N={N_ENVS} "
+          f"T={T_TRAIN} E=4 M=2: {seconds:.3f} s, {steps / seconds:.1f} "
+          f"env-steps/s; rollout {m.rollout_seconds:.3f} s, update "
+          f"{seconds - m.rollout_seconds:.3f} s; peak memory allocated "
+          f"{peak / 2**30:.2f} GiB; launches {launches}")
+    prof_steps = 5
+    short, _ = make_device_rollout(agent, env,
+                                   RolloutConfig(num_steps=prof_steps),
+                                   seed=2)
+    profile(lambda: short(carry)[0], f"{prof_steps} rollout steps with the "
+            f"resnet50 encoder", prof_steps, "step", tag="15d")
+    return launches
+
+
+def wide_camera_step(packed, stats):
+    """15e: one f32 pretraining step of a resnet18 DANet on a 288x512
+    camera (feat 9x16: the head's P=144), B=PERCEPTION_BATCH, on 8a's
+    frames scaled up 2x."""
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import danet_params
+
+    def up(t, dims):
+        for d in dims:
+            t = t.repeat_interleave(2, dim=d)
+        return t
+
+    batch = dict(packed, rgb_u8=up(packed["rgb_u8"], (1, 2)),
+                 route_u8=up(packed["route_u8"], (1, 2)),
+                 camera_seg=up(packed["camera_seg"], (1, 2)))
+    trainer = _deep_trainer(danet_params(**WIDE_CAMERA), stats)
+    _one_counted_step(trainer, batch, f"288x512 DANet step (B="
+                      f"{PERCEPTION_BATCH}, head C=128 Cqk=16 P=144, f32)",
+                      "15e")
+
+
+def phase_deep(data_dir=None):
+    """The deep-backbone CoPM and the wide camera at full width; returns
+    15a's launch counts (pretraining) and 15d's (the device iteration)."""
+    import torch
+
+    from cadre_tpu_torch.perception.data import (
+        PerceptionDataLoader,
+        compute_stats,
+    )
+
+    t0 = time.perf_counter()
+    no_tf32()
+    data_dir = data_dir or perception_shards()
+    loader = PerceptionDataLoader(data_dir, batch_size=PERCEPTION_BATCH,
+                                  seed=0, packed=True, cache_in_memory=True)
+    stats = compute_stats(loader.paths)
+    packed = {k: torch.as_tensor(v).cuda() for k, v in next(iter(loader))
+              .items()}
+    torch.cuda.empty_cache()
+    pretraining = deep_pretraining(packed, stats)
+    deep_da_beta_vae(packed, stats)
+    iteration = deep_iteration(deep_encoder())
+    wide_camera_step(packed, stats)
+    print(f"[15] phase 15 in {time.perf_counter() - t0:.1f} s")
+    return pretraining, iteration
+
+
 # ---------------------------------------------------------------- main
 
 def main(argv) -> int:
@@ -4600,6 +4908,7 @@ def main(argv) -> int:
         msgpack_launches, parallel = phase_utilities_and_mesh(pretrained)
         options_launches = phase_options()
         carla_launches, nocrash_launches = phase_carla()
+        deep_launches = phase_deep(pretrained["data_dir"])
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4616,6 +4925,8 @@ def main(argv) -> int:
         entry["launches_options"] = options_launches[name]
         entry["launches_carla"] = carla_launches[name]
         entry["launches_nocrash"] = nocrash_launches[name]
+        entry["launches_deep"] = {"15a": deep_launches[0][name],
+                                  "15d": deep_launches[1][name]}
         entry["launches_parallel"] = {
             "12b": parallel["12b"][name],
             "12c": [rank[name] for rank in parallel["12c"]]}

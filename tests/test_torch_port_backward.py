@@ -1,13 +1,14 @@
 """The dual-attention backward kernel's algebra against the JAX package.
 
 `dual_attention_backward_blocked` spells out what the CUDA backward
-(`cadre_tpu_torch/csrc/dual_attention_bwd.cu`) computes, in its order: CAM
-split into ranks of 32 Gram rows, each rank's partial of dx_cam summed in
-rank order, one gamma share per block. Here it is held to `jax.vjp` of the
-JAX `pam_apply` / `cam_apply` at every cluster size the kernel launches
-(C = 32, 64, 96, 128: 1-4 CAM ranks) and at P = 40 (the trainer's 5x8),
-P = 49 (7x7: K not a multiple of 8) and P = 64 (8x8, the most the kernel
-takes), with odd and full-width Cqk. In f32 within 1e-4 of each gradient's
+(`cadre_tpu_torch/csrc/dual_attention_bwd.cu`) computes, in its order: in
+its first kernel, CAM split into ranks of 32 Gram rows, each rank's
+partial of dx_cam summed in rank order, one gamma share per block. Here it
+is held to `jax.vjp` of the JAX `pam_apply` / `cam_apply` at every cluster
+size the first kernel launches (C = 32, 64, 96, 128: 1-4 CAM ranks) and at
+P = 40 (the trainer's 5x8), P = 49 (7x7: K not a multiple of 8) and P = 64
+(8x8, the most the first kernel takes), with odd and full-width Cqk; the
+wide kernel's blocking is held in `test_torch_port_deep_head.py`. In f32 within 1e-4 of each gradient's
 largest magnitude (sums in other orders), in float64 within 1e-9 (the
 JAX functions accumulate their einsums in f32 by `preferred_element_type`;
 for the float64 reference that type is widened to float64 while they are

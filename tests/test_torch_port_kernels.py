@@ -171,8 +171,8 @@ def test_dual_attention_plain_matches_jax_small_head(batch):
                                atol=2e-3)
 
 
-@pytest.mark.parametrize("p, c, d", [(40, 48, 16), (40, 256, 16),
-                                     (65, 128, 16), (40, 128, 33),
+@pytest.mark.parametrize("p, c, d", [(40, 48, 16), (40, 544, 16),
+                                     (257, 128, 16), (40, 128, 65),
                                      (40, 16, 2)])
 def test_dual_attention_kernel_refuses_shapes_it_does_not_take(p, c, d):
     """The CUDA wrapper raises on such a shape before any launch; it never

@@ -520,7 +520,7 @@ def test_dual_attention_backward_wrapper_refuses_what_it_does_not_take(
         with pytest.raises(TypeError, match="no backward kernel"):
             tda.dual_attention_backward(*t, *dy)
     elif case == "wide":
-        x = torch.zeros(1, 1, 40, 256)
+        x = torch.zeros(1, 1, 40, 544)
         qk = torch.zeros(1, 1, 40, 32)
         with pytest.raises(ValueError, match="the kernel takes"):
             tda.dual_attention_backward(qk, qk, x, t[3], x, t[5], x, x)
