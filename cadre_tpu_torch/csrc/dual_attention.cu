@@ -1,5 +1,5 @@
 // Fused position (PAM) and channel (CAM) attention of the DANet head,
-// several blocks per batch row, bf16 products on the tensor cores.
+// several blocks per batch row, products on the tensor cores.
 //
 // Replaces: cadre_tpu/ops/pallas_dual_attention.py::dual_attention_pallas
 // (kernel body _fused_kernel). Per batch row, with x, v: [P, C] and
@@ -11,92 +11,104 @@
 // attention matrices are rounded to the input type before they are applied
 // (as the TPU kernel and the XLA path do), and the gamma residual is added
 // in f32 and rounded once, as the TPU kernel does. It takes every head the
-// JAX package builds: P <= 256 positions, C a multiple of 32 up to 512
-// (a resnet50-152 backbone's 2048 channels / 4), D <= 64 (C / 8).
+// JAX package builds on any camera: any P >= 1 positions, C a multiple of
+// 32 up to 512 (a resnet50-152 backbone's 2048 channels / 4), D <= 64
+// (C / 8). No block's shared memory or registers grow with P.
 //
-// What bounds it on an H100: bytes. At the main path's shapes (P = 40,
-// C = 128, D = 16) a row reads three [P, C] and two [P, D] tensors and
-// writes two [P, C] ones, 53.8 KB in bf16, against 3.1 MFLOP, which the
-// tensor cores do in a fraction of the time the bytes take: about 0.5 us
-// at B = 32 and 4 us at B = 256. At C = 512 a row's CAM is 16x the
-// operations (C^2 P) for 4x the bytes, still below the bf16 ridge.
-//
-// What the first design lost: one block of 512 threads per batch row, so
-// at B = 32 only 32 of the 132 SMs worked; the [C, C] gram and both apply
-// loops ran as scalar f32 FMAs with two shared-memory operands each, bound
-// by shared-memory bandwidth with the tensor cores idle; and 116 KB of
-// shared memory per block let only one block onto an SM.
+// What bounds it on an H100: at the main path's shapes (P = 40, C = 128,
+// D = 16, bf16) bytes: a row reads three [P, C] and two [P, D] tensors and
+// writes two [P, C] ones, 53.8 KB in bf16, against 3.1 MFLOP: about 0.5 us
+// at B = 32 and 4 us at B = 256. A row's CAM is C^2 P multiply-adds for
+// 3 C P values, so at C = 512 in f32 the operations bound it (0.024 ms at
+// B = 48, P = 40 as f32 FMA at 67 TFLOP/s), and its PAM is P^2 C for the
+// same bytes, so a large camera (P = 475 at 800x600) is bound by
+// operations too.
 //
 // Design: a batch row is split over independent blocks of 256 threads,
 // which need no communication:
 // - CAM block g (C / 32 of them) computes rows i0 = 32 g .. i0 + 31 of the
-//   gram from all of x (10 KB in bf16), their row softmax, and from them
-//   columns i0 .. i0 + 31 of the CAM output.
-// - A PAM block computes the [P, P] attention and a range of columns of
-//   att v: all C of them at large B, where the total work decides; 32 when
-//   the CAM blocks alone would leave the SMs short of two blocks each
-//   (B * C / 32 < 2 * SMs), where the row's longest block decides.
-// At B = 32, C = 128 that is 4 + 4 blocks per row, 256 for 132 SMs; at
-// B = 256, 4 + 1 per row, 1,280.
+//   gram, their row softmax, and from them columns i0 .. i0 + 31 of the CAM
+//   output.
+// - A PAM block computes a range of columns of att v for a range of
+//   queries.
 // Two kernels take that split. The narrow one (C <= 128, P <= 64: the
 // main path's resnet18/34 heads at 144x256) holds a whole row's x, the
 // [P, P] scores and the gram rows at their largest in registers and
-// shared memory. The wide one takes the rest of the JAX package's heads,
-// up to C = 512 (resnet50-152), P = 256 and D = 64:
-// - its CAM blocks stream the positions through shared memory in tiles of
-//   tp rows (64 in bf16; in f32 64 up to C = 128, fewer above, so that a
-//   tile and the block's attention rows stay near 100 KB): the gram pass
-//   walks the tiles forward, the apply pass backward, so the last tile is
-//   read once;
-// - its PAM blocks take a tile of up to 64 query rows each against all P
-//   keys (a [256, 256] f32 score matrix is 256 KB, beyond a block), and
-//   fewer than C value columns where they would not fit beside the scores
-//   (P > 64, C = 512);
-// - the gram rows (CAM) and the scores (PAM) sit in registers sized by the
-//   template (C up to 128 or 512, P up to 64 or 256), picked at launch.
-// The narrow kernel stays as it was measured: the wide code at the narrow
-// shapes ran 4% (f32) to 12% (bf16) slower (H100 80GB HBM3, 700 W).
+// shared memory, and stays as it was measured: wide code at those shapes
+// ran 4% (f32) to 12% (bf16) slower (H100 80GB HBM3, 700 W). The wide one
+// takes the rest, any P:
+// - its CAM blocks stream the positions through shared memory in tiles
+//   (all of P in one tile up to 64 positions; past that 64 or 32 rows a
+//   tile, two tiles in flight: cp.async brings in the next tile while the
+//   current one is multiplied); the gram pass walks the tiles forward, the
+//   apply pass backward, so the last tile is read once;
+// - its PAM blocks take up to 64 queries and up to 128 value columns each
+//   and walk the keys in tiles (64 in bf16, 32 in f32): pass 1 finds each
+//   row's max and sum of exp (f32: both in one walk, each lane's sum
+//   rescaled as its max rises; bf16: the max, then the sum in the plain
+//   version's order, two walks); pass 2 recomputes the energies, forms
+//   att = exp(e - max) / sum, rounds it to the input type and applies it
+//   to the value tile, which cp.async brought in during the previous
+//   tile (the keys come a tile ahead through registers). Not an online
+//   softmax, so that the rounded attention is the one the plain version
+//   and the TPU kernel round (in bf16 bit for bit where the energies
+//   agree); each walk recomputes q k^T, D / C of the apply (1/8 at every
+//   head), and with a single key tile (P <= 64 in bf16, 32 in f32) the
+//   energies are computed once.
 // bf16: the two products that apply an attention matrix (att v and
-// x att^T, 56% of the multiply-adds) are warp-level mma.sync.m16n8k16
-// (bf16 in, f32 accumulate), exactly the TPU kernel's contract. Their K
-// dimension is padded with zeros in shared memory (P = 40 -> 48), which
-// leaves every sum unchanged; M is padded to 16 and the padded rows are
-// never stored; padded keys get probability 0, and the attention goes
-// into the product as bf16, the rounding the contract asks for. The two
-// products that make the energies (q k^T and x^T x) stay on the CUDA
-// cores as chains of f32 FMAs in position order, the order of the plain
-// version's f32 products: the attention is rounded to bf16, and an energy
-// that differs in its last f32 bits (a tensor-core sum rounds in another
-// order and way) flips that rounding at some weights, which moves an
-// output by up to a bf16 step of its largest term. With all four products
-// on the tensor cores the kernel was 8.9 bf16 ulps from the plain version
-// at B = 256 (H100 80GB HBM3, 700 W; chip_smoke.py's bound is 4); with the
-// same sums the rounding agrees (the wide kernel's chains run on across
-// position tiles in order). v enters as stored, row-major, through
-// ldmatrix.trans. mma.sync
-// rather than wgmma and TMA: the products are 48 x 32 (CAM) and 48 x 128
-// (PAM) with K of 48-512 over operands of a few KB, below wgmma's 64-row
-// warpgroup tile; the block is bound by its latency, not by the
-// tensor-core rate, and row strides of K + 8 bf16 keep the fragment loads
-// free of bank conflicts.
+// x att^T) are warp-level mma.sync.m16n8k16 (bf16 in, f32 accumulate),
+// exactly the TPU kernel's contract. Their K dimension is padded with
+// zeros in shared memory (P = 40 -> 48), which leaves every sum unchanged;
+// M is padded to 16 and the padded rows are never stored; padded keys get
+// probability 0, and the attention goes into the product as bf16, the
+// rounding the contract asks for. The two products that make the energies
+// (q k^T and x^T x) stay on the CUDA cores as chains of f32 FMAs in
+// position order, the order of the plain version's f32 products: the
+// attention is rounded to bf16, and an energy that differs in its last f32
+// bits (a tensor-core sum rounds in another order and way) flips that
+// rounding at some weights, which moves an output by up to a bf16 step of
+// its largest term. With all four products on the tensor cores the kernel
+// was 8.9 bf16 ulps from the plain version at B = 256 (H100 80GB HBM3,
+// 700 W; chip_smoke.py's bound is 4); with the same sums the rounding
+// agrees (the wide kernel's chains run on across position tiles in
+// order). v enters as stored, row-major, through ldmatrix.trans.
+// f32: the narrow kernel's products run on the CUDA cores; the wide
+// kernel's gram and both applies run on the tensor cores in 3xTF32
+// (mma_tf32.cuh: plain TF32 would break the f32 tolerances, 3xTF32 is as
+// accurate as f32 FMA at these sums), its energies q k^T as f32 FMA.
+// mma.sync rather than wgmma and TMA: a CAM block's gram is 32 rows, below
+// wgmma's 64-row warpgroup tile, and the applies are 16 to 64 rows by 32
+// to 128 columns over a few KB, where the block is bound by its latency
+// and not by the tensor-core rate; row strides are padded so that the
+// fragment loads are free of bank conflicts, or nearly.
 // A warp holds whole rows of an energy in its registers, so each row's
 // softmax runs there with warp shuffles and only the rounded attention
 // goes to shared memory.
-// f32: the same split, every product on the CUDA cores (TF32 would break
-// the f32 tolerances), each thread accumulating a register tile.
 // Shared memory per block at the main path's shapes: 21 KB in bf16, 36 KB
 // in f32 (the first design: 116 KB), so several blocks share an SM; in the
-// wide kernel at most about 100 KB in bf16 and 180 KB in f32 (P = 256,
-// D = 64), opted in per launch above 48 KB.
+// wide kernel at most about 100 KB in bf16 and 198 KB in f32 (C = 512),
+// whatever P, opted in per launch above 48 KB. The wide kernel runs two
+// blocks an SM (128 registers; 207 held one) but for f32 past C = 128,
+// whose tiles hold an SM alone.
+// Measured (H100 80GB HBM3, 700 W, B = 48, graphs of 200 calls; in
+// brackets the library call, then the earlier wide kernel, which refused
+// P > 256): f32 C = 512, P = 40 0.198 ms [0.227; 0.445]; f32 C = 128,
+// P = 144 0.077 [0.087; 0.116]; bf16 P = 144 0.069 [0.038; 0.067], its
+// PAM blocks alone 0.050 (three walks of f32 FMA energies), its CAM
+// blocks 0.029; bf16 C = 512 at B = 256 0.535 [0.496 earlier], its CAM
+// blocks' ordered f32 FMA gram alone 0.434.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
+using mma3::View;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -104,11 +116,9 @@ constexpr int kGroup = 32;       // channels (CAM) or value columns (PAM)
 constexpr int kNarrowC = 128;    // what the narrow kernel takes
 constexpr int kNarrowP = 64;
 constexpr int kQT = 64;          // query rows of one wide PAM block
+constexpr int kMaxNc = 128;      // value columns of one wide PAM block
 constexpr int kMaxC = 512;       // limits the wrapper enforces
-constexpr int kMaxP = 256;
 constexpr int kMaxD = 64;
-constexpr size_t kPamBudget = 100 * 1024;   // wide PAM's shared memory, at
-                                            // most, where C allows
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
 __host__ __device__ constexpr size_t align16(size_t x) {
@@ -159,43 +169,58 @@ template <> size_t smem_bytes<bf16>(int P, int C, int D) {
   return a > b ? a : b;
 }
 
-// The wide kernel's: a CAM tile holds rows = min(P, tp) positions (the
-// narrow CAM layouts with P = rows), a PAM block query_rows(P) queries and
-// nc value columns.
-__host__ __device__ inline int query_rows(int P) { return P < kQT ? P : kQT; }
-__host__ __device__ inline size_t wide_pam_bf16_bytes(int P, int D, int nc) {
-  const int kp = round16(P);
-  return pam_bf16_q(query_rows(P), D) + pam_bf16_k(P, D) + pam_bf16_v(P, nc) +
-         align16(static_cast<size_t>(round16(query_rows(P))) * (kp + 8) * 2);
-}
-__host__ __device__ inline size_t wide_pam_f32_bytes(int P, int D, int nc) {
-  const int nq = query_rows(P);
-  return f32_region(nq, D) + f32_region(P, D + 1) + f32_region(P, nc) +
-         f32_region(nq, P + 1);
-}
+// The wide kernel's, per input type: a CAM position tile's row stride
+// (kPadX past C), a PAM key tile (kKT keys) and the strides past their
+// widths of its attention tile (kPadA) and value tile (8).
+template <typename T> struct Wide;
+template <> struct Wide<bf16> {
+  static constexpr int kPadX = 8, kKT = 64, kPadA = 8;
+};
+template <> struct Wide<float> {
+  static constexpr int kPadX = 4, kKT = 32, kPadA = 4;
+};
 
-// Positions a wide CAM tile holds: 64 in bf16 (x at C = 512 is 66 KB a
-// tile); in f32 64 up to C = 128, then a multiple of 16 near 8,192 / C.
+// Rows of a CAM tile: all of P in one tile up to 64 positions, else
+// tile_rows in two buffers (a tile of x is at most 33 KB in bf16 and
+// 66 KB in f32, so that two of them and the gram rows stay near 100 KB,
+// or, for f32 at C > 256, within one block an SM).
 template <typename T> int tile_rows(int C);
-template <> int tile_rows<bf16>(int) { return 64; }
-template <> int tile_rows<float>(int C) {
-  if (C <= 128) return 64;
-  const int t = 8192 / C / 16 * 16;
-  return t < 16 ? 16 : t;
+template <> int tile_rows<bf16>(int C) { return C <= 256 ? 64 : 32; }
+template <> int tile_rows<float>(int C) { return C <= 128 ? 64 : 32; }
+
+__host__ __device__ inline int cam_bufs(int P) { return P <= 64 ? 1 : 2; }
+
+template <typename T>
+__host__ __device__ inline size_t wide_cam_tile(int tp, int C) {
+  return align16(static_cast<size_t>(round16(tp)) * (C + Wide<T>::kPadX) *
+                 sizeof(T));
 }
-template <typename T> size_t wide_cam_bytes(int rows, int C);
-template <> size_t wide_cam_bytes<float>(int rows, int C) {
-  return cam_f32_bytes(rows, C);
+template <typename T>
+__host__ __device__ inline size_t wide_cam_bytes(int P, int tp, int C) {
+  return cam_bufs(P) * wide_cam_tile<T>(tp, C) +
+         align16(static_cast<size_t>(kGroup) * (C + Wide<T>::kPadX) *
+                 sizeof(T));
 }
-template <> size_t wide_cam_bytes<bf16>(int rows, int C) {
-  return cam_bf16_bytes(rows, C);
+// A PAM block: q [kQT, D] and two key tiles [kKT, D + 1] in f32 (the
+// energies' operands, converted once as they are stored), two value
+// tiles [kKT, nc + 8] and the attention tile [kQT, kKT + kPadA].
+template <typename T>
+__host__ __device__ inline size_t wide_pam_q(int D) {
+  return align16(static_cast<size_t>(kQT) * D * 4);
 }
-template <typename T> size_t wide_pam_bytes(int P, int D, int nc);
-template <> size_t wide_pam_bytes<float>(int P, int D, int nc) {
-  return wide_pam_f32_bytes(P, D, nc);
+template <typename T>
+__host__ __device__ inline size_t wide_pam_k(int D) {
+  return align16(static_cast<size_t>(Wide<T>::kKT) * (D + 1) * 4);
 }
-template <> size_t wide_pam_bytes<bf16>(int P, int D, int nc) {
-  return wide_pam_bf16_bytes(P, D, nc);
+template <typename T>
+__host__ __device__ inline size_t wide_pam_v(int nc) {
+  return align16(static_cast<size_t>(Wide<T>::kKT) * (nc + 8) * sizeof(T));
+}
+template <typename T>
+__host__ __device__ inline size_t wide_pam_bytes(int D, int nc) {
+  return wide_pam_q<T>(D) + 2 * wide_pam_k<T>(D) + 2 * wide_pam_v<T>(nc) +
+         align16(static_cast<size_t>(kQT) * (Wide<T>::kKT + Wide<T>::kPadA) *
+                 sizeof(T));
 }
 
 // ------------------------------------------------------- helpers
@@ -584,46 +609,35 @@ __device__ void pam_block(const float* __restrict__ x,
   }
 }
 
-// ------------------------------------------------------- wide bf16 blocks
+// ------------------------------------------------------- wide blocks
 
-// Rows [0, np) of a [np, C] bf16 tile of x into xr (row stride ldx), rows
-// np .. round16(np) zeroed (padded M rows of the apply).
-__device__ __forceinline__ void load_tile(bf16* xr, int ldx,
-                                          const bf16* __restrict__ x, int np,
-                                          int C) {
-  zero_smem(xr + np * ldx, static_cast<size_t>(round16(np) - np) * ldx * 2);
-  for (int i = threadIdx.x; i < (C / 8) * np; i += kThreads) {
-    const int p = i / (C / 8), c8 = i % (C / 8);
-    *reinterpret_cast<uint4*>(xr + p * ldx + c8 * 8) =
-        *reinterpret_cast<const uint4*>(x + p * C + c8 * 8);
-  }
+// Rows [p0, p0 + np) of x [P, C] into a tile with row stride ld, 16 bytes
+// a copy (cp.async), committed as one group.
+template <typename T>
+__device__ __forceinline__ void issue_tile(T* dst, int ld,
+                                           const T* __restrict__ x, int p0,
+                                           int np, int C) {
+  mma3::load_rows16(dst, ld, x + static_cast<size_t>(p0) * C, np, C, C, 0,
+                    kThreads);
+  mma3::cp_commit();
 }
 
-// CAM columns i0 .. i0 + 31 of one batch row; x, out: [P, C]; positions in
-// tiles of tp rows.
-template <int MC>
-__device__ void cam_wide(const bf16* __restrict__ x, float g,
-                          bf16* __restrict__ out, int P, int C, int i0,
-                          int tp, unsigned char* sm) {
-  const int ldx = C + 8;                  // x and att rows
-  bf16* xr = reinterpret_cast<bf16*>(sm);
-  bf16* att = reinterpret_cast<bf16*>(sm + cam_bf16_xr(min(P, tp), C));
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ntiles = (P + tp - 1) / tp;
+// The gram rows of a CAM block: in bf16 chains of f32 FMAs in position
+// order, a warp holding 8 whole rows (lane l: columns l + 32 u); in f32 in
+// 3xTF32 on the tensor cores, a warp holding both 16-row m-tiles of
+// C / 64 n-tiles (or fewer) of 8 columns.
+template <typename T, int MC> struct CamGram;
 
-  // gram rows i0 + 8 w .. i0 + 8 w + 7 (warp w), E[i, j] = sum_p x[p, i]
-  // x[p, j] at j = l + 32 u (lane l), as chains of f32 FMAs over p in order
-  // (see gemm_f32), tile after tile, then their softmax in the registers
-  // of the warp
-  constexpr int kRows = kGroup / kWarps;
+template <int MC> struct CamGram<bf16, MC> {
+  static constexpr int kRows = kGroup / kWarps;
   float e[kRows][MC / 32];
-  zero_acc(e);
-  const bf16* rows = xr + i0 + kRows * warp;
-  for (int t = 0; t < ntiles; ++t) {
-    const int p0 = t * tp, np = min(tp, P - p0);
-    if (t > 0) __syncthreads();           // the previous tile is read
-    load_tile(xr, ldx, x + static_cast<size_t>(p0) * C, np, C);
-    __syncthreads();
+
+  __device__ void zero() { zero_acc(e); }
+  // rows i0 + 8 w .. i0 + 8 w + 7 (warp w), E[i, j] += sum_p x[p, i]
+  // x[p, j] at j = l + 32 u (lane l), over the np rows of the tile xr
+  __device__ void add(const bf16* xr, int ldx, int np, int C, int i0) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const bf16* rows = xr + i0 + kRows * warp;
 #pragma unroll 4
     for (int p = 0; p < np; ++p) {
       __nv_bfloat162 a[kRows / 2];
@@ -645,185 +659,429 @@ __device__ void cam_wide(const bf16* __restrict__ x, float g,
       }
     }
   }
+  // each row's softmax of rowmax - E, rounded to bf16, into att
+  __device__ void softmax(bf16* att, int lda, int C) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    softmax_row(e[r], C, C, true, att + (kRows * warp + r) * ldx, lane);
-  }
-  __syncthreads();
-
-  // y[p, i0 + i] = g * sum_j x[p, j] att[i, j] + x[p, i0 + i], the last
-  // tile first (it is in shared memory), the others loaded again
-  for (int t = ntiles - 1; t >= 0; --t) {
-    const int p0 = t * tp, np = min(tp, P - p0);
-    if (t < ntiles - 1) {
-      __syncthreads();                    // the tile after it is applied
-      load_tile(xr, ldx, x + static_cast<size_t>(p0) * C, np, C);
-      __syncthreads();
+    for (int r = 0; r < kRows; ++r) {
+      softmax_row(e[r], C, C, true, att + (kRows * warp + r) * lda, lane);
     }
-    apply_bf16<false>(xr, ldx, att, ldx, C, round16(np), kGroup, np, g, xr,
-                      ldx, out + static_cast<size_t>(p0) * C, C, i0);
+    __syncthreads();
   }
-}
+};
 
-// PAM of query rows q0 .. q0 + 63 and columns c0 .. c0 + nc - 1 of one
-// batch row; x, v, out: [P, C]; q, k: [P, D].
-template <int MP>
-__device__ void pam_wide(const bf16* __restrict__ x,
-                          const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, float g,
-                          bf16* __restrict__ out, int P, int C, int D, int q0,
-                          int c0, int nc, unsigned char* sm) {
-  const int kp = round16(P);
-  const int nq = min(kQT, P - q0);        // query rows of this block
-  const int ldk = D + 1;                  // k rows
-  const int ldv = nc + 8;                 // v rows
-  const int lda = kp + 8;                 // att rows
-  bf16* qs = reinterpret_cast<bf16*>(sm);
-  unsigned char* next = sm + pam_bf16_q(query_rows(P), D);
-  bf16* ks = reinterpret_cast<bf16*>(next);
-  next += pam_bf16_k(P, D);
-  bf16* vs = reinterpret_cast<bf16*>(next);
-  bf16* att = reinterpret_cast<bf16*>(next + pam_bf16_v(P, nc));
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+template <int MC> struct CamGram<float, MC> {
+  static constexpr int kNT = MC / 64;
+  float acc[2][kNT][4];
+  int n0t, nt;                       // this warp's n-tiles
 
-  // padded keys of v and padded query rows of att are zero
-  zero_smem(vs + P * ldv, static_cast<size_t>(kp - P) * ldv * 2);
-  zero_smem(att + nq * lda, static_cast<size_t>(round16(nq) - nq) * lda * 2);
-  for (int i = tid; i < nq * D; i += kThreads) qs[i] = q[q0 * D + i];
-  for (int i = tid; i < P * D; i += kThreads) {
-    ks[(i / D) * ldk + i % D] = k[i];
+  __device__ void zero() {
+    mma3::zero(acc);
   }
-  for (int i = tid; i < (nc / 8) * P; i += kThreads) {
-    const int key = i / (nc / 8), c8 = i % (nc / 8);
-    *reinterpret_cast<uint4*>(vs + key * ldv + c8 * 8) =
-        *reinterpret_cast<const uint4*>(v + key * C + c0 + c8 * 8);
+  __device__ void span(int C) {
+    const int ntt = C / 8, per = (ntt + kWarps - 1) / kWarps;
+    n0t = (threadIdx.x >> 5) * per;
+    nt = min(per, ntt - n0t);
   }
-  __syncthreads();
-
-  // energy [nq, P] = q k^T and its softmax in registers; padded keys get
-  // probability 0
-  float s[kQT / kWarps][MP / 32];
-  gemm_f32(
-      nq, P, D, [&](int p, int d) { return __bfloat162float(qs[p * D + d]); },
-      [&](int d, int key) { return __bfloat162float(ks[key * ldk + d]); }, s);
+  // G[i, n] += sum_p x[p, i0 + i] x[p, n] over the np rows of the tile xs
+  __device__ void add(const float* xs, int ldx, int np, int C, int i0) {
+    span(C);
+    if (nt <= 0) return;
+    const View a = View{xs + i0, 1, ldx, kGroup};
+    mma3::warp_mma3<2, kNT>(acc, {a, a}, {0, 16}, 2, View{xs, 1, ldx, C},
+                            8 * n0t, np, nt);
+  }
+  // G into att (f32, row stride lda), then each row's softmax of
+  // rowmax - G in place
+  __device__ void softmax(float* att, int lda, int C) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    span(C);
+    if (nt > 0) {
 #pragma unroll
-  for (int i = 0; i < kQT / kWarps; ++i) {
-    const int row = warp + kWarps * i;
-    if (row < nq) softmax_row(s[i], P, kp, false, att + row * lda, lane);
+      for (int mi = 0; mi < 2; ++mi) {
+        mma3::store_tile(acc[mi], 16 * mi, 8 * n0t, kGroup, 8 * (n0t + nt),
+                         [&](int m, int n, float v) { att[m * lda + n] = v; });
+      }
+    }
+    __syncthreads();
+    constexpr int kRows = kGroup / kWarps;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      float* row = att + (kRows * warp + r) * lda;
+      float e[MC / 32];
+#pragma unroll
+      for (int u = 0; u < MC / 32; ++u) {
+        const int j = lane + 32 * u;
+        e[u] = j < C ? row[j] : 0.f;
+      }
+      softmax_row(e, C, C, true, row, lane);
+    }
+    __syncthreads();
   }
-  __syncthreads();
+};
 
-  // y[p, c0 + c] = g * sum_key att[p, key] v[key, c0 + c] + x[p, c0 + c]
-  const size_t o = static_cast<size_t>(q0) * C;
-  apply_bf16<true>(att, lda, vs, ldv, kp, round16(nq), nc, nq, g, x + o, C,
-                   out + o, C, c0);
+// y[p0 + p, i0 + i] = g * sum_j x[p, j] att[i, j] + x[p, i0 + i] for the
+// np rows of one tile
+__device__ __forceinline__ void cam_apply_tile(const bf16* xr, int ldx,
+                                               const bf16* att, int np,
+                                               int C, float g, bf16* out,
+                                               int i0) {
+  apply_bf16<false>(xr, ldx, att, ldx, C, round16(np), kGroup, np, g, xr, ldx,
+                    out, C, i0);
+}
+__device__ __forceinline__ void cam_apply_tile(const float* xs, int ldx,
+                                               const float* att, int np,
+                                               int C, float g, float* out,
+                                               int i0) {
+  const int warp = threadIdx.x >> 5;
+  const int mt = (np + 15) / 16;
+  auto put = [&](int p, int i, float v) {
+    out[static_cast<size_t>(p) * C + i0 + i] = g * v + xs[p * ldx + i0 + i];
+  };
+  const View a = View{xs, ldx, 1, np}, b = View{att, ldx, 1, kGroup};
+  if (mt > 2) {
+    // up to 4 m-tiles x 4 n-tiles: 2 n-tiles a warp
+    const int mi = warp >> 1, n0 = 16 * (warp & 1);
+    if (mi >= mt) return;
+    float acc[1][2][4];
+    mma3::zero(acc);
+    mma3::warp_mma3(acc, {a}, {16 * mi}, 1, b, n0, C);
+    mma3::store_tile(acc[0], 16 * mi, n0, np, kGroup, put);
+  } else {
+    // up to 2 m-tiles x 4 n-tiles: one a warp
+    const int mi = warp >> 2, n0 = 8 * (warp & 3);
+    if (mi >= mt) return;
+    float acc[1][1][4];
+    mma3::zero(acc);
+    mma3::warp_mma3(acc, {a}, {16 * mi}, 1, b, n0, C);
+    mma3::store_tile(acc[0], 16 * mi, n0, np, kGroup, put);
+  }
 }
 
-// ------------------------------------------------------- wide f32 blocks
-
-template <int MC>
-__device__ void cam_wide(const float* __restrict__ x, float g,
-                          float* __restrict__ out, int P, int C, int i0,
-                          int tp, unsigned char* sm) {
-  const int lda = C + 1;
-  float* xs = reinterpret_cast<float*>(sm);             // [tile rows, C]
-  float* att = reinterpret_cast<float*>(sm + f32_region(min(P, tp), C));
-                                                        // [32, C + 1]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// CAM columns i0 .. i0 + 31 of one batch row; x, out: [P, C]; positions in
+// tiles of tp rows, two tiles in flight past one.
+template <typename T, int MC>
+__device__ void cam_wide(const T* __restrict__ x, float g,
+                          T* __restrict__ out, int P, int C, int i0, int tp,
+                          unsigned char* sm) {
+  const int ldx = C + Wide<T>::kPadX;     // x and att rows
   const int ntiles = (P + tp - 1) / tp;
-  auto load = [&](int p0, int np) {
-    const float4* src = reinterpret_cast<const float4*>(
-        x + static_cast<size_t>(p0) * C);
-    for (int i = tid; i < np * C / 4; i += kThreads) {
-      reinterpret_cast<float4*>(xs)[i] = src[i];
+  T* buf[2];
+  buf[0] = reinterpret_cast<T*>(sm);
+  buf[1] = cam_bufs(P) > 1
+               ? reinterpret_cast<T*>(sm + wide_cam_tile<T>(tp, C))
+               : buf[0];
+  T* att = reinterpret_cast<T*>(sm + cam_bufs(P) * wide_cam_tile<T>(tp, C));
+  auto rows = [&](int t) { return min(tp, P - t * tp); };
+
+  // the gram pass, tiles forward, the next one loading meanwhile
+  CamGram<T, MC> gram;
+  gram.zero();
+  issue_tile(buf[0], ldx, x, 0, rows(0), C);
+  for (int t = 0; t < ntiles; ++t) {
+    mma3::cp_wait<0>();
+    __syncthreads();                      // tile t is in; t - 1 is read
+    if (t + 1 < ntiles) {
+      issue_tile(buf[(t + 1) & 1], ldx, x, (t + 1) * tp, rows(t + 1), C);
+    }
+    gram.add(buf[t & 1], ldx, rows(t), C, i0);
+  }
+  gram.softmax(att, ldx, C);
+
+  // the apply pass, tiles backward: the last is still in its buffer
+  for (int t = ntiles - 1; t >= 0; --t) {
+    if (t < ntiles - 1) {
+      mma3::cp_wait<0>();
+      __syncthreads();                    // tile t is in; t + 1 is applied
+    }
+    if (t > 0) issue_tile(buf[(t - 1) & 1], ldx, x, (t - 1) * tp, rows(t - 1), C);
+    cam_apply_tile(buf[t & 1], ldx, att, rows(t), C, g,
+                   out + static_cast<size_t>(t) * tp * C, i0);
+  }
+}
+
+// A warp's m16 row tile of a bf16 product, acc[j] += A[16, K] B[K, 8 j ..]
+// for j < nt: A row-major (lda), B row-major [K][ldb] through
+// ldmatrix.trans; K a multiple of 16.
+template <int NT>
+__device__ __forceinline__ void mma_rows_bf16(float (&acc)[NT][4],
+                                              const bf16* A, int lda,
+                                              const bf16* B, int ldb, int K,
+                                              int nt, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* a = A + g * lda + 2 * t;
+  for (int k = 0; k < K; k += 16) {
+    const uint32_t af[4] = {ld_pair(a + k), ld_pair(a + 8 * lda + k),
+                            ld_pair(a + k + 8), ld_pair(a + 8 * lda + k + 8)};
+    const unsigned row = static_cast<unsigned>(
+        __cvta_generic_to_shared(B + (k + (lane & 15)) * ldb));
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nt) break;
+      uint32_t bfr[2];
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+          : "=r"(bfr[0]), "=r"(bfr[1])
+          : "r"(row + 16u * j));
+      mma_bf16(acc[j], af, bfr);
+    }
+  }
+}
+
+// A PAM block's value products: acc (a warp's m-tile mi = w / 2 and half
+// of the nc columns) += att v over one key tile of nk keys, and the
+// output store. att: [kQT, lda]; vt: [kKT, nc + 8].
+struct PamApplyBf16 {
+  static constexpr int kNT = kMaxNc / 16;
+  float acc[kNT][4];
+  __device__ void zero() {
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
+  __device__ void add(const bf16* att, int lda, const bf16* vt, int nc,
+                      int nq, int nk) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int mi = warp >> 1, n0 = (warp & 1) * (nc / 2);
+    if (16 * mi >= nq) return;
+    mma_rows_bf16(acc, att + 16 * mi * lda, lda, vt + n0, nc + 8,
+                  round16(nk), nc / 16, lane);
+  }
+  // y[p, c0 + c] = g acc + x[p, c0 + c]; x, out point at the block's
+  // first query row
+  __device__ void store(const bf16* x, bf16* out, int C, int c0, int nc,
+                        int nq, float g) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int mi = warp >> 1, n0 = (warp & 1) * (nc / 2);
+    const int g4 = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      if (j >= nc / 16) break;
+      const int col = c0 + n0 + 8 * j + t2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = 16 * mi + g4 + 8 * h;
+        if (p < nq) {
+          const size_t o = static_cast<size_t>(p) * C + col;
+          const __nv_bfloat162 r =
+              *reinterpret_cast<const __nv_bfloat162*>(x + o);
+          *reinterpret_cast<__nv_bfloat162*>(out + o) =
+              __floats2bfloat162_rn(g * acc[j][2 * h] + __low2float(r),
+                                    g * acc[j][2 * h + 1] + __high2float(r));
+        }
+      }
+    }
+  }
+};
+
+struct PamApplyF32 {
+  static constexpr int kNT = kMaxNc / 16;
+  float acc[1][kNT][4];
+  __device__ void zero() { mma3::zero(acc); }
+  __device__ void add(const float* att, int lda, const float* vt, int nc,
+                      int nq, int nk) {
+    const int warp = threadIdx.x >> 5;
+    const int mi = warp >> 1, n0 = (warp & 1) * (nc / 2);
+    if (16 * mi >= nq) return;
+    mma3::warp_mma3(acc, {View{att, lda, 1, nq}}, {16 * mi}, 1,
+                    View{vt, 1, nc + 8, nc}, n0, nk, nc / 16);
+  }
+  __device__ void store(const float* x, float* out, int C, int c0, int nc,
+                        int nq, float g) {
+    const int warp = threadIdx.x >> 5;
+    const int mi = warp >> 1, n0 = (warp & 1) * (nc / 2);
+    mma3::store_tile(acc[0], 16 * mi, n0, nq, n0 + nc / 2,
+                     [&](int p, int c, float v) {
+                       const size_t o = static_cast<size_t>(p) * C + c0 + c;
+                       out[o] = g * v + x[o];
+                     });
+  }
+};
+
+template <typename T> struct PamApply;
+template <> struct PamApply<bf16> { typedef PamApplyBf16 type; };
+template <> struct PamApply<float> { typedef PamApplyF32 type; };
+
+// PAM of query rows q0 .. q0 + nq - 1 (nq <= 64) and value columns
+// c0 .. c0 + nc - 1 (nc <= 128) of one batch row, the keys in tiles of
+// kKT; x, v, out: [P, C]; q, k: [P, D].
+template <typename T>
+__device__ void pam_wide(const T* __restrict__ x, const T* __restrict__ q,
+                         const T* __restrict__ k, const T* __restrict__ v,
+                         float g, T* __restrict__ out, int P, int C, int D,
+                         int q0, int c0, int nc, unsigned char* sm) {
+  constexpr int kKT = Wide<T>::kKT, kRN = kKT / 32, kRM = kQT / kWarps;
+  constexpr int kStage = kKT * kMaxD / kThreads;
+  const int nq = min(kQT, P - q0), nkt = (P + kKT - 1) / kKT;
+  const int ldk = D + 1, ldv = nc + 8, lda = kKT + Wide<T>::kPadA;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* qs = reinterpret_cast<float*>(sm);
+  unsigned char* next = sm + wide_pam_q<T>(D);
+  float* ks[2] = {reinterpret_cast<float*>(next),
+                  reinterpret_cast<float*>(next + wide_pam_k<T>(D))};
+  next += 2 * wide_pam_k<T>(D);
+  T* vs[2] = {reinterpret_cast<T*>(next),
+              reinterpret_cast<T*>(next + wide_pam_v<T>(nc))};
+  T* att = reinterpret_cast<T*>(next + 2 * wide_pam_v<T>(nc));
+  auto keys = [&](int t) { return min(kKT, P - t * kKT); };
+
+  for (int i = tid; i < nq * D; i += kThreads) {
+    qs[i] = to_f32(q[static_cast<size_t>(q0) * D + i]);
+  }
+  // key tiles come a tile ahead through registers (rows of D values need
+  // not be 16-byte aligned), into [kKT, D + 1] tiles
+  T kr[kStage];
+  auto fetch = [&](int t) {
+    const T* src = k + static_cast<size_t>(t) * kKT * D;
+    const int n = keys(t) * D;
+#pragma unroll
+    for (int s = 0; s < kStage; ++s) {
+      const int i = tid + s * kThreads;
+      if (i < n) kr[s] = src[i];
     }
   };
-  float e[kGroup / kWarps][MC / 32];
-  zero_acc(e);
-  for (int t = 0; t < ntiles; ++t) {
-    const int p0 = t * tp, np = min(tp, P - p0);
-    if (t > 0) __syncthreads();
-    load(p0, np);
-    __syncthreads();
-    gemm_f32_acc(kGroup, C, np, [&](int m, int p) { return xs[p * C + i0 + m]; },
-                 [&](int p, int n) { return xs[p * C + n]; }, e);
-  }
+  auto put = [&](float* dst, int t) {
+    const int n = keys(t) * D;
 #pragma unroll
-  for (int i = 0; i < kGroup / kWarps; ++i) {
-    softmax_row(e[i], C, C, true, att + (warp + kWarps * i) * lda, lane);
-  }
-  __syncthreads();
-  for (int t = ntiles - 1; t >= 0; --t) {
-    const int p0 = t * tp, np = min(tp, P - p0);
-    if (t < ntiles - 1) {
-      __syncthreads();
-      load(p0, np);
-      __syncthreads();
+    for (int s = 0; s < kStage; ++s) {
+      const int i = tid + s * kThreads;
+      if (i < n) dst[(i / D) * ldk + i % D] = to_f32(kr[s]);
     }
-    float y[kQT / kWarps][1];
-    gemm_f32(np, kGroup, C, [&](int p, int j) { return xs[p * C + j]; },
-             [&](int j, int i) { return att[i * lda + j]; }, y);
-#pragma unroll
-    for (int i = 0; i < kQT / kWarps; ++i) {
-      const int p = warp + kWarps * i;
-      if (p < np) {
-        out[static_cast<size_t>(p0 + p) * C + i0 + lane] =
-            g * y[i][0] + xs[p * C + i0 + lane];
-      }
-    }
-  }
-}
+  };
+  // energies [nq, nk] = q k^T of one key tile, rows warp + 8 i, columns
+  // lane + 32 j, chains of f32 FMAs over d in order
+  float s[kRM][kRN];
+  auto energies = [&](const float* kt, int nk) {
+    gemm_f32(
+        nq, nk, D, [&](int m, int d) { return qs[m * D + d]; },
+        [&](int d, int n) { return kt[n * ldk + d]; }, s);
+  };
 
-template <int MP>
-__device__ void pam_wide(const float* __restrict__ x,
-                          const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v, float g,
-                          float* __restrict__ out, int P, int C, int D,
-                          int q0, int c0, int nc, unsigned char* sm) {
-  const int nq = min(kQT, P - q0);
-  const int ldk = D + 1;
-  const int lda = P + 1;
-  float* qs = reinterpret_cast<float*>(sm);                  // [nq, D]
-  unsigned char* next = sm + f32_region(query_rows(P), D);
-  float* ks = reinterpret_cast<float*>(next);                // [P, D + 1]
-  next += f32_region(P, ldk);
-  float* vs = reinterpret_cast<float*>(next);                // [P, nc]
-  float* att = reinterpret_cast<float*>(next + f32_region(P, nc));
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < nq * D; i += kThreads) qs[i] = q[q0 * D + i];
-  for (int i = tid; i < P * D; i += kThreads) {
-    ks[(i / D) * ldk + i % D] = k[i];
-  }
-  for (int i = tid; i < P * nc / 4; i += kThreads) {
-    const int key = i / (nc / 4), c4 = i % (nc / 4);
-    reinterpret_cast<float4*>(vs)[i] =
-        *reinterpret_cast<const float4*>(v + key * C + c0 + 4 * c4);
-  }
-  __syncthreads();
-  float s[kQT / kWarps][MP / 32];
-  gemm_f32(nq, P, D, [&](int p, int d) { return qs[p * D + d]; },
-           [&](int d, int key) { return ks[key * ldk + d]; }, s);
+  // walks the key tiles, calling f(nk) on each tile's energies in s; with
+  // one tile they are computed once for every walk
+  bool have = false;
+  auto walk = [&](auto f) {
+    if (nkt == 1 && have) {
+      f(keys(0));
+      return;
+    }
+    fetch(0);
+    put(ks[0], 0);
+    __syncthreads();
+    for (int t = 0; t < nkt; ++t) {
+      const int nk = keys(t);
+      if (t + 1 < nkt) fetch(t + 1);
+      energies(ks[t & 1], nk);
+      f(nk);
+      if (t + 1 < nkt) put(ks[(t + 1) & 1], t + 1);
+      __syncthreads();
+    }
+    have = true;
+  };
+  // pass 1: each row's max and sum of exp, lane l over its keys l, l + 32,
+  // ... in order, then over the warp. In bf16 the max first and then the
+  // sum of exp(e - max), as the plain version's softmax (PyTorch's warp
+  // softmax) sums, so that the rounded attention is the plain version's
+  // bit for bit; in f32 both at once, each lane's sum rescaled as its max
+  // rises (the attention is not rounded, so the last bits do not matter).
+  float mx[kRM], sum[kRM];
 #pragma unroll
-  for (int i = 0; i < kQT / kWarps; ++i) {
-    const int row = warp + kWarps * i;
-    if (row < nq) softmax_row(s[i], P, P, false, att + row * lda, lane);
+  for (int i = 0; i < kRM; ++i) {
+    mx[i] = -INFINITY;
+    sum[i] = 0.f;
   }
-  __syncthreads();
-  for (int cg = 0; cg < nc; cg += kGroup) {
-    float y[kQT / kWarps][1];
-    gemm_f32(nq, kGroup, P, [&](int p, int key) { return att[p * lda + key]; },
-             [&](int key, int c) { return vs[key * nc + cg + c]; }, y);
+  if (sizeof(T) == 2) {
+    walk([&](int nk) {
 #pragma unroll
-    for (int i = 0; i < kQT / kWarps; ++i) {
-      const int p = warp + kWarps * i;
-      if (p < nq) {
-        const size_t o = static_cast<size_t>(q0 + p) * C + c0 + cg + lane;
-        out[o] = g * y[i][0] + x[o];
-      }
+      for (int i = 0; i < kRM; ++i)
+#pragma unroll
+        for (int j = 0; j < kRN; ++j) {
+          if (lane + 32 * j < nk) mx[i] = fmaxf(mx[i], s[i][j]);
+        }
+    });
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) mx[i] = warp_max(mx[i]);
+    walk([&](int nk) {
+#pragma unroll
+      for (int i = 0; i < kRM; ++i)
+#pragma unroll
+        for (int j = 0; j < kRN; ++j) {
+          if (lane + 32 * j < nk) sum[i] += expf(s[i][j] - mx[i]);
+        }
+    });
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) sum[i] = warp_sum(sum[i]);
+  } else {
+    walk([&](int nk) {
+#pragma unroll
+      for (int i = 0; i < kRM; ++i)
+#pragma unroll
+        for (int j = 0; j < kRN; ++j) {
+          if (lane + 32 * j < nk) {
+            const float e = s[i][j];
+            if (e > mx[i]) {
+              sum[i] = sum[i] * expf(mx[i] - e) + 1.f;
+              mx[i] = e;
+            } else {
+              sum[i] += expf(e - mx[i]);
+            }
+          }
+        }
+    });
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) {
+      const float m = warp_max(mx[i]);
+      sum[i] = warp_sum(sum[i] * expf(mx[i] - m));
+      mx[i] = m;
     }
   }
+
+  // pass 2: the energies again, att = exp(e - max) / sum rounded to T,
+  // applied to the value tile; v and k a tile ahead
+  auto issue_v = [&](T* dst, int t) {
+    mma3::load_rows16(dst, ldv, v + static_cast<size_t>(t) * kKT * C, keys(t),
+                      nc, C, c0, kThreads);
+    mma3::cp_commit();
+  };
+  typename PamApply<T>::type prod;
+  prod.zero();
+  if (nkt > 1) {
+    fetch(0);
+    put(ks[0], 0);
+  }
+  issue_v(vs[0], 0);
+  for (int t = 0; t < nkt; ++t) {
+    const int nk = keys(t);
+    mma3::cp_wait<0>();
+    __syncthreads();                      // tile t is in; t - 1 is applied
+    if (t + 1 < nkt) {
+      issue_v(vs[(t + 1) & 1], t + 1);
+      fetch(t + 1);
+    }
+    if (nkt > 1) energies(ks[t & 1], nk);
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) {
+      const int row = warp + kWarps * i;
+      if (row >= nq) continue;
+#pragma unroll
+      for (int j = 0; j < kRN; ++j) {
+        const int col = lane + 32 * j;
+        store(att + row * lda + col,
+              col < nk ? expf(s[i][j] - mx[i]) / sum[i] : 0.f);
+      }
+    }
+    if (sizeof(T) == 2 && nk % 16) {
+      // the bf16 product's K runs to a multiple of 16: keys past nk of
+      // the value tile are zero (their attention is)
+      uint4* z = reinterpret_cast<uint4*>(vs[t & 1] + nk * ldv);
+      const int n = (round16(nk) - nk) * ldv * static_cast<int>(sizeof(T)) / 16;
+      for (int i = tid; i < n; i += kThreads) z[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (t + 1 < nkt) put(ks[(t + 1) & 1], t + 1);
+    __syncthreads();                      // att and the zeros are in
+    prod.add(att, lda, vs[t & 1], nc, nq, nk);
+  }
+  const size_t o = static_cast<size_t>(q0) * C;
+  prod.store(x + o, out + o, C, c0, nc, nq, g);
 }
 
 // ------------------------------------------------------- kernels
@@ -851,54 +1109,51 @@ dual_attention_kernel(const T* __restrict__ xp, const T* __restrict__ q,
   }
 }
 
-// Blocks [0, C / 32) of a batch row do CAM, the rest PAM, one per query
-// tile (64 rows) and column range (pam_cols) of the row.
-template <typename T, int MC, int MP>
-__device__ __forceinline__ void wide_row(
-    const T* __restrict__ xp, const T* __restrict__ q,
-    const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ gp, const T* __restrict__ xc,
-    const T* __restrict__ gc, T* __restrict__ outp, T* __restrict__ outc,
-    int P, int C, int D, int pam_cols, int tp) {
-  extern __shared__ __align__(16) unsigned char sm[];
-  const int groups = C / kGroup;
-  const size_t ov = static_cast<size_t>(blockIdx.y) * P * C;
-  const size_t oq = static_cast<size_t>(blockIdx.y) * P * D;
-  const int item = blockIdx.x;
-  if (item < groups) {
-    cam_wide<MC>(xc + ov, to_f32(gc[0]), outc + ov, P, C, item * kGroup, tp,
-                 sm);
-  } else {
-    const int j = item - groups, ranges = C / pam_cols;
-    pam_wide<MP>(xp + ov, q + oq, k + oq, v + ov, to_f32(gp[0]), outp + ov,
-                 P, C, D, (j / ranges) * kQT, (j % ranges) * pam_cols,
-                 pam_cols, sm);
-  }
-}
-
+// Items [0, C / 32) of a batch row do CAM, the rest PAM, one per query
+// tile (64 rows) and column range (pam_cols) of the row; block x is item
+// x + first (first = C / 32 launches the PAM blocks alone).
 #define WIDE_PARAMS(T)                                                    \
   const T *__restrict__ xp, const T *__restrict__ q,                      \
       const T *__restrict__ k, const T *__restrict__ v,                   \
       const T *__restrict__ gp, const T *__restrict__ xc,                 \
       const T *__restrict__ gc, T *__restrict__ outp,                     \
-      T *__restrict__ outc, int P, int C, int D, int pam_cols, int tp
+      T *__restrict__ outc, int P, int C, int D, int pam_cols, int tp,    \
+      int first
 
-template <typename T, int MC, int MP>
-__global__ void __launch_bounds__(kThreads)
-dual_attention_wide_kernel(WIDE_PARAMS(T)) {
-  wide_row<T, MC, MP>(xp, q, k, v, gp, xc, gc, outp, outc, P, C, D, pam_cols,
-                      tp);
+template <typename T, int MC>
+__device__ __forceinline__ void wide_row(WIDE_PARAMS(T)) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int groups = C / kGroup;
+  const size_t ov = static_cast<size_t>(blockIdx.y) * P * C;
+  const size_t oq = static_cast<size_t>(blockIdx.y) * P * D;
+  const int item = blockIdx.x + first;
+  if (item < groups) {
+    cam_wide<T, MC>(xc + ov, to_f32(gc[0]), outc + ov, P, C, item * kGroup,
+                    tp, sm);
+  } else {
+    const int j = item - groups, ranges = C / pam_cols;
+    pam_wide<T>(xp + ov, q + oq, k + oq, v + ov, to_f32(gp[0]), outp + ov, P,
+                C, D, (j / ranges) * kQT, (j % ranges) * pam_cols, pam_cols,
+                sm);
+  }
 }
 
-// The f32 deep head's (C > 128, P <= 64: resnet50-152 pretraining) at two
-// blocks an SM, 128 registers: at one (182 registers) it measured 10-17%
-// slower, its few bytes of spills included (H100 80GB HBM3, 700 W). A
-// template-dependent __launch_bounds__ moved the register counts of every
-// other instantiation, so it is a kernel of its own.
+// Two blocks an SM (128 registers): with up to 207 registers one block
+// held an SM and the bf16 kernel at C = 512 ran 30-55% slower than its
+// predecessor (H100 80GB HBM3, 700 W).
+template <typename T, int MC>
 __global__ void __launch_bounds__(kThreads, 2)
-dual_attention_deep_f32(WIDE_PARAMS(float)) {
-  wide_row<float, kMaxC, 64>(xp, q, k, v, gp, xc, gc, outp, outc, P, C, D,
-                             pam_cols, tp);
+dual_attention_wide_kernel(WIDE_PARAMS(T)) {
+  wide_row<T, MC>(xp, q, k, v, gp, xc, gc, outp, outc, P, C, D, pam_cols, tp,
+                  first);
+}
+
+// The f32 kernel past C = 128: its CAM tile and gram rows (up to 198 KB)
+// hold an SM alone, so its registers are not capped.
+__global__ void __launch_bounds__(kThreads)
+dual_attention_wide_f32(WIDE_PARAMS(float)) {
+  wide_row<float, kMaxC>(xp, q, k, v, gp, xc, gc, outp, outc, P, C, D,
+                         pam_cols, tp, first);
 }
 
 int sm_count() {
@@ -915,8 +1170,8 @@ int sm_count() {
 }
 
 bool takes(int P, int C, int D) {
-  return P >= 1 && P <= kMaxP && C >= kGroup && C <= kMaxC &&
-         C % kGroup == 0 && D >= 1 && D <= kMaxD;
+  return P >= 1 && C >= kGroup && C <= kMaxC && C % kGroup == 0 && D >= 1 &&
+         D <= kMaxD;
 }
 
 bool narrow(int P, int C) { return P <= kNarrowP && C <= kNarrowC; }
@@ -939,24 +1194,25 @@ struct Plan {
 template <typename T>
 Plan plan(int B, int P, int C, int D) {
   Plan pl;
-  pl.tp = tile_rows<T>(C);
+  pl.tp = cam_bufs(P) > 1 ? tile_rows<T>(C) : P;
   int nc = few_blocks(B, C) ? kGroup : C;
   if (narrow(P, C)) {
     pl.pam_cols = nc;
     pl.smem = smem_bytes<T>(P, C, D);
     return pl;
   }
-  // the wide kernel narrows PAM's column range while v's columns and the
-  // scores would take more shared memory than CAM or kPamBudget
-  const size_t cam = wide_cam_bytes<T>(P < pl.tp ? P : pl.tp, C);
-  const size_t budget = cam > kPamBudget ? cam : kPamBudget;
-  while (nc > kGroup && wide_pam_bytes<T>(P, D, nc) > budget) {
-    do {
-      nc -= kGroup;
-    } while (C % nc);
+  // the wide kernel's PAM blocks hold at most kMaxNc value columns'
+  // accumulators, a range that divides C; past one query tile the query
+  // tiles give the blocks, and narrower ranges would only walk the keys
+  // again
+  if (P > kQT) nc = C;
+  if (nc > kMaxNc) {
+    nc = kMaxNc;
+    while (C % nc) nc -= kGroup;
   }
   pl.pam_cols = nc;
-  const size_t pam = wide_pam_bytes<T>(P, D, nc);
+  const size_t cam = wide_cam_bytes<T>(P, pl.tp, C);
+  const size_t pam = wide_pam_bytes<T>(D, nc);
   pl.smem = cam > pam ? cam : pam;
   return pl;
 }
@@ -969,27 +1225,31 @@ cudaError_t opt_in(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T, int MC, int MP>
+// sides: 1 the CAM blocks, 2 the PAM blocks, 3 both (the function).
+template <typename T, int MC>
 int launch_wide(const Plan& pl, const void* xp, const void* q, const void* k,
                 const void* v, const void* gp, const void* xc, const void* gc,
-                void* outp, void* outc, int B, int P, int C, int D,
+                void* outp, void* outc, int B, int P, int C, int D, int sides,
                 void* stream) {
   void (*kernel)(WIDE_PARAMS(T));
-  if constexpr (sizeof(T) == 4 && MC == kMaxC && MP == 64) {
-    kernel = dual_attention_deep_f32;
+  if constexpr (sizeof(T) == 4 && MC == kMaxC) {
+    kernel = dual_attention_wide_f32;
   } else {
-    kernel = dual_attention_wide_kernel<T, MC, MP>;
+    kernel = dual_attention_wide_kernel<T, MC>;
   }
   const cudaError_t err = opt_in(kernel, pl.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nqt = (P + kQT - 1) / kQT;
-  const dim3 grid(C / kGroup + nqt * (C / pl.pam_cols), B);
+  const int groups = C / kGroup;
+  const int pam = (P + kQT - 1) / kQT * (C / pl.pam_cols);
+  const int first = sides & 1 ? 0 : groups;
+  const int count = (sides & 1 ? groups : 0) + (sides & 2 ? pam : 0);
+  const dim3 grid(count, B);
   kernel<<<grid, kThreads, pl.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xp), static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(gp), static_cast<const T*>(xc),
       static_cast<const T*>(gc), static_cast<T*>(outp),
-      static_cast<T*>(outc), P, C, D, pl.pam_cols, pl.tp);
+      static_cast<T*>(outc), P, C, D, pl.pam_cols, pl.tp, first);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -999,10 +1259,13 @@ int launch_wide(const Plan& pl, const void* xp, const void* q, const void* k,
 template <typename T>
 int launch(const void* xp, const void* q, const void* k, const void* v,
            const void* gp, const void* xc, const void* gc, void* outp,
-           void* outc, int B, int P, int C, int D, void* stream) {
-  if (!takes(P, C, D)) return static_cast<int>(cudaErrorInvalidValue);
+           void* outc, int B, int P, int C, int D, int sides, void* stream) {
+  if (!takes(P, C, D) || sides < 1 || sides > 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Plan pl = plan<T>(B, P, C, D);
   if (narrow(P, C)) {
+    if (sides != 3) return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t err = opt_in(dual_attention_kernel<T>, pl.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(C / kGroup + C / pl.pam_cols, B);
@@ -1015,15 +1278,11 @@ int launch(const void* xp, const void* q, const void* k, const void* v,
         static_cast<T*>(outc), P, C, D, pl.pam_cols);
     return static_cast<int>(cudaGetLastError());
   }
-  if (C <= kNarrowC) {
-    return launch_wide<T, kNarrowC, kMaxP>(pl, xp, q, k, v, gp, xc, gc, outp,
-                                           outc, B, P, C, D, stream);
-  }
-  return P <= kNarrowP
-             ? launch_wide<T, kMaxC, kNarrowP>(pl, xp, q, k, v, gp, xc, gc,
-                                               outp, outc, B, P, C, D, stream)
-             : launch_wide<T, kMaxC, kMaxP>(pl, xp, q, k, v, gp, xc, gc,
-                                            outp, outc, B, P, C, D, stream);
+  return C <= kNarrowC
+             ? launch_wide<T, kNarrowC>(pl, xp, q, k, v, gp, xc, gc, outp,
+                                        outc, B, P, C, D, sides, stream)
+             : launch_wide<T, kMaxC>(pl, xp, q, k, v, gp, xc, gc, outp, outc,
+                                     B, P, C, D, sides, stream);
 }
 
 }  // namespace
@@ -1033,7 +1292,7 @@ extern "C" int dual_attention_f32(const void* xp, const void* q, const void* k,
                                   const void* xc, const void* gc, void* outp,
                                   void* outc, int B, int P, int C, int D,
                                   void* stream) {
-  return launch<float>(xp, q, k, v, gp, xc, gc, outp, outc, B, P, C, D,
+  return launch<float>(xp, q, k, v, gp, xc, gc, outp, outc, B, P, C, D, 3,
                        stream);
 }
 
@@ -1042,8 +1301,24 @@ extern "C" int dual_attention_bf16(const void* xp, const void* q,
                                    const void* gp, const void* xc,
                                    const void* gc, void* outp, void* outc,
                                    int B, int P, int C, int D, void* stream) {
-  return launch<bf16>(xp, q, k, v, gp, xc, gc, outp, outc, B, P, C, D,
+  return launch<bf16>(xp, q, k, v, gp, xc, gc, outp, outc, B, P, C, D, 3,
                       stream);
+}
+
+// One side of the wide kernel alone (sides 1: the CAM blocks, 2: the PAM
+// blocks; bf16_in != 0: the bf16 kernel), which chip_smoke.py times to
+// see which side sets a shape's pace; the other side's output is left
+// unwritten. Refuses (cudaErrorInvalidValue) a shape of the narrow kernel.
+extern "C" int dual_attention_side(const void* xp, const void* q,
+                                   const void* k, const void* v,
+                                   const void* gp, const void* xc,
+                                   const void* gc, void* outp, void* outc,
+                                   int B, int P, int C, int D, int sides,
+                                   int bf16_in, void* stream) {
+  return bf16_in ? launch<bf16>(xp, q, k, v, gp, xc, gc, outp, outc, B, P, C,
+                                D, sides, stream)
+                 : launch<float>(xp, q, k, v, gp, xc, gc, outp, outc, B, P,
+                                 C, D, sides, stream);
 }
 
 // Bytes of dynamic shared memory one block of a launch of B rows uses

@@ -1,9 +1,9 @@
 // Backward of the fused position (PAM) and channel (CAM) attention of the
-// DANet head, f32: per batch row, a thread-block cluster of CAM blocks and
-// one PAM block, every product on the tensor cores in 3xTF32. Two kernels:
+// DANet head, f32: per batch row, thread-block clusters of CAM blocks and
+// of PAM blocks, every product on the tensor cores in 3xTF32. Two kernels:
 // the first (below) for P <= 64, C <= 128, D <= 32, the main path's heads
 // (resnet18/34 at 144x256); the wide one ("wide kernel" below) for the
-// rest of the domain the wrapper takes, P <= 256, C <= 512, D <= 64.
+// rest of the domain the wrapper takes: any P, C <= 512, D <= 64.
 //
 // Replaces: no TPU kernel. The JAX package differentiates the plain
 // cadre_tpu/ops/dual_attention.py::pam_apply / cam_apply with XLA's
@@ -27,8 +27,10 @@
 // four written) and do 0.27 GFLOP, 4.6 MFLOP a row of it in CAM's C x C x P
 // products (the symmetric Gram x^T x counted once per pair): 4.0 us as f32
 // FMA at 67 TFLOP/s, 1.6 us as three tf32 products at 495 TFLOP/s, 1.9 us
-// of bytes at 3.35 TB/s. In practice it is bound by the latency of each
-// block's chain of phases.
+// of bytes at 3.35 TB/s. At C = 512 the CAM products are 16x those for 4x
+// the bytes, and on a large camera the PAM products grow as P^2: both are
+// bound by operations. In practice each block is bound by the latency of
+// its chain of phases, which the designs below shorten.
 //
 // What the first design lost (0.0675 ms at B = 48 on an H100 80GB HBM3 at
 // 700 W, 17x its operations bound): a grid of (2, B) blocks of 512
@@ -62,22 +64,11 @@
 //   registers, as in CAM), then dv, dq and dk. Splitting it in two (dv in
 //   a block of its own) shortened it alone, but the 48 more blocks at
 //   B = 48 no longer ran in one wave, and it measured slower.
-// - Products: mma.sync.m16n8k8 with tf32 operands in 3xTF32: a = hi + lo,
-//   hi = a rounded to tf32 (cvt.rna's rounding, done with integer
-//   operations, which measured faster than cvt), lo = a - hi, exact in f32
-//   and truncated to tf32 by the tensor cores; a tile accumulates
-//   lo hi + hi lo + hi hi in f32, within a few 1e-6 of each gradient's
-//   scale on the card, as f32 FMA. Plain TF32 is not enough: CAM's softmax
-//   reads rowmax(G) - G with |G| in the tens, so a relative error of 1e-3
-//   in G moves Bm by percents. Operands stay f32 in shared memory and are
-//   split as they are loaded into fragments. Ragged edges (P not a
-//   multiple of 16, K not of 8, D < 8) are clamped or masked in the loads,
-//   so no buffer is padded; the [*, P] products (x dN_r^T, dv) run
+// - Products: mma.sync.m16n8k8 in 3xTF32 (mma_tf32.cuh, which says why
+//   plain TF32 is not enough); the [*, P] products (x dN_r^T, dv) run
 //   transposed, P on the n8 axis, where P = 40 is five tiles without
-//   padding. Tiles of one or two m16n8 outputs keep four accumulator sets
-//   (small terms apart, odd k steps apart) so that a warp is not bound by
-//   the latency of one chain of mma. wgmma is not used: these products are
-//   32- to 64-row slabs with K of 32-128, below its 64-row warpgroup tile.
+//   padding. wgmma is not used: these products are 32- to 64-row slabs
+//   with K of 32-128, below its 64-row warpgroup tile.
 // - Shared memory per block, the CAM rank's: x ([P, C + 4]), dy[:, I_r]
 //   ([P, 36]), gc Bm_r and dN_r ([32, C + 4] each) and the receive buffer
 //   ([nc, P, 36]): 82 KB at P = 40, C = 128. Registers (up to 128 a
@@ -96,9 +87,18 @@
 
 #include <atomic>
 
+#include "mma_tf32.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using mma3::ld4;
+using mma3::ld8;
+using mma3::store_tile;
+using mma3::View;
+using mma3::warp_mma3;
+using mma3::zero;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -107,16 +107,22 @@ constexpr int kNarrowC = 128;    // what the narrow kernel takes
 constexpr int kNarrowP = 64;
 constexpr int kNarrowD = 32;
 constexpr int kMaxC = 512;       // what the wide kernel takes (the wrapper's
-constexpr int kMaxP = 256;       // limits)
-constexpr int kMaxD = 64;
+constexpr int kMaxD = 64;        // limits; any P)
 constexpr int kMaxRanks = 8;     // a portable cluster
-constexpr int kCC = 128;         // channels of a slab of dy and v (wide PAM)
 
-// A row stride of at least n words, a multiple of 4 (16-byte rows) and
-// 4 mod 8, so that the 8 x 4 lanes of a fragment load along rows hit
-// distinct banks.
-__host__ __device__ constexpr int ld4(int n) {
-  return (n + 3) / 4 * 4 + ((n + 3) / 4 * 4 % 8 ? 0 : 4);
+__device__ __forceinline__ void cp_wait_all() {
+  mma3::cp_commit();
+  mma3::cp_wait<0>();
+}
+__device__ __forceinline__ void load_rows4(float* dst, int ld,
+                                           const float* __restrict__ src,
+                                           int rows, int cols, int C, int c0) {
+  mma3::load_rows16(dst, ld, src, rows, cols, C, c0, kThreads);
+}
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const float* __restrict__ src,
+                                          int rows, int cols) {
+  mma3::load_rows(dst, ld, src, rows, cols, kThreads);
 }
 
 __host__ __device__ inline size_t cam_floats(int P, int C) {
@@ -151,41 +157,6 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
-// Asynchronous copies from global into shared memory (cp.async), all
-// issued before any is waited for.
-__device__ __forceinline__ void cp16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src));
-}
-__device__ __forceinline__ void cp4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Columns [c0, c0 + cols) of a [rows, C] row-major f32 array in global
-// memory into shared memory with row stride ld (cols, c0 and C multiples
-// of 4, 16-byte aligned).
-__device__ void load_rows4(float* dst, int ld, const float* __restrict__ src,
-                           int rows, int cols, int C, int c0) {
-  const int c4 = cols / 4;
-  for (int i = threadIdx.x; i < rows * c4; i += kThreads) {
-    const int r = i / c4, c = (i % c4) * 4;
-    cp16(dst + r * ld + c, src + r * C + c0 + c);
-  }
-}
-// A [rows, cols] row-major array, one word at a time.
-__device__ void load_rows(float* dst, int ld, const float* __restrict__ src,
-                          int rows, int cols) {
-  for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
-    cp4(dst + (i / cols) * ld + i % cols, src + i);
-  }
-}
-
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
 }
@@ -193,132 +164,6 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// ------------------------------------------------------- 3xTF32 tiles
-
-// a = hi + lo: hi is a rounded to tf32 (to nearest, ties away from zero:
-// cvt.rna.tf32.f32, done here with integer operations), lo = a - hi is
-// exact in f32 and passed as it is: the tensor cores read the 19 high bits
-// of a tf32 operand, which truncates lo to tf32.
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(a - __uint_as_float(hi));
-}
-
-// d += a b for one m16n8k8 tile: tf32 operands, f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// An operand in shared memory: element (i, k) at p[i * si + k * sk], i
-// the row of A or the column of B, valid for i < n (indices past n are
-// clamped into range: they feed only products that are never stored).
-struct View {
-  const float* p;
-  int si, sk, n;
-};
-
-// One warp: acc[i][j] += A_i[m0_i .. m0_i + 16) x B[.., n0 + 8 j ..
-// n0 + 8 j + 8) for i < mt (<= MT) and j < nt (<= NT), the other tiles
-// skipped, over k < K in 3xTF32 (the A_i negated with kNeg). The m-tiles
-// share each B fragment and the n-tiles each A fragment; the A_i may be
-// different operands. K is stepped by 8, the last step masked to zeros
-// past K. Fragments of m16n8k8.tf32, lane l = 4 g + t: A (g, t),
-// (g + 8, t), (g, t + 4), (g + 8, t + 4); B (t, g), (t + 4, g); acc
-// (g, 2 t), (g, 2 t + 1), (g + 8, 2 t), (g + 8, 2 t + 1). Each lane walks
-// fixed row pointers. With fewer than four tiles a tile has four
-// accumulators (hi hi and the small terms lo hi + hi lo apart, odd k steps
-// apart from even ones), added at the end, so that the warp is not bound
-// by the latency of one chain of mma.
-template <int MT, int NT, bool kNeg = false>
-__device__ __forceinline__ void warp_mma3(float (&acc)[MT][NT][4],
-                                          const View (&a)[MT],
-                                          const int (&m0)[MT], int mt, View b,
-                                          int n0, int K, int nt = NT) {
-  constexpr bool kSplit = MT * NT < 4;
-  constexpr int kSets = kSplit ? 4 : 1;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* ra[MT][2];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    ra[i][0] = a[i].p + min(m0[i] + g, a[i].n - 1) * a[i].si;
-    ra[i][1] = a[i].p + min(m0[i] + g + 8, a[i].n - 1) * a[i].si;
-  }
-  const float* rb[NT];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) rb[j] = b.p + min(n0 + 8 * j + g, b.n - 1) * b.si;
-  // set 0: hi hi of even steps (acc itself when not split), 1: hi hi of
-  // odd steps, 2 and 3: the small terms of even and odd steps
-  float part[kSets - 1 > 0 ? kSets - 1 : 1][MT][NT][4] = {};
-  // one k step: the lane's k indices (k + t and k + t + 4, clamped into
-  // range) and whether each is inside K
-  auto step = [&](int odd, int k0, int k1, bool v0, bool v1) {
-    uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      if (i >= mt) break;
-      const int a0 = k0 * a[i].sk, a1 = k1 * a[i].sk;
-      float av[4] = {ra[i][0][a0], ra[i][1][a0], ra[i][0][a1], ra[i][1][a1]};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = (e < 2 ? v0 : v1) ? av[e] : 0.f;
-        split_tf32(kNeg ? -x : x, ah[i][e], al[i][e]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j >= nt) break;
-      uint32_t bh[2], bl[2];
-      split_tf32(v0 ? rb[j][k0 * b.sk] : 0.f, bh[0], bl[0]);
-      split_tf32(v1 ? rb[j][k1 * b.sk] : 0.f, bh[1], bl[1]);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        if (i >= mt) break;
-        if (kSplit) {
-          float (&big)[4] = odd ? part[0][i][j] : acc[i][j];
-          float (&lo)[4] = part[kSplit ? 1 + odd : 0][i][j];
-          mma_tf32(lo, al[i], bh);
-          mma_tf32(lo, ah[i], bl);
-          mma_tf32(big, ah[i], bh);
-        } else {
-          mma_tf32(acc[i][j], al[i], bh);
-          mma_tf32(acc[i][j], ah[i], bl);
-          mma_tf32(acc[i][j], ah[i], bh);
-        }
-      }
-    }
-  };
-  const int kf = K & ~15;
-  int k = 0;
-  for (; k < kf; k += 16) {
-    step(0, k + t, k + t + 4, true, true);
-    step(1, k + t + 8, k + t + 12, true, true);
-  }
-  // at most two steps are left (the second of them masked)
-#pragma unroll
-  for (int odd = 0; odd < 2; ++odd, k += 8) {
-    if (k >= K) break;
-    const int c0 = min(k + t, K - 1), c1 = min(k + t + 4, K - 1);
-    step(odd, c0, c1, k + t < K, k + t + 4 < K);
-  }
-  if (kSplit) {
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[i][j][e] = (acc[i][j][e] + part[0][i][j][e]) +
-                         (part[kSplit ? 1 : 0][i][j][e] +
-                          part[kSplit ? 2 : 0][i][j][e]);
-        }
-  }
-}
 
 // Butterfly max / sum of R values at once over a warp (R independent
 // shuffle chains, interleaved).
@@ -335,32 +180,6 @@ __device__ __forceinline__ void warp_sum_n(float (&v)[R]) {
 #pragma unroll
     for (int r = 0; r < R; ++r) v[r] += __shfl_xor_sync(0xffffffffu, v[r], o);
 }
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-}
-
-// Calls put(m, n, v) for each element of a warp's acc from warp_mma3 that
-// lies inside [0, M) x [0, N).
-template <int NT, class Put>
-__device__ __forceinline__ void store_tile(const float (&acc)[NT][4], int m0,
-                                           int n0, int M, int N, Put put) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int m = m0 + g + 8 * (e >> 1), n = n0 + 8 * j + 2 * t + (e & 1);
-      if (m < M && n < N) put(m, n, acc[j][e]);
-    }
-}
-
 // ------------------------------------------------------- CAM rank
 
 // CAM rank r of one batch row: columns I_r of dx_c and this rank's share
@@ -688,64 +507,127 @@ __device__ void pam_block(const float* __restrict__ q,
   if (threadIdx.x == 0) *dg = total;
 }
 
+
 // ------------------------------------------------------- wide kernel
 //
 // Shapes past the narrow kernel's (P > 64, C > 128 or D > 32: deep
-// backbones' C = 512, D = 64 heads, cameras of more than 5 x 8 features)
-// need another split: the narrow CAM rank holds x, two [32, C] matrices
-// and an [nc, P, 32] receive buffer (312 KB at C = 512, P = 40), and the
-// narrow PAM block two [P, P] matrices beside v and dy (over 1 MB at
-// P = 256, C = 512). This kernel keeps every block's shared memory to
-// [P, 32] slabs and [32, 32] or [32, P] tiles:
-// - CAM: a cluster of S = C / 32 ranks (at most 8; above C = 256 a rank
-//   takes two 32-row groups, so that the cluster stays portable), rank r
-//   owning groups g = r, r + S, ... of Gram rows and of dx_c columns.
-//   Pass 1, per group g and chunk c of 32 columns: G[g, c] = x_g^T x_c and
-//   H[g, c] = dy_g^T x_c, folded into each row's running min mu_i (the
-//   softmax of rowmax(G) - G is exp(min_j G_ij - G_ij) / S_i), sum
-//   S_i = sum_j exp(mu_i - G_ij) and W_i = sum_j H_ij exp(mu_i - G_ij),
-//   rescaled as mu falls; then dot_i = gc W_i / S_i and the rank's share
-//   of dgc, sum_i W_i / S_i. Each rank stores (mu, 1 / S, dot) of its
-//   rows into every rank's shared memory (distributed shared memory:
-//   3 C floats a rank, where the narrow kernel sends [P, C]). Pass 2, per
-//   group g and chunk c: G[c, g], H[c, g] and H[g, c] again, from them
-//   M = gc Bm[c, g] and N = dN[c, g] + dN[g, c]^T with every row's
-//   statistics, and dx_c[:, g] = dy_g + sum_c (dy_c M - x_c N) in
-//   registers. That is 7 C^2 P multiply-adds a row against the narrow
-//   kernel's 5, for no [P, C] exchange.
-// - PAM: one block per batch row (no cluster barrier). Pass 1, per chunk
-//   of 32 query rows: E = q_Q k^T and G = dy_Q v^T over all keys (v and
-//   dy in 128-channel slabs), whole rows, so their softmax and chain rule
-//   run as in the narrow block; dq_Q = dE_Q k; A_Q and dE_Q go to a
-//   [B, 2, P, P'] f32 scratch the wrapper allocates, transposed (P' = P
-//   rounded up to 4). Pass 2, per chunk K of 32 keys: dk_K = dE[:, K]^T q
-//   and dv_K = gp A[:, K]^T dy (dy in 32-channel slabs), reading the
-//   scratch back. The attention is still recomputed from the inputs, not
+// backbones' C = 512, D = 64 heads, cameras of more than 5 x 8 features
+// up to CARLA's 800x600 and past it) need another split: the narrow CAM
+// rank holds x, two [32, C] matrices and an [nc, P, 32] receive buffer
+// (312 KB at C = 512, P = 40), and the narrow PAM block two [P, P]
+// matrices beside v and dy. In this kernel no block's shared memory or
+// registers grow with P: positions, queries and keys all come in tiles
+// (16 or 32 positions), two tiles in flight (cp.async brings in the next
+// while the current one is multiplied, one barrier a tile). Per batch row
+// a cluster of S CAM ranks, S = C / 32 up to 8 (above C = 256 a rank
+// takes two 32-row groups, so that the cluster stays portable), and Sp
+// PAM ranks (Sp the largest divisor of S up to the number of query
+// tiles), S / Sp batch rows' PAM ranks to a cluster:
+// - CAM rank r owns groups g = r, r + S, ... of Gram rows and of dx_c
+//   columns. Pass 1, per group: G[g, :] = x_g^T x and H[g, :] = dy_g^T x
+//   summed over the position tiles, in chunks of 128 columns (256 above
+//   C = 256), into the group's [32, C] G and H rows in shared memory; then
+//   each row's min mu_i (the softmax of rowmax(G) - G is exp(mu_i - G_ij)
+//   / S_i), S_i = sum_j exp(mu_i - G_ij) and W_i = sum_j H_ij
+//   exp(mu_i - G_ij), dot_i = gc W_i / S_i and the rank's share of dgc,
+//   sum_i W_i / S_i. Each rank stores (mu, 1 / S, dot) of its rows into
+//   every rank's shared memory (distributed shared memory: 3 C floats a
+//   rank). Pass 2, per group, the last first (its G and H are still in
+//   shared memory; a rank's other group computes them again): H[c, g]^T =
+//   x_g^T dy_c over the position tiles, and from it, G and H and every
+//   row's statistics, M = gc Bm[c, g] and N = dN[c, g] + dN[g, c]^T over
+//   G and H in place (as M^T and N^T); then per position tile and chunk
+//   of 128 channels, dx_c[p, g] = dy[p, g] + sum_c (dy[p, c] M[c, g] -
+//   x[p, c] N[c, g]), each warp a 16-channel slice of the chunk over the
+//   whole tile (eight independent sums, where one m16n8 tile a warp over
+//   all of C was a serial chain), the warps' sums added in warp order.
+//   That is 5 C^2 P multiply-adds a row (7 for a rank's first group
+//   above C = 256), as the narrow kernel's, for no [P, C] exchange.
+// - PAM rank r of a row takes query tiles Q = r, r + Sp, ... in phase 1,
+//   then key tiles K = Sp - 1 - r, 2 Sp - 1 - r, ... in phase 2 (so that
+//   a rank with one query tile more has one key tile less), the two
+//   phases split by
+//   a cluster barrier; A and dE go between them through a [B, 2, P, P']
+//   f32 scratch the wrapper allocates (P' = P rounded up to 4; 1.81 MB a
+//   row at P = 475). Phase 1, per query tile: over the key tiles, E = q_Q
+//   k_K^T and G = dy_Q v_K^T (dy and v in slabs of 128 channels), each
+//   row's running max m, sum l of exp(E - m) and sum of exp(E - m) G
+//   (whose quotient by l is D_i = sum_j A_ij G_ij, the flash-attention
+//   identity rowsum(dA * A)_i = gp D_i), E and G stored to the scratch;
+//   then over the key tiles again, A = exp(E - m) / l and dE = A (gp G -
+//   gp D_i) from the scratch (each thread reads back what it wrote), A
+//   and dE stored over E and G, and dq_Q += dE_QK k_K. Phase 2, per key
+//   tile: dk_K = sum_Q dE_QK^T q_Q and dv_K = gp sum_Q A_QK^T dy_Q (dy in
+//   slabs of 128 channels), read back from the scratch after the cluster
+//   barrier. The attention is still recomputed from the inputs, not
 //   saved by the forward; the scratch lives for this launch only.
-// Shared memory: 167 KB (CAM) and 179 KB (PAM) at P = 256, C = 512,
-// D = 64; 43 KB and 64 KB at P = 40. Gamma shares as in the narrow
-// kernel, [2, B, S].
+// Shared memory: 103 KB up to C = 256 (two blocks an SM), 226 KB at
+// C = 512 (one), whatever P. Gamma shares [2, B, S], one per rank.
+// Measured (H100 80GB HBM3, 700 W, B = 48, graphs of 200 calls): 0.556
+// ms at C = 512, P = 40, where the CAM clusters alone take 0.546 (one
+// block an SM, the 3xTF32 products at about a sixth of mma.sync's rate:
+// per-warp chains of small tiles); 0.178 ms at C = 128, P = 144, where
+// the PAM clusters alone take 0.121 (five query and five key tiles over
+// four ranks, the phases split by a barrier). The earlier wide kernel
+// took 0.540 and 0.174 on the same card, but refused P > 256.
+
+constexpr int kTP = 32;          // queries or keys of a PAM tile
+constexpr int kKC = 128;         // channels of a dx_c chunk (CAM)
+constexpr int kCS = 128;         // channels of a dy and v slab (PAM)
 
 __host__ __device__ inline int wide_ranks(int C) {
   const int nc = C / kRows;
   return nc <= kMaxRanks ? nc : (nc + 1) / 2;
 }
+// PAM ranks of a batch row: the largest divisor of S up to the number of
+// query tiles
+__host__ __device__ inline int pam_ranks(int P, int C) {
+  const int S = wide_ranks(C), nt = (P + kTP - 1) / kTP;
+  int sp = S;
+  while (sp > 1 && (S % sp || sp > nt)) --sp;
+  return sp;
+}
 __host__ __device__ inline int scratch_ld(int P) { return (P + 3) / 4 * 4; }
+// A CAM rank's chunk of Gram columns (128, 256 above C = 256: the
+// accumulators of G and H, 64 registers a thread at most) and position
+// tile (32, 16 at 128 < C <= 256: two blocks an SM)
+__host__ __device__ inline int cam_cw(int C) { return C > 256 ? 256 : 128; }
+__host__ __device__ inline int cam_tp(int C) {
+  return C > 128 && C <= 256 ? 16 : 32;
+}
 
-__host__ __device__ inline size_t cam_wide_floats(int P, int C) {
-  return 4 * static_cast<size_t>(P) * ld4(kRows) +
-         3 * static_cast<size_t>(kRows) * ld4(kRows) + 3 * static_cast<size_t>(C);
+// A CAM rank: its rows' statistics (3 C), its group's G and H ([32, C]
+// each; later M^T and N^T) and two tile buffers, each a [tp, cw] chunk
+// of x or dy and [tp, 32] slabs x_g and dy_g, or [tp, 128] chunks of dy
+// and x, then the warps' [tp, 32] sums of dx_c.
+__host__ __device__ inline int cam_buf(int C) {
+  const int tp = cam_tp(C);
+  const int a = tp * (ld8(cam_cw(C)) + 2 * ld8(kRows));
+  const int b = 2 * tp * ld4(kKC);
+  const int c = kWarps * tp * (kRows + 1);   // the warps' dx_c sums
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
 }
-__host__ __device__ inline size_t pam_wide_floats(int P, int D) {
-  const size_t pass1 = static_cast<size_t>(kRows) * ld4(D) +
-                       2 * static_cast<size_t>(kRows) * ld4(kCC) +
-                       2 * static_cast<size_t>(kRows) * ld4(P);
-  const size_t pass2 = 2 * static_cast<size_t>(kRows) * ld4(P) +
-                       static_cast<size_t>(P) * ld4(kRows);
-  return static_cast<size_t>(P) * ld4(D) + (pass1 > pass2 ? pass1 : pass2);
+__host__ __device__ inline size_t cam_wide_floats(int C) {
+  return 3 * static_cast<size_t>(C) + 2 * static_cast<size_t>(kRows) * ld4(C) +
+         2 * static_cast<size_t>(cam_buf(C));
 }
-size_t wide_smem_bytes(int P, int C, int D) {
-  const size_t a = cam_wide_floats(P, C), b = pam_wide_floats(P, D);
+// A PAM rank: phase 1's q tile, two buffers (a [32, D] k tile and
+// [32, 128] slabs of dy and v) and E and G tiles; phase 2's two buffers
+// ([32, 32] tiles of A and dE, a [32, D] q tile, a [32, 128] slab of dy).
+__host__ __device__ inline int pam_p1_buf(int C, int D) {
+  const int cs = C < kCS ? C : kCS;
+  return kTP * (ld4(D) + 2 * ld4(cs));
+}
+__host__ __device__ inline int pam_p2_buf(int D) {
+  return kTP * (2 * ld8(kTP) + ld8(D) + ld8(kCS));
+}
+__host__ __device__ inline size_t pam_wide_floats(int C, int D) {
+  const size_t p1 = kTP * ld4(D) + 2 * pam_p1_buf(C, D) + 2 * kTP * ld4(kTP);
+  const size_t p2 = 2 * static_cast<size_t>(pam_p2_buf(D));
+  return p1 > p2 ? p1 : p2;
+}
+size_t wide_smem_bytes(int C, int D) {
+  const size_t a = cam_wide_floats(C), b = pam_wide_floats(C, D);
   return (a > b ? a : b) * sizeof(float);
 }
 
@@ -757,290 +639,497 @@ __device__ __forceinline__ void warp_min_n(float (&v)[R]) {
       v[r] = fminf(v[r], __shfl_xor_sync(0xffffffffu, v[r], o));
 }
 
-// CAM rank r of S of one batch row (see above). x, dy, dx: [P, C].
+// CAM rank r of S of one batch row (see above), kCW the chunk of Gram
+// columns (cam_cw(C)). x, dy, dx: [P, C].
+template <int kCW>
 __device__ void cam_rank_wide(const float* __restrict__ x,
                               const float* __restrict__ dy, float g,
                               float* __restrict__ dx, float* __restrict__ dg,
                               int P, int C, int r, int S, float* sm,
                               float* red) {
-  constexpr int ld = ld4(kRows);
-  constexpr int kR = kRows / kWarps;          // rows of a warp in pass 1
-  const int nc = C / kRows;
-  float* xg = sm;                      // [P][ld]: x[:, I_g]
-  float* dyg = xg + P * ld;            // [P][ld]: dy[:, I_g]
-  float* xc = dyg + P * ld;            // [P][ld]: x[:, I_c]
-  float* dyc = xc + P * ld;            // [P][ld]: dy[:, I_c]
-  float* t1 = dyc + P * ld;            // [32][ld]: G, then M
-  float* t2 = t1 + kRows * ld;         // [32][ld]: H[c, g], then N
-  float* t3 = t2 + kRows * ld;         // [32][ld]: H[g, c]
-  float* mu = t3 + kRows * ld;         // [C]: row min of G
+  constexpr int kNT = kCW / 32;               // n-tiles of a warp's span
+  constexpr int ldg = ld8(kRows);             // x_g, dy_g slabs
+  constexpr int ldc = ld8(kCW);               // chunks of x or dy
+  constexpr int ldk = ld4(kKC);               // dx_c's chunks of dy and x
+  constexpr int kR = kRows / kWarps;          // rows of a warp (statistics)
+  const int nc = C / kRows, ldm = ld4(C), tp = cam_tp(C);
+  const int ntp = (P + tp - 1) / tp, ng = (nc - r + S - 1) / S;
+  const int nch = (C + kCW - 1) / kCW, nkc = (C + kKC - 1) / kKC;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = 16 * (warp & 1), n0 = (kCW / 4) * (warp >> 1);
+  float* mu = sm;                      // [C]: row min of G
   float* inv = mu + C;                 // [C]: 1 / S
   float* dot = inv + C;                // [C]: gc W / S
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = 16 * (warp & 1), n0 = 8 * (warp >> 1);   // a 32 x 32 tile
+  float* gs = dot + C;                 // [32][ldm]: G, then M^T
+  float* hs = gs + kRows * ldm;        // [32][ldm]: H, then N^T
+  float* bufs[2] = {hs + kRows * ldm, hs + kRows * ldm + cam_buf(C)};
+  auto rows = [&](int pt) { return min(tp, P - pt * tp); };
+  auto group = [&](int gi) { return kRows * (r + S * gi); };
   cg::cluster_group cluster = cg::this_cluster();
   cluster_arrive();                    // this block has started
   float dg_part = 0.0f;
-  bool peers_started = false;
 
-  // pass 1: the statistics of the rows of this rank's groups
-  for (int grp = r; grp < nc; grp += S) {
-    const int g0 = kRows * grp;
-    load_rows4(xg, ld, x, P, kRows, C, g0);
-    load_rows4(dyg, ld, dy, P, kRows, C, g0);
+  // the items of the two passes: G and H of a chunk and position tile
+  // (kind 0), H[c, g]^T of one (kind 1), dx_c of a position tile and
+  // chunk of channels (kind 2)
+  struct Item {
+    int kind, gi, chunk, pt;
+  };
+  const int per1 = nch * ntp, n1 = ng * per1;
+  auto item1 = [&](int it) { return Item{0, it / per1, it % per1 / ntp, it % ntp}; };
+  // pass 2, groups last first: (G and H again unless the last), H^T, dx
+  const int per2 = 2 * per1 + ntp * nkc, n2 = ng * per2 - per1;
+  auto item2 = [&](int it) {
+    it += per1;                        // the last group needs no G and H
+    const int gi = ng - 1 - it / per2, e = it % per2;
+    if (e < per1) return Item{0, gi, e / ntp, e % ntp};
+    if (e < 2 * per1) return Item{1, gi, (e - per1) / ntp, (e - per1) % ntp};
+    return Item{2, gi, (e - 2 * per1) % nkc, (e - 2 * per1) / nkc};
+  };
+  auto issue = [&](const Item& t, int slot) {
+    float* b = bufs[slot];
+    const int g0 = group(t.gi), np = rows(t.pt);
+    const float* xs = x + static_cast<size_t>(t.pt) * tp * C;
+    const float* ds = dy + static_cast<size_t>(t.pt) * tp * C;
+    if (t.kind < 2) {
+      const int c0 = kCW * t.chunk, cw = min(kCW, C - c0);
+      load_rows4(b, ldc, t.kind == 0 ? xs : ds, np, cw, C, c0);
+      load_rows4(b + tp * ldc, ldg, xs, np, kRows, C, g0);
+      if (t.kind == 0) load_rows4(b + tp * ldc + tp * ldg, ldg, ds, np, kRows, C, g0);
+    } else {
+      const int k0 = kKC * t.chunk, kw = min(kKC, C - k0);
+      load_rows4(b, ldk, ds, np, kw, C, k0);
+      load_rows4(b + tp * ldk, ldk, xs, np, kw, C, k0);
+    }
+    mma3::cp_commit();
+  };
+  // G and H (kind 0), H^T (kind 1), or n-tiles 0-3 a warp's K slice of
+  // dx_c (kind 2): the kinds never hold sums at once
+  float acc[2][kNT][4];
+  zero(acc);
+  // one item's products; at the end of a chunk the group's G and H rows
+  // (kind 0) or M^T and N^T (kind 1) are stored, at the end of a position
+  // tile its dx_c (kind 2)
+  auto run = [&](const Item& t, const float* b) {
+    const int g0 = group(t.gi), np = rows(t.pt);
+    const int gq = lane >> 2, t2 = 2 * (lane & 3);
+    if (t.kind == 0) {
+      // G and H: a warp's m-tile m0 of both, kNT n-tiles from n0
+      const int c0 = kCW * t.chunk, cw = min(kCW, C - c0);
+      const int nt = min(kNT, max(0, (cw - n0) / 8));
+      if (nt > 0) {
+        warp_mma3(acc, {View{b + tp * ldc, 1, ldg, kRows},
+                        View{b + tp * ldc + tp * ldg, 1, ldg, kRows}},
+                  {m0, m0}, 2, View{b, 1, ldc, cw}, n0, np, nt);
+      }
+      if (t.pt < ntp - 1) return;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        if (j >= nt) break;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = m0 + gq + 8 * (q >> 1);
+          const int o = i * ldm + c0 + n0 + 8 * j + t2 + (q & 1);
+          gs[o] = acc[0][j][q];
+          hs[o] = acc[1][j][q];
+        }
+      }
+      zero(acc);
+      return;
+    }
+    if (t.kind == 1) {
+      // H[c, g]^T = x_g^T dy_c: a warp's kNT / 2 n-tiles from nh of both
+      // m-tiles (each dy_c fragment feeds two tiles)
+      constexpr int kNH = kNT / 2;
+      const int c0 = kCW * t.chunk, cw = min(kCW, C - c0);
+      const int nh = (kCW / 8) * warp, nt = min(kNH, max(0, (cw - nh) / 8));
+      const View xg{b + tp * ldc, 1, ldg, kRows};
+      if (nt > 0) {
+        warp_mma3(acc, {xg, xg}, {0, 16}, 2, View{b, 1, ldc, cw}, nh, np, nt);
+      }
+      if (t.pt < ntp - 1) return;
+      // M^T[i, c] = gc Bm[c, g_i]; N^T[i, c] = dN[c, g_i] + dN[g_i, c]
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < kNH; ++j) {
+          if (j >= nt) break;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int i = 16 * mi + gq + 8 * (q >> 1), gi = g0 + i;
+            const int c = c0 + nh + 8 * j + t2 + (q & 1), o = i * ldm + c;
+            const float gv = gs[o];
+            const float bc = expf(mu[c] - gv) * inv[c];
+            const float bg = expf(mu[gi] - gv) * inv[gi];
+            gs[o] = g * bc;
+            hs[o] = bc * (g * acc[mi][j][q] - dot[c]) +
+                    bg * (g * hs[o] - dot[gi]);
+          }
+        }
+      zero(acc);
+      return;
+    }
+    // dx_c[p, g] += dy[p, c] M[c, g] - x[p, c] N[c, g] over a chunk of
+    // kKC channels c: warp w takes channels 16 w .. 16 w + 15 of the chunk
+    // for the whole [tp, 32] block (eight m16n8 tiles, eight independent
+    // sums where one tile a warp over all of K was a serial chain), and
+    // the warps' sums are added in warp order at the position tile's end
+    const int k0 = kKC * t.chunk, kw = min(kKC, C - k0);
+    const int ks = 16 * warp, kn = min(16, kw - ks);
+    if (kn > 0) {
+      const int mt = (np + 15) / 16;
+      warp_mma3(acc, {View{b + ks, ldk, 1, np}, View{b + ks, ldk, 1, np}},
+                {0, 16}, mt, View{gs + k0 + ks, ldm, 1, kRows}, 0, kn, 4);
+      warp_mma3<2, kNT, true>(
+          acc, {View{b + tp * ldk + ks, ldk, 1, np},
+                View{b + tp * ldk + ks, ldk, 1, np}},
+          {0, 16}, mt, View{hs + k0 + ks, ldm, 1, kRows}, 0, kn, 4);
+    }
+    if (t.chunk < nkc - 1) return;
+    constexpr int ldr = kRows + 1;
+    float* part = const_cast<float*>(b);  // [kWarps][tp][ldr], b is read
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      store_tile(acc[i], 16 * i, 0, np, kRows, [&](int p, int j, float v) {
+        part[(warp * tp + p) * ldr + j] = v;
+      });
+    }
+    zero(acc);
+    __syncthreads();
+    const size_t o = static_cast<size_t>(t.pt) * tp * C + g0;
+    for (int e = threadIdx.x; e < np * kRows; e += kThreads) {
+      const int p = e / kRows, j = e % kRows;
+      float v = part[p * ldr + j];
+      for (int w = 1; w < kWarps; ++w) v += part[(w * tp + p) * ldr + j];
+      const size_t at = o + static_cast<size_t>(p) * C + j;
+      dx[at] = dy[at] + v;
+    }
+  };
+
+  // pass 1: G and H of each group, then its rows' statistics
+  if (n1 > 0) issue(item1(0), 0);
+  for (int it = 0; it < n1; ++it) {
+    mma3::cp_wait<0>();
+    __syncthreads();                   // item it is in; it - 1 is done
+    if (it + 1 < n1) issue(item1(it + 1), (it + 1) & 1);
+    const Item t = item1(it);
+    run(t, bufs[it & 1]);
+    if (it % per1 < per1 - 1) continue;
+    __syncthreads();                   // the group's G and H are whole
+    const int g0 = group(t.gi);
     float m[kR], s[kR], w[kR];
 #pragma unroll
     for (int rr = 0; rr < kR; ++rr) {
+      const float* grow = gs + (warp + kWarps * rr) * ldm;
       m[rr] = INFINITY;
+      for (int j = lane; j < C; j += 32) m[rr] = fminf(m[rr], grow[j]);
+    }
+    warp_min_n(m);
+#pragma unroll
+    for (int rr = 0; rr < kR; ++rr) {
+      const int i = warp + kWarps * rr;
       s[rr] = w[rr] = 0.f;
-    }
-    for (int c = 0; c < nc; ++c) {
-      load_rows4(xc, ld, x, P, kRows, C, kRows * c);
-      cp_wait_all();
-      __syncthreads();
-      float acc[2][1][4];
-      zero(acc);
-      warp_mma3(acc, {View{xg, 1, ld, kRows}, View{dyg, 1, ld, kRows}},
-                {m0, m0}, 2, View{xc, 1, ld, kRows}, n0, P);
-      store_tile(acc[0], m0, n0, kRows, kRows,
-                 [&](int i, int j, float v) { t1[i * ld + j] = v; });
-      store_tile(acc[1], m0, n0, kRows, kRows,
-                 [&](int i, int j, float v) { t3[i * ld + j] = v; });
-      __syncthreads();
-      float gv[kR], hv[kR], cm[kR], es[kR], eh[kR];
-#pragma unroll
-      for (int rr = 0; rr < kR; ++rr) {
-        const int i = warp + kWarps * rr;
-        gv[rr] = t1[i * ld + lane];
-        hv[rr] = t3[i * ld + lane];
-        cm[rr] = gv[rr];
-      }
-      warp_min_n(cm);
-#pragma unroll
-      for (int rr = 0; rr < kR; ++rr) {
-        const float nm = fminf(m[rr], cm[rr]);
-        const float scale = expf(nm - m[rr]);    // 0 on the first chunk
-        es[rr] = expf(nm - gv[rr]);
-        eh[rr] = es[rr] * hv[rr];
-        s[rr] *= scale;
-        w[rr] *= scale;
-        m[rr] = nm;
-      }
-      warp_sum_n(es);
-      warp_sum_n(eh);
-#pragma unroll
-      for (int rr = 0; rr < kR; ++rr) {
-        s[rr] += es[rr];
-        w[rr] += eh[rr];
+      for (int j = lane; j < C; j += 32) {
+        const float e = expf(m[rr] - gs[i * ldm + j]);
+        s[rr] += e;
+        w[rr] = fmaf(e, hs[i * ldm + j], w[rr]);
       }
     }
-    if (!peers_started) {
-      cluster_wait();                  // every peer has started
-      peers_started = true;
-    }
-    if (lane == 0) {
+    warp_sum_n(s);
+    warp_sum_n(w);
+    if (t.gi == 0) cluster_wait();     // every peer has started
+    // lane q < S stores the warp's rows into rank q
+    float* to = cluster.map_shared_rank(mu, lane < S ? lane : 0);
 #pragma unroll
-      for (int rr = 0; rr < kR; ++rr) {
-        const int i = g0 + warp + kWarps * rr;
-        const float is = 1.f / s[rr];
-        dg_part += w[rr] * is;
-        for (int q = 0; q < S; ++q) {
-          float* to = cluster.map_shared_rank(mu, q);
-          to[i] = m[rr];
-          to[C + i] = is;
-          to[2 * C + i] = g * w[rr] * is;
-        }
+    for (int rr = 0; rr < kR; ++rr) {
+      const int i = g0 + warp + kWarps * rr;
+      const float is = 1.f / s[rr];
+      if (lane == 0) dg_part += w[rr] * is;
+      if (lane < S) {
+        to[i] = m[rr];
+        to[C + i] = is;
+        to[2 * C + i] = g * w[rr] * is;
       }
     }
   }
-  if (!peers_started) cluster_wait();
   cluster_arrive();                    // this rank's statistics are sent
   cluster_wait();                      // every rank's have arrived; no rank
                                        // touches another's memory after this
 
-  // pass 2: dx_c[:, I_g] for this rank's groups, P rows in m16 tiles
-  // (warp w: tiles w and w + 8) by 32 columns
-  const int mtiles = (P + 15) / 16;
-  const int mt = (warp < mtiles) + (warp + kWarps < mtiles);
-  for (int grp = r; grp < nc; grp += S) {
-    const int g0 = kRows * grp;
-    if (S < nc) {                      // else x_g and dy_g are still loaded
-      __syncthreads();                 // the last group's dx is stored
-      load_rows4(xg, ld, x, P, kRows, C, g0);
-      load_rows4(dyg, ld, dy, P, kRows, C, g0);
-    }
-    float acc[2][4][4];
-    zero(acc);
-    for (int c = 0; c < nc; ++c) {
-      const int c0 = kRows * c;
-      load_rows4(xc, ld, x, P, kRows, C, c0);
-      load_rows4(dyc, ld, dy, P, kRows, C, c0);
-      cp_wait_all();
-      __syncthreads();
-      {
-        // t1 = G[c, g] = x_c^T x_g, t2 = H[c, g] = dy_c^T x_g,
-        // t3 = H[g, c] = dy_g^T x_c
-        float a2[2][1][4], a1[1][1][4];
-        zero(a2);
-        zero(a1);
-        warp_mma3(a2, {View{xc, 1, ld, kRows}, View{dyc, 1, ld, kRows}},
-                  {m0, m0}, 2, View{xg, 1, ld, kRows}, n0, P);
-        warp_mma3(a1, {View{dyg, 1, ld, kRows}}, {m0}, 1,
-                  View{xc, 1, ld, kRows}, n0, P);
-        store_tile(a2[0], m0, n0, kRows, kRows,
-                   [&](int i, int j, float v) { t1[i * ld + j] = v; });
-        store_tile(a2[1], m0, n0, kRows, kRows,
-                   [&](int i, int j, float v) { t2[i * ld + j] = v; });
-        store_tile(a1[0], m0, n0, kRows, kRows,
-                   [&](int i, int j, float v) { t3[i * ld + j] = v; });
-      }
-      __syncthreads();
-      // M[i, j] = gc Bm[c_i, g_j]; N[i, j] = dN[c_i, g_j] + dN[g_j, c_i]
-      for (int e = threadIdx.x; e < kRows * kRows; e += kThreads) {
-        const int i = e / kRows, j = e % kRows;
-        const int ci = c0 + i, gj = g0 + j;
-        const float gij = t1[i * ld + j];
-        const float bc = expf(mu[ci] - gij) * inv[ci];
-        const float bg = expf(mu[gj] - gij) * inv[gj];
-        const float ncg = bc * (g * t2[i * ld + j] - dot[ci]);
-        const float ngc = bg * (g * t3[j * ld + i] - dot[gj]);
-        t1[i * ld + j] = g * bc;
-        t2[i * ld + j] = ncg + ngc;
-      }
-      __syncthreads();
-      if (mt > 0) {
-        const int ms[2] = {16 * warp, 16 * (warp + kWarps)};
-        warp_mma3(acc, {View{dyc, ld, 1, P}, View{dyc, ld, 1, P}}, ms, mt,
-                  View{t1, 1, ld, kRows}, 0, kRows);
-        warp_mma3<2, 4, true>(acc, {View{xc, ld, 1, P}, View{xc, ld, 1, P}},
-                              ms, mt, View{t2, 1, ld, kRows}, 0, kRows);
-      }
-      __syncthreads();                 // before the next chunk's loads
-    }
-    for (int i = 0; i < mt; ++i) {
-      store_tile(acc[i], 16 * (warp + kWarps * i), 0, P, kRows,
-                 [&](int p, int j, float v) {
-                   dx[p * C + g0 + j] = dyg[p * ld + j] + v;
-                 });
-    }
+  // pass 2: dx_c[:, I_g] for this rank's groups
+  if (n2 > 0) issue(item2(0), 0);
+  for (int it = 0; it < n2; ++it) {
+    mma3::cp_wait<0>();
+    __syncthreads();                   // item it is in; it - 1 is done
+    if (it + 1 < n2) issue(item2(it + 1), (it + 1) & 1);
+    run(item2(it), bufs[it & 1]);
   }
   const float total = block_sum(dg_part, red);
   if (threadIdx.x == 0) *dg = total;
 }
 
-// PAM of one batch row (see above); scr: this row's [2][P][P'] scratch.
-// q, k, dq, dk: [P, D]; v, dy, dv: [P, C].
-__device__ void pam_block_wide(const float* __restrict__ q,
-                               const float* __restrict__ k,
-                               const float* __restrict__ v,
-                               const float* __restrict__ dy, float g,
-                               float* __restrict__ dq, float* __restrict__ dk,
-                               float* __restrict__ dv, float* __restrict__ dg,
-                               float* __restrict__ scr, int P, int C, int D,
-                               float* sm, float* red) {
-  constexpr int ldc = ld4(kCC), ld32 = ld4(kRows);
-  const int ldq = ld4(D), lde = ld4(P), sp = scratch_ld(P);
-  const int nchunks = (P + kRows - 1) / kRows, ntd = (D + 7) / 8;
-  float* kq = sm;                      // [P][ldq]: k (pass 1), q (pass 2)
-  float* qs = kq + P * ldq;            // pass 1: [32][ldq] q_Q
-  float* dys = qs + kRows * ldq;       //         [32][ldc] dy_Q slab
-  float* vs = dys + kRows * ldc;       //         [32][ldc] v_K slab
-  float* es = vs + kRows * ldc;        //         [32][lde] E, then A
-  float* gs = es + kRows * lde;        //         [32][lde] G, then dE
-  float* at = kq + P * ldq;            // pass 2: [32][lde] A[:, K]^T
-  float* det = at + kRows * lde;       //         [32][lde] dE[:, K]^T
-  float* dyc = det + kRows * lde;      //         [P][ld32] dy slab
-  float* sa = scr;                     // [P][sp]: A^T
-  float* se = scr + static_cast<size_t>(P) * sp;   // [P][sp]: dE^T
+// PAM rank r of the S ranks of one batch row (see above); scr: this
+// row's [2][P][P'] scratch. q, k, dq, dk: [P, D]; v, dy, dv: [P, C]. A
+// rank of a row past the last (valid false) only takes part in the
+// cluster barrier.
+__device__ void pam_rank_wide(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dy, float g,
+                              float* __restrict__ dq, float* __restrict__ dk,
+                              float* __restrict__ dv, float* __restrict__ dg,
+                              float* __restrict__ scr, int P, int C, int D,
+                              int r, int S, bool valid, float* sm,
+                              float* red) {
+  constexpr int ldt = ld4(kTP);        // E, G and dE tiles
+  constexpr int ld2 = ld8(kTP);        // phase 2's A and dE tiles
+  constexpr int ldy = ld8(kCS);        // phase 2's dy slab
+  constexpr int kR = kTP / kWarps;     // rows of a warp (statistics)
+  const int ldq = ld4(D), ldq8 = ld8(D), cs = min(C, kCS), lds = ld4(cs);
+  const int sp = scratch_ld(P), nt = (P + kTP - 1) / kTP;
+  const int nsl = (C + cs - 1) / cs, nsl2 = (C + kCS - 1) / kCS;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = 16 * (warp & 1), n0 = 8 * (warp >> 1);   // a 32 x 32 tile
+  const int m0 = 16 * (warp & 1), n0 = 8 * (warp >> 1);
+  float* sa = scr;                     // [P][sp]: E, then A
+  float* sb = scr + static_cast<size_t>(P) * sp;   // [P][sp]: G, then dE
+  auto tile = [&](int t) { return min(kTP, P - t * kTP); };
   float dg_part = 0.f;
-  load_rows(kq, ldq, k, P, D);
 
-  // pass 1, per chunk of query rows
-  for (int qc = 0; qc < nchunks; ++qc) {
-    const int q0 = kRows * qc, nq = min(kRows, P - q0);
-    load_rows(qs, ldq, q + q0 * D, nq, D);
-    for (int kc = 0; kc < nchunks; ++kc) {
-      const int k0 = kRows * kc, nk = min(kRows, P - k0);
-      float ag[1][1][4], ae[1][1][4];
-      zero(ag);
-      zero(ae);
-      for (int c0 = 0; c0 < C; c0 += kCC) {
-        const int cw = min(kCC, C - c0);
-        load_rows4(dys, ldc, dy + q0 * C, nq, cw, C, c0);
-        load_rows4(vs, ldc, v + k0 * C, nk, cw, C, c0);
-        cp_wait_all();
-        __syncthreads();
-        warp_mma3(ag, {View{dys, ldc, 1, nq}}, {m0}, 1,
-                  View{vs, ldc, 1, nk}, n0, cw);
-        __syncthreads();
+  // phase 1, per query tile of this rank
+  float* qs = sm;                      // [32][ldq]
+  float* b1[2] = {qs + kTP * ldq, qs + kTP * ldq + pam_p1_buf(C, D)};
+  float* te = qs + kTP * ldq + 2 * pam_p1_buf(C, D);   // [32][ldt]
+  float* tg = te + kTP * ldt;          // [32][ldt]
+  for (int qt = valid ? r : nt; qt < nt; qt += S) {
+    const int q0 = kTP * qt, nq = tile(qt);
+    // (a) items (key tile, slab of dy and v)
+    const int n = nt * nsl;
+    auto issue = [&](int it) {
+      const int kt = it / nsl, c0 = cs * (it % nsl), nk = tile(kt);
+      float* kb = b1[it & 1];
+      if (it == 0) load_rows(qs, ldq, q + static_cast<size_t>(q0) * D, nq, D);
+      if (it % nsl == 0) {
+        load_rows(kb, ldq, k + static_cast<size_t>(kt) * kTP * D, nk, D);
       }
-      warp_mma3(ae, {View{qs, ldq, 1, nq}}, {m0}, 1,
-                View{kq + k0 * ldq, ldq, 1, nk}, n0, D);
-      store_tile(ae[0], m0, n0, nq, nk,
-                 [&](int i, int j, float e) { es[i * lde + k0 + j] = e; });
-      store_tile(ag[0], m0, n0, nq, nk,
-                 [&](int i, int j, float e) { gs[i * lde + k0 + j] = e; });
+      load_rows4(kb + kTP * ldq, lds, dy + static_cast<size_t>(q0) * C, nq,
+                 min(cs, C - c0), C, c0);
+      load_rows4(kb + kTP * ldq + kTP * lds, lds,
+                 v + static_cast<size_t>(kt) * kTP * C, nk, min(cs, C - c0),
+                 C, c0);
+      mma3::cp_commit();
+    };
+    float ae[1][1][4], ag[1][1][4];
+    zero(ae);
+    zero(ag);
+    float m[kR], l[kR], ds[kR];
+#pragma unroll
+    for (int rr = 0; rr < kR; ++rr) {
+      m[rr] = -INFINITY;
+      l[rr] = ds[rr] = 0.f;
     }
-    __syncthreads();
-    dg_part += pam_softmax<kRows / kWarps, kMaxP / 32>(es, gs, nq, P, lde, g,
-                                                       warp, lane);
-    __syncthreads();
-    // dq_Q = dE_Q k, [32, D], K = P: items of 16 x 8
-    for (int item = warp; item < 2 * ntd; item += kWarps) {
-      const int im = 16 * (item & 1), in = 8 * (item >> 1);
-      float acc[1][1][4];
-      zero(acc);
-      warp_mma3(acc, {View{gs, lde, 1, nq}}, {im}, 1, View{kq, 1, ldq, D}, in,
-                P);
-      store_tile(acc[0], im, in, nq, D,
-                 [&](int i, int d, float s) { dq[(q0 + i) * D + d] = s; });
+    issue(0);
+    for (int it = 0; it < n; ++it) {
+      mma3::cp_wait<0>();
+      __syncthreads();                 // item it is in; it - 1 is done
+      if (it + 1 < n) issue(it + 1);
+      const int kt = it / nsl, sl = it % nsl, k0 = kTP * kt, nk = tile(kt);
+      const float* kb = b1[it & 1];
+      if (sl == 0) {
+        warp_mma3(ae, {View{qs, ldq, 1, nq}}, {m0}, 1, View{kb, ldq, 1, nk},
+                  n0, D);
+      }
+      warp_mma3(ag, {View{kb + kTP * ldq, lds, 1, nq}}, {m0}, 1,
+                View{kb + kTP * ldq + kTP * lds, lds, 1, nk}, n0,
+                min(cs, C - cs * sl));
+      if (sl < nsl - 1) continue;
+      // the key tile's E and G are whole: the running statistics of each
+      // row (warp + 8 rr, its keys on the lanes), E and G to the scratch
+      store_tile(ae[0], m0, n0, kTP, kTP,
+                 [&](int i, int j, float e) { te[i * ldt + j] = e; });
+      store_tile(ag[0], m0, n0, kTP, kTP,
+                 [&](int i, int j, float e) { tg[i * ldt + j] = e; });
+      zero(ae);
+      zero(ag);
+      __syncthreads();
+      float cm[kR], e[kR], gv[kR], ps[kR], pg[kR];
+#pragma unroll
+      for (int rr = 0; rr < kR; ++rr) {
+        const int i = warp + kWarps * rr;
+        e[rr] = te[i * ldt + lane];
+        gv[rr] = tg[i * ldt + lane];
+        if (i < nq && lane < nk) {
+          const size_t o = static_cast<size_t>(q0 + i) * sp + k0 + lane;
+          __stcg(sa + o, e[rr]);
+          __stcg(sb + o, gv[rr]);
+        }
+        cm[rr] = i >= nq ? 0.f : lane < nk ? e[rr] : -INFINITY;
+      }
+      warp_max_n(cm);
+#pragma unroll
+      for (int rr = 0; rr < kR; ++rr) {
+        const float nm = fmaxf(m[rr], cm[rr]);
+        const float scale = expf(m[rr] - nm);    // 0 on the first tile
+        const float p = lane < nk ? expf(e[rr] - nm) : 0.f;
+        ps[rr] = p;
+        pg[rr] = p * gv[rr];
+        l[rr] *= scale;
+        ds[rr] *= scale;
+        m[rr] = nm;
+      }
+      warp_sum_n(ps);
+      warp_sum_n(pg);
+#pragma unroll
+      for (int rr = 0; rr < kR; ++rr) {
+        l[rr] += ps[rr];
+        ds[rr] += pg[rr];
+      }
     }
-    // A_Q^T and dE_Q^T into the scratch, coalesced along the queries
-    for (int e = threadIdx.x; e < nq * P; e += kThreads) {
-      const int key = e / nq, i = e % nq;
-      sa[key * sp + q0 + i] = es[i * lde + key];
-      se[key * sp + q0 + i] = gs[i * lde + key];
+    // D_i = sum_j A_ij G_ij; this rank's share of dgp is their sum
+    float dd[kR];
+#pragma unroll
+    for (int rr = 0; rr < kR; ++rr) {
+      dd[rr] = ds[rr] / l[rr];
+      if (lane == 0 && warp + kWarps * rr < nq) dg_part += dd[rr];
     }
-    __syncthreads();
-  }
 
-  // pass 2, per chunk of keys
-  load_rows(kq, ldq, q, P, D);
-  for (int kc = 0; kc < nchunks; ++kc) {
-    const int k0 = kRows * kc, nk = min(kRows, P - k0);
-    load_rows4(at, lde, sa + k0 * sp, nk, sp, sp, 0);
-    load_rows4(det, lde, se + k0 * sp, nk, sp, sp, 0);
-    cp_wait_all();
-    __syncthreads();
-    // dk_K = dE[:, K]^T q, [32, D], K = P
-    for (int item = warp; item < 2 * ntd; item += kWarps) {
-      const int im = 16 * (item & 1), in = 8 * (item >> 1);
-      float acc[1][1][4];
-      zero(acc);
-      warp_mma3(acc, {View{det, lde, 1, nk}}, {im}, 1, View{kq, 1, ldq, D},
-                in, P);
-      store_tile(acc[0], im, in, nk, D,
-                 [&](int i, int d, float s) { dk[(k0 + i) * D + d] = s; });
+    // (b) per key tile: A and dE over E and G in the scratch, dq_Q +=
+    // dE_QK k_K; k a tile ahead, E and G a tile ahead in registers
+    float* kbuf[2] = {b1[0], b1[0] + kTP * ldq8};
+    float* tde = b1[0] + 2 * kTP * ldq8;   // [32][ldt]
+    auto issue_k = [&](int kt) {
+      load_rows(kbuf[kt & 1], ldq8, k + static_cast<size_t>(kt) * kTP * D,
+                tile(kt), D);
+      mma3::cp_commit();
+    };
+    float en[kR], gn[kR];
+    auto fetch = [&](int kt) {
+#pragma unroll
+      for (int rr = 0; rr < kR; ++rr) {
+        const int i = warp + kWarps * rr;
+        if (i < nq && lane < tile(kt)) {
+          const size_t o = static_cast<size_t>(q0 + i) * sp + kTP * kt + lane;
+          en[rr] = __ldcg(sa + o);
+          gn[rr] = __ldcg(sb + o);
+        }
+      }
+    };
+    float ad[1][2][4];
+    zero(ad);
+    const int nd0 = 16 * (warp >> 1), ntd = min(2, max(0, (D - nd0 + 7) / 8));
+    issue_k(0);
+    fetch(0);
+    for (int kt = 0; kt < nt; ++kt) {
+      const int nk = tile(kt);
+      mma3::cp_wait<0>();
+      __syncthreads();                 // k tile kt is in; kt - 1 is done
+      float e[kR], gv[kR];
+#pragma unroll
+      for (int rr = 0; rr < kR; ++rr) {
+        e[rr] = en[rr];
+        gv[rr] = gn[rr];
+      }
+      if (kt + 1 < nt) {
+        issue_k(kt + 1);
+        fetch(kt + 1);
+      }
+#pragma unroll
+      for (int rr = 0; rr < kR; ++rr) {
+        const int i = warp + kWarps * rr;
+        float de = 0.f;
+        if (i < nq && lane < nk) {
+          const float a = expf(e[rr] - m[rr]) / l[rr];
+          de = a * (g * gv[rr] - g * dd[rr]);
+          const size_t o = static_cast<size_t>(q0 + i) * sp + kTP * kt + lane;
+          __stcg(sa + o, a);
+          __stcg(sb + o, de);
+        }
+        tde[i * ldt + lane] = de;
+      }
+      __syncthreads();
+      if (ntd > 0) {
+        warp_mma3(ad, {View{tde, ldt, 1, nq}}, {m0}, 1,
+                  View{kbuf[kt & 1], 1, ldq8, D}, nd0, nk, ntd);
+      }
     }
-    // dv_K = gp A[:, K]^T dy, [32, C], K = P, 32 channels at a time
-    for (int c0 = 0; c0 < C; c0 += kRows) {
-      load_rows4(dyc, ld32, dy, P, kRows, C, c0);
-      cp_wait_all();
-      __syncthreads();
-      float acc[1][1][4];
-      zero(acc);
-      warp_mma3(acc, {View{at, lde, 1, nk}}, {m0}, 1,
-                View{dyc, 1, ld32, kRows}, n0, P);
-      store_tile(acc[0], m0, n0, nk, kRows, [&](int i, int c, float s) {
-        dv[(k0 + i) * C + c0 + c] = g * s;
-      });
-      __syncthreads();
+    store_tile(ad[0], m0, nd0, nq, min(D, nd0 + 16), [&](int i, int d, float s) {
+      dq[static_cast<size_t>(q0 + i) * D + d] = s;
+    });
+    __syncthreads();                   // before the next tile's loads
+  }
+  // every rank's A and dE are in the scratch
+  __threadfence();
+  cluster_arrive();
+  cluster_wait();
+
+  // phase 2, per key tile of this rank; items (key tile, slab, query tile)
+  {
+    float* b2[2] = {sm, sm + pam_p2_buf(D)};
+    // key tiles K = S - 1 - r, 2 S - 1 - r, ...: the ranks that took one
+    // query tile more take one key tile less
+    const int r2 = S - 1 - r;
+    const int nkr = valid && r2 < nt ? (nt - r2 + S - 1) / S : 0;
+    const int per = nsl2 * nt, n = nkr * per;
+    auto issue = [&](int it) {
+      const int kt = r2 + S * (it / per), sl = it % per / nt, qt = it % nt;
+      const int k0 = kTP * kt, nk = tile(kt), q0 = kTP * qt, nq = tile(qt);
+      const int c0 = kCS * sl;
+      float* b = b2[it & 1];
+      const int kw = (nk + 3) / 4 * 4;
+      load_rows4(b, ld2, sa + static_cast<size_t>(q0) * sp, nq, kw, sp, k0);
+      if (sl == 0) {
+        load_rows4(b + kTP * ld2, ld2, sb + static_cast<size_t>(q0) * sp, nq,
+                   kw, sp, k0);
+        load_rows(b + 2 * kTP * ld2, ldq8, q + static_cast<size_t>(q0) * D,
+                  nq, D);
+      }
+      load_rows4(b + 2 * kTP * ld2 + kTP * ldq8, ldy,
+                 dy + static_cast<size_t>(q0) * C, nq, min(kCS, C - c0), C,
+                 c0);
+      mma3::cp_commit();
+    };
+    float av[1][4][4], ak[1][2][4];
+    zero(av);
+    zero(ak);
+    const int nv0 = 32 * (warp >> 1), nd0 = 16 * (warp >> 1);
+    const int ntd = min(2, max(0, (D - nd0 + 7) / 8));
+    if (n > 0) issue(0);
+    for (int it = 0; it < n; ++it) {
+      mma3::cp_wait<0>();
+      __syncthreads();                 // item it is in; it - 1 is done
+      if (it + 1 < n) issue(it + 1);
+      const int kt = r2 + S * (it / per), sl = it % per / nt, qt = it % nt;
+      const int k0 = kTP * kt, nk = tile(kt), nq = tile(qt), c0 = kCS * sl;
+      const int cw = min(kCS, C - c0);
+      const int ntv = min(4, max(0, (cw - nv0) / 8));
+      const float* b = b2[it & 1];
+      // dv_K[:, slab] += A_QK^T dy_Q, dk_K += dE_QK^T q_Q (slab 0)
+      if (ntv > 0) {
+        warp_mma3(av, {View{b, 1, ld2, nk}}, {m0}, 1,
+                  View{b + 2 * kTP * ld2 + kTP * ldq8, 1, ldy, cw}, nv0, nq,
+                  ntv);
+      }
+      if (sl == 0 && ntd > 0) {
+        warp_mma3(ak, {View{b + kTP * ld2, 1, ld2, nk}}, {m0}, 1,
+                  View{b + 2 * kTP * ld2, 1, ldq8, D}, nd0, nq, ntd);
+      }
+      if (qt < nt - 1) continue;
+      store_tile(av[0], m0, nv0, nk, min(cw, nv0 + 32),
+                 [&](int i, int c, float s) {
+                   dv[static_cast<size_t>(k0 + i) * C + c0 + c] = g * s;
+                 });
+      zero(av);
+      if (sl == 0) {
+        store_tile(ak[0], m0, nd0, nk, min(D, nd0 + 16),
+                   [&](int i, int d, float s) {
+                     dk[static_cast<size_t>(k0 + i) * D + d] = s;
+                   });
+        zero(ak);
+      }
     }
   }
   const float total = block_sum(dg_part, red);
-  if (threadIdx.x == 0) *dg = total;
+  if (valid && threadIdx.x == 0) *dg = total;
 }
 
 // ------------------------------------------------------- kernels
@@ -1083,46 +1172,76 @@ dual_attention_bwd_kernel(const float* __restrict__ q,
   }
 }
 
-// The same grid and share layout with S = wide_ranks(C) blocks to a
-// cluster; scratch: [B, 2, P, scratch_ld(P)] f32 for the PAM blocks. Two
-// blocks an SM (128 registers, a few bytes of spills): at one (178
-// registers) only 15 clusters of 8 were active at once, and B = 48,
-// C = 512 took 0.795 ms against 0.535 (H100 80GB HBM3, 700 W).
-__global__ void __launch_bounds__(kThreads, 2)
-dual_attention_bwd_wide_kernel(const float* __restrict__ q,
-                               const float* __restrict__ k,
-                               const float* __restrict__ v,
-                               const float* __restrict__ gp,
-                               const float* __restrict__ xc,
-                               const float* __restrict__ gc,
-                               const float* __restrict__ dyp,
-                               const float* __restrict__ dyc,
-                               float* __restrict__ dq, float* __restrict__ dk,
-                               float* __restrict__ dv, float* __restrict__ dxc,
-                               float* __restrict__ dgamma,
-                               float* __restrict__ scratch, int B, int P,
-                               int C, int D) {
+
+// Block (x, y), y < R = ceil(B Sp / S): PAM rank x % Sp of batch row
+// y S / Sp + x / Sp, Sp = pam_ranks(P, C); y >= R: CAM rank x of batch
+// row y - R; clusters of S = wide_ranks(C) blocks. The PAM rows come
+// first: past one query tile they are the longer, and blocks start in
+// row order. scratch: [B, 2, P,
+// scratch_ld(P)] f32 for the PAM ranks. dgamma: [2, B, S]; [0, b, r] PAM
+// rank r's share (zeros past Sp), [1, b, r] CAM rank r's.
+template <int kCW>
+__device__ __forceinline__ void wide_block(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ gp,
+    const float* __restrict__ xc, const float* __restrict__ gc,
+    const float* __restrict__ dyp, const float* __restrict__ dyc,
+    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+    float* __restrict__ dxc, float* __restrict__ dgamma,
+    float* __restrict__ scratch, int B, int P, int C, int D, int y0) {
   extern __shared__ __align__(16) float sm[];
   __shared__ float red[kWarps];
-  const int S = wide_ranks(C);
-  const bool cam = blockIdx.y < B;
-  const int rank = blockIdx.x;
-  const int b = cam ? blockIdx.y : (blockIdx.y - B) * S + blockIdx.x;
-  if (b >= B) return;                  // past the last PAM block
-  const size_t ov = static_cast<size_t>(b) * P * C;
-  const size_t oq = static_cast<size_t>(b) * P * D;
-  float* share = dgamma + static_cast<size_t>(b) * S;
-  if (cam) {
-    cam_rank_wide(xc + ov, dyc + ov, gc[0], dxc + ov,
-                  share + static_cast<size_t>(B) * S + rank, P, C, rank, S,
-                  sm, red);
-  } else {
-    if (threadIdx.x > 0 && threadIdx.x < S) share[threadIdx.x] = 0.f;
-    pam_block_wide(q + oq, k + oq, v + ov, dyp + ov, gp[0], dq + oq, dk + oq,
-                   dv + ov, share,
-                   scratch + static_cast<size_t>(b) * 2 * P * scratch_ld(P),
-                   P, C, D, sm, red);
+  const int S = wide_ranks(C), sp = pam_ranks(P, C);
+  const int pam_rows = (B + S / sp - 1) / (S / sp);
+  const int y = blockIdx.y + y0;
+  if (y >= pam_rows) {
+    const int b = y - pam_rows, rank = blockIdx.x;
+    const size_t ov = static_cast<size_t>(b) * P * C;
+    cam_rank_wide<kCW>(xc + ov, dyc + ov, gc[0], dxc + ov,
+                       dgamma + static_cast<size_t>(B + b) * S + rank, P, C,
+                       rank, S, sm, red);
+    return;
   }
+  const int rank = blockIdx.x % sp;
+  const int b = y * (S / sp) + blockIdx.x / sp;
+  const bool valid = b < B;
+  const int bb = valid ? b : 0;
+  const size_t ov = static_cast<size_t>(bb) * P * C;
+  const size_t oq = static_cast<size_t>(bb) * P * D;
+  float* share = dgamma + static_cast<size_t>(bb) * S;
+  if (valid && rank == 0 && threadIdx.x >= sp && threadIdx.x < S) {
+    share[threadIdx.x] = 0.f;
+  }
+  pam_rank_wide(q + oq, k + oq, v + ov, dyp + ov, gp[0], dq + oq, dk + oq,
+                dv + ov, share + rank,
+                scratch + static_cast<size_t>(bb) * 2 * P * scratch_ld(P), P,
+                C, D, rank, sp, valid, sm, red);
+}
+
+#define WIDE_BWD_PARAMS                                                     \
+  const float *__restrict__ q, const float *__restrict__ k,                 \
+      const float *__restrict__ v, const float *__restrict__ gp,            \
+      const float *__restrict__ xc, const float *__restrict__ gc,           \
+      const float *__restrict__ dyp, const float *__restrict__ dyc,         \
+      float *__restrict__ dq, float *__restrict__ dk, float *__restrict__ dv, \
+      float *__restrict__ dxc, float *__restrict__ dgamma,                  \
+      float *__restrict__ scratch, int B, int P, int C, int D, int y0
+
+// Up to C = 256: two blocks an SM (128 registers, 103 KB). An earlier wide
+// kernel at one block an SM (178 registers) held only 15 clusters of 8 at
+// once and took 0.795 ms against 0.535 at B = 48, C = 512 (H100 80GB
+// HBM3, 700 W).
+__global__ void __launch_bounds__(kThreads, 2)
+dual_attention_bwd_wide_kernel(WIDE_BWD_PARAMS) {
+  wide_block<128>(q, k, v, gp, xc, gc, dyp, dyc, dq, dk, dv, dxc, dgamma,
+                  scratch, B, P, C, D, y0);
+}
+// Past C = 256: the G and H rows (132 KB at C = 512) hold an SM alone, so
+// the registers are not capped and the Gram chunks are 256 columns.
+__global__ void __launch_bounds__(kThreads)
+dual_attention_bwd_wide_c512(WIDE_BWD_PARAMS) {
+  wide_block<256>(q, k, v, gp, xc, gc, dyp, dyc, dq, dk, dv, dxc, dgamma,
+                  scratch, B, P, C, D, y0);
 }
 
 bool narrow(int P, int C, int D) {
@@ -1130,15 +1249,21 @@ bool narrow(int P, int C, int D) {
 }
 
 bool takes(int P, int C, int D) {
-  return P >= 1 && P <= kMaxP && C >= kRows && C <= kMaxC && C % kRows == 0 &&
-         D >= 1 && D <= kMaxD;
+  return P >= 1 && C >= kRows && C <= kMaxC && C % kRows == 0 && D >= 1 &&
+         D <= kMaxD;
 }
 
 int cluster_size(int P, int C, int D) {
   return narrow(P, C, D) ? C / kRows : wide_ranks(C);
 }
 
-// Opts both kernels in to the dynamic shared memory of the largest shape
+// The wide kernel for C.
+const void* wide_kernel(int C) {
+  return C > 256 ? reinterpret_cast<const void*>(dual_attention_bwd_wide_c512)
+                 : reinterpret_cast<const void*>(dual_attention_bwd_wide_kernel);
+}
+
+// Opts the kernels in to the dynamic shared memory of the largest shape
 // each takes and to the largest shared-memory carveout, once per device
 // (the attributes are the device's, so later launches there skip the host
 // calls).
@@ -1149,39 +1274,48 @@ cudaError_t opt_in_smem() {
   if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (dev & 63);
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      dual_attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes(kNarrowP, kNarrowC, kNarrowD)));
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(dual_attention_bwd_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(
-        dual_attention_bwd_wide_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(wide_smem_bytes(kMaxP, kMaxC, kMaxD)));
-  }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(dual_attention_bwd_wide_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+  const size_t w128 = wide_smem_bytes(128, kMaxD), w256 = wide_smem_bytes(256, kMaxD);
+  const struct {
+    const void* kernel;
+    size_t smem;
+  } all[3] = {
+      {reinterpret_cast<const void*>(dual_attention_bwd_kernel),
+       smem_bytes(kNarrowP, kNarrowC, kNarrowD)},
+      {reinterpret_cast<const void*>(dual_attention_bwd_wide_kernel),
+       w128 > w256 ? w128 : w256},
+      {reinterpret_cast<const void*>(dual_attention_bwd_wide_c512),
+       wide_smem_bytes(kMaxC, kMaxD)}};
+  for (const auto& a : all) {
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(a.kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(a.smem));
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(a.kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
   }
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return err;
 }
 
-// The launch of B batch rows: a grid of (S, B + ceil(B / S)) blocks in
-// clusters of (S, 1, 1), S = cluster_size(P, C, D).
-void configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B,
-               int P, int C, int D, cudaStream_t stream) {
+// The launch of B batch rows in clusters of (S, 1, 1), S =
+// cluster_size(P, C, D): the first kernel's grid of (S, B + ceil(B / S))
+// blocks, the wide kernel's of (S, ceil(B Sp / S) + B), Sp = pam_ranks;
+// sides 1 launches the wide kernel's CAM rows alone, 2 its PAM rows (the
+// returned y0 is the first row's index), 3 both.
+int configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B,
+              int P, int C, int D, cudaStream_t stream, int sides = 3) {
   const int size = cluster_size(P, C, D);
+  const bool first = narrow(P, C, D);
+  const int rows = first ? size : size / pam_ranks(P, C);
+  const int pam = (B + rows - 1) / rows;
   cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3(size, B + (B + size - 1) / size, 1);
+  cfg.gridDim = dim3(size, (sides & 1 ? B : 0) + (sides & 2 ? pam : 0), 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes =
-      narrow(P, C, D) ? smem_bytes(P, C, D) : wide_smem_bytes(P, C, D);
+  cfg.dynamicSmemBytes = first ? smem_bytes(P, C, D) : wide_smem_bytes(C, D);
   cfg.stream = stream;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = size;
@@ -1189,6 +1323,42 @@ void configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B,
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
+  return sides == 1 ? pam : 0;         // the wide kernel's first row
+}
+
+// One launch of the backward; sides as in configure (the wide kernel).
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* gamma_pam, const void* x_cam,
+                   const void* gamma_cam, const void* dy_pam,
+                   const void* dy_cam, void* dq, void* dk, void* dv,
+                   void* dx_cam, void* dgamma, void* scratch, int B, int P,
+                   int C, int D, int sides, void* stream) {
+  cudaError_t err = opt_in_smem();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const int y0 =
+      configure(cfg, attr, B, P, C, D, static_cast<cudaStream_t>(stream), sides);
+  const float* args[8] = {
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(gamma_pam),
+      static_cast<const float*>(x_cam), static_cast<const float*>(gamma_cam),
+      static_cast<const float*>(dy_pam), static_cast<const float*>(dy_cam)};
+  if (narrow(P, C, D)) {
+    return cudaLaunchKernelEx(
+        &cfg, dual_attention_bwd_kernel, args[0], args[1], args[2], args[3],
+        args[4], args[5], args[6], args[7], static_cast<float*>(dq),
+        static_cast<float*>(dk), static_cast<float*>(dv),
+        static_cast<float*>(dx_cam), static_cast<float*>(dgamma), B, P, C, D);
+  }
+  return cudaLaunchKernelEx(
+      &cfg,
+      C > 256 ? dual_attention_bwd_wide_c512 : dual_attention_bwd_wide_kernel,
+      args[0], args[1], args[2], args[3], args[4], args[5], args[6], args[7],
+      static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), static_cast<float*>(dx_cam),
+      static_cast<float*>(dgamma), static_cast<float*>(scratch), B, P, C, D,
+      y0);
 }
 
 }  // namespace
@@ -1196,11 +1366,13 @@ void configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B,
 // q, k, dq, dk: [B, P, D]; v, x_cam, dy_pam, dy_cam, dv, dx_cam: [B, P, C];
 // gamma_pam, gamma_cam: [1]; all f32, contiguous, on the device; v, x_cam,
 // dy_pam, dy_cam and dx_cam 16-byte aligned. dgamma: [2, B * S] f32,
-// S = dual_attention_bwd_cluster_size(P, C, D); row 0 gets each batch
-// row's share of dgamma_pam (then S - 1 zeros), row 1 each CAM rank's
-// share of dgamma_cam, so that one sum over the last axis gives both.
-// scratch: [B, 2, P, (P + 3) / 4 * 4] f32, read only by the wide kernel
-// (P > 64, C > 128 or D > 32). 1 <= P <= 256, C a multiple of 32 up to
+// S = dual_attention_bwd_cluster_size(P, C, D); row 0 gets the PAM
+// shares of dgamma_pam (the first kernel: one a batch row, then S - 1
+// zeros; the wide one: one a PAM rank, then zeros), row 1 each CAM
+// rank's share of
+// dgamma_cam, so that one sum over the last axis gives both. scratch:
+// [B, 2, P, (P + 3) / 4 * 4] f32, 16-byte aligned, read only by the wide
+// kernel (P > 64, C > 128 or D > 32). P >= 1, C a multiple of 32 up to
 // 512, 1 <= D <= 64 (the wrapper checks). Returns cudaGetLastError() (or
 // the error of the shared-memory opt-in or of the launch).
 extern "C" int dual_attention_bwd_f32(
@@ -1209,30 +1381,30 @@ extern "C" int dual_attention_bwd_f32(
     const void* dy_cam, void* dq, void* dk, void* dv, void* dx_cam,
     void* dgamma, void* scratch, int B, int P, int C, int D, void* stream) {
   if (!takes(P, C, D) || B < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = opt_in_smem();
+  const cudaError_t err =
+      launch(q, k, v, gamma_pam, x_cam, gamma_cam, dy_pam, dy_cam, dq, dk, dv,
+             dx_cam, dgamma, scratch, B, P, C, D, 3, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  configure(cfg, attr, B, P, C, D, static_cast<cudaStream_t>(stream));
-  const float* args[8] = {
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(gamma_pam),
-      static_cast<const float*>(x_cam), static_cast<const float*>(gamma_cam),
-      static_cast<const float*>(dy_pam), static_cast<const float*>(dy_cam)};
-  if (narrow(P, C, D)) {
-    err = cudaLaunchKernelEx(
-        &cfg, dual_attention_bwd_kernel, args[0], args[1], args[2], args[3],
-        args[4], args[5], args[6], args[7], static_cast<float*>(dq),
-        static_cast<float*>(dk), static_cast<float*>(dv),
-        static_cast<float*>(dx_cam), static_cast<float*>(dgamma), B, P, C, D);
-  } else {
-    err = cudaLaunchKernelEx(
-        &cfg, dual_attention_bwd_wide_kernel, args[0], args[1], args[2],
-        args[3], args[4], args[5], args[6], args[7], static_cast<float*>(dq),
-        static_cast<float*>(dk), static_cast<float*>(dv),
-        static_cast<float*>(dx_cam), static_cast<float*>(dgamma),
-        static_cast<float*>(scratch), B, P, C, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One side of the wide kernel alone (sides 1: the CAM clusters, 2: the
+// PAM clusters), the arguments as dual_attention_bwd_f32's, which
+// chip_smoke.py times to see which side sets a shape's pace; the other
+// side's outputs are left unwritten. Refuses (cudaErrorInvalidValue) a
+// shape of the first kernel.
+extern "C" int dual_attention_bwd_side(
+    const void* q, const void* k, const void* v, const void* gamma_pam,
+    const void* x_cam, const void* gamma_cam, const void* dy_pam,
+    const void* dy_cam, void* dq, void* dk, void* dv, void* dx_cam,
+    void* dgamma, void* scratch, int B, int P, int C, int D, int sides,
+    void* stream) {
+  if (!takes(P, C, D) || B < 1 || narrow(P, C, D) || sides < 1 || sides > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaError_t err =
+      launch(q, k, v, gamma_pam, x_cam, gamma_cam, dy_pam, dy_cam, dq, dk, dv,
+             dx_cam, dgamma, scratch, B, P, C, D, sides, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1242,7 +1414,7 @@ extern "C" int dual_attention_bwd_f32(
 extern "C" long long dual_attention_bwd_smem_bytes(int P, int C, int D) {
   if (!takes(P, C, D)) return -1;
   return static_cast<long long>(narrow(P, C, D) ? smem_bytes(P, C, D)
-                                                : wide_smem_bytes(P, C, D));
+                                                : wide_smem_bytes(C, D));
 }
 
 // Blocks in one cluster (S); -1 for a shape the kernel does not take.
@@ -1264,7 +1436,7 @@ extern "C" int dual_attention_bwd_active_clusters(int P, int C, int D) {
       &n,
       narrow(P, C, D)
           ? reinterpret_cast<const void*>(dual_attention_bwd_kernel)
-          : reinterpret_cast<const void*>(dual_attention_bwd_wide_kernel),
+          : wide_kernel(C),
       &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }

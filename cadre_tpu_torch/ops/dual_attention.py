@@ -9,15 +9,18 @@ rounding: products accumulate in f32, the attention matrix is rounded to the
 input type before it is applied, and the branch output is rounded to the
 input type before the gamma residual. `fused_dual_attention` computes both
 branches with the hand-written kernel (`csrc/dual_attention.cu`: several
-blocks per batch row, bf16 products on the tensor cores) for CUDA tensors
-and with the plain versions, under ordinary autograd, for CPU tensors. The
-kernel adds the residual in f32 and rounds once, as the TPU kernel did, so
-in bf16 the two differ by about one unit in the last place.
+blocks per batch row, products on the tensor cores; past the main path's
+heads the positions, queries and keys stream through shared memory in
+tiles, so any P) for CUDA tensors and with the plain versions, under
+ordinary autograd, for CPU tensors. The kernel adds the residual in f32
+and rounds once, as the TPU kernel did, so in bf16 the two differ by about
+one unit in the last place. `dual_attention_blocked` spells out the wide
+kernel's algebra in its order, for the tests.
 
 On CUDA tensors that need a gradient, `fused_dual_attention` is the
 autograd function `DualAttention`: its forward is that kernel and its
 backward the hand-written backward kernel (`csrc/dual_attention_bwd.cu`,
-f32, a thread-block cluster per batch row, products in 3xTF32 on the
+f32, thread-block clusters per batch row, products in 3xTF32 on the
 tensor cores; `dual_attention_backward`). The JAX package has no backward
 kernel: its gradient is XLA's autodiff of the plain functions, which
 `dual_attention_backward_ref` (autograd through pam_apply / cam_apply) is
@@ -25,9 +28,9 @@ here. `dual_attention_backward_blocked` spells out the kernel's algebra in
 its order, for the tests. A call in another type that needs a gradient raises: a kernel never
 returns outputs detached from inputs that require one.
 All tensors are NHWC: x, v [B, H, W, C]; q, k [B, H, W, Cqk]. Both kernels
-take every head the JAX package builds, P = H * W up to 256, C a multiple
-of 32 up to 512, Cqk up to 64; on CUDA tensors any other shape raises
-ValueError before a launch.
+take every head the JAX package builds on any camera: any P = H * W >= 1,
+C a multiple of 32 up to 512, Cqk up to 64; on CUDA tensors any other
+shape raises ValueError before a launch.
 """
 from __future__ import annotations
 
@@ -45,9 +48,9 @@ backward_launches = 0     # backward kernel launches (dual_attention_backward)
 _ENTRY = {torch.float32: "dual_attention_f32",
           torch.bfloat16: "dual_attention_bf16"}
 _BWD_ENTRY = {torch.float32: "dual_attention_bwd_f32"}
-# what the kernels take (with C % 32): every head the JAX package builds,
-# resnet50-152's C = 512, Cqk = 64 and cameras of up to 16 x 16 features
-_MAX_P, _MAX_C, _MAX_D = 256, 512, 64
+# what the kernels take (with C % 32 and any P >= 1): every head the JAX
+# package builds, resnet50-152's C = 512 and Cqk = 64 among them
+_MAX_C, _MAX_D = 512, 64
 # the backward's first kernel takes P <= 64, C <= 128, Cqk <= 32 (resnet18
 # and 34 at 144x256); its wide kernel the rest
 _NARROW_P, _NARROW_C, _NARROW_D = 64, 128, 32
@@ -81,11 +84,11 @@ def cam_apply(x, gamma) -> torch.Tensor:
 
 def _check_shape(p: int, c: int, d: int) -> None:
     """Raise unless the kernels take P positions, C channels, D = Cqk."""
-    if not (1 <= p <= _MAX_P and 32 <= c <= _MAX_C and c % 32 == 0
+    if not (p >= 1 and 32 <= c <= _MAX_C and c % 32 == 0
             and 1 <= d <= _MAX_D):
-        raise ValueError(f"dual_attention: the kernel takes 1 <= P <= "
-                         f"{_MAX_P}, C a multiple of 32 up to {_MAX_C} and "
-                         f"1 <= Cqk <= {_MAX_D}; got P={p}, C={c}, Cqk={d}")
+        raise ValueError(f"dual_attention: the kernel takes P >= 1, C a "
+                         f"multiple of 32 up to {_MAX_C} and 1 <= Cqk <= "
+                         f"{_MAX_D}; got P={p}, C={c}, Cqk={d}")
 
 
 def backward_narrow(p: int, c: int, d: int) -> bool:
@@ -193,20 +196,21 @@ def dual_attention_backward(q, k, v, gamma_pam, x_cam, gamma_cam, dy_pam,
     dgamma_pam, dx_cam, dgamma_cam), each gamma's gradient shaped and typed
     as the gamma. x_pam is not an input: its gradient is dy_pam. The
     attention matrices are recomputed from the inputs, not saved by the
-    forward. One launch: per batch row a cluster of CAM blocks and one PAM
-    block, every product in 3xTF32 on the tensor cores (as accurate as f32
-    at these shapes; `dual_attention_backward_blocked` is the same algebra
-    on the CPU). Up to P = 64, C = 128, Cqk = 32 (`backward_narrow`) the
-    C / 32 CAM ranks each own 32 rows of the C x C Gram and exchange their
-    shares of dx_cam through distributed shared memory; past that the
-    wide kernel's ranks (at most 8: `backward_cluster_size`) exchange
-    only each Gram row's softmax statistics and own 32 columns of dx_cam
-    each, and its PAM block runs over chunks of 32 queries, then of 32
-    keys, through a [B, 2, P, P'] scratch allocated here for the launch.
-    Each gamma's gradient is a sum over B * P * C terms, taken in a fixed
-    order (per block in the kernel, one share per block, then the shares
-    summed here over a fixed axis), so two calls on the same inputs give
-    bit-equal outputs."""
+    forward. One launch, every product in 3xTF32 on the tensor cores (as
+    accurate as f32 at these shapes; `dual_attention_backward_blocked` is
+    the same algebra on the CPU). Up to P = 64, C = 128, Cqk = 32
+    (`backward_narrow`) a cluster of C / 32 CAM ranks per batch row, each
+    owning 32 rows of the C x C Gram and exchanging its shares of dx_cam
+    through distributed shared memory, and one PAM block per row; past
+    that (any P) a cluster of CAM ranks (at most 8:
+    `backward_cluster_size`) that exchange only each Gram row's softmax
+    statistics and own 32 columns of dx_cam each, and a cluster of as many
+    PAM ranks that split the query tiles, then the key tiles, with A and
+    dE between them in a [B, 2, P, P'] scratch allocated here for the
+    launch. Each gamma's gradient is a sum over B * P * C terms, taken in a
+    fixed order (per block in the kernel, one share per block, then the
+    shares summed here over a fixed axis), so two calls on the same inputs
+    give bit-equal outputs."""
     global backward_launches
     dtype = x_cam.dtype
     if dtype not in _BWD_ENTRY:
@@ -234,12 +238,13 @@ def dual_attention_backward(q, k, v, gamma_pam, x_cam, gamma_cam, dy_pam,
     gc = _gamma(gamma_cam, dtype, x_cam.device)
     dq, dk = torch.empty_like(q), torch.empty_like(k)
     dv, dx_cam = torch.empty_like(v), torch.empty_like(x_cam)
-    # one share per block, S per batch row in each row of part: row 0 the
-    # PAM block's of dgamma_pam (padded with zeros), row 1 the CAM ranks'
-    # of dgamma_cam; one reduction over the last axis sums both
+    # S shares per batch row in each row of part: row 0 dgamma_pam's (the
+    # first kernel's PAM block's, padded with zeros; the wide kernel's PAM
+    # ranks'), row 1 the CAM ranks' of dgamma_cam; one reduction over the
+    # last axis sums both
     part = torch.empty(2, b * backward_cluster_size(p, c, d),
                        dtype=torch.float32, device=x_cam.device)
-    # the wide kernel's PAM blocks keep A^T and dE^T here between passes
+    # the wide kernel's PAM ranks keep E and G, then A and dE, here
     scratch = (None if backward_narrow(p, c, d) else
                torch.empty(b, 2, p, (p + 3) // 4 * 4, dtype=torch.float32,
                            device=x_cam.device))
@@ -370,76 +375,118 @@ def _blocked_narrow(qf, kf, vf, dyp, x, dy, gp, gc, mm):
     return dq, dk, dv, dx, part
 
 
+def _pam_ranks(p: int, c: int) -> int:
+    """PAM ranks of a batch row in the wide backward: the largest divisor
+    of the cluster size up to the number of query tiles."""
+    size, tiles = backward_cluster_size(p, c, _MAX_D), -(-p // _TILE)
+    sp = size
+    while sp > 1 and (size % sp or sp > tiles):
+        sp -= 1
+    return sp
+
+
 def _blocked_wide(qf, kf, vf, dyp, x, dy, gp, gc, mm):
-    """The wide kernel. PAM, one block per row: per chunk of 32 query rows
-    Q, E_Q = q_Q k^T and G_Q = dy_Q v^T over all keys, A_Q = softmax(E_Q),
-    dE_Q = A_Q (gp G_Q - rowsum(gp G_Q A_Q)), dq_Q = dE_Q k; then per chunk
-    of 32 keys K, dk_K = dE[:, K]^T q and dv_K = gp A[:, K]^T dy. CAM, S
-    ranks (`backward_cluster_size`), rank r owning the 32-row groups
-    g = r, r + S, ...: per group, over chunks c of 32 columns, each row's
-    running min mu of G = x^T x, S = sum exp(mu - G) and
-    W = sum H exp(mu - G) (H = dy^T x), rescaled as mu falls; with every
-    row's (mu, 1 / S, gc W / S), per chunk M = gc Bm[c, g],
-    N = dN[c, g] + dN[g, c]^T and dx_cam[:, g] = dy_g + sum_c (dy_c M -
-    x_c N). Shares: the PAM block's sum(A G); each rank's sum of W / S over
-    its rows ([2, B, S], PAM's padded with zeros)."""
+    """The wide kernel, every PAM tile of _TILE queries or keys. PAM, Sp
+    ranks (`_pam_ranks`) per row: rank r takes query tiles Q = r, r + Sp,
+    ...: over the key tiles K, E_QK = q_Q k_K^T and
+    G_QK = dy_Q v_K^T (dy and v in slabs of _SLAB channels), each row's
+    running max m, sum l of exp(E - m) and sum w of exp(E - m) G, rescaled
+    as m rises; D = w / l (sum_j A_ij G_ij); then A_QK = exp(E - m) / l,
+    dE_QK = A (gp G - gp D) and dq_Q = sum_K dE_QK k_K; then each key
+    tile, dk_K = sum_Q dE_QK^T q_Q and dv_K = gp sum_Q A_QK^T dy_Q. CAM, S
+    ranks (`backward_cluster_size`), rank r owning the 32-row groups g = r,
+    r + S, ...: per group G[g, :] = x_g^T x and H[g, :] = dy_g^T x, each
+    row's min mu, S = sum exp(mu - G) and W = sum H exp(mu - G); with
+    every row's (mu, 1 / S, gc W / S), M = gc Bm[:, g], N = dN[:, g] +
+    dN[g, :]^T and dx_cam[:, g] = dy_g + dy M - x N. Shares: each PAM
+    rank's sum of D over its rows (zeros past Sp), each CAM rank's sum of
+    W / S ([2, B, S])."""
     b, p, c = x.shape
-    chunks = range(0, p, 32)
+    tiles = range(0, p, _TILE)
+    ranks = backward_cluster_size(p, c, qf.shape[-1])
+    pam_ranks = _pam_ranks(p, c)
     kt = kf.transpose(1, 2)
-    vt = vf.transpose(1, 2)
-    atts, des, dqs = [], [], []
-    share_pam = torch.zeros(b, dtype=x.dtype, device=x.device)
-    for q0 in chunks:
-        att = torch.softmax(mm(qf[:, q0:q0 + 32], kt), dim=-1)
-        g_q = mm(dyp[:, q0:q0 + 32], vt)
-        share_pam = share_pam + (att * g_q).sum(dim=(1, 2))
-        da = gp * g_q
-        de = att * (da - (da * att).sum(dim=-1, keepdim=True))
-        dqs.append(mm(de, kf))
-        atts.append(att)
-        des.append(de)
-    att_t = torch.cat(atts, dim=1).transpose(1, 2)     # [B, keys, queries]
-    de_t = torch.cat(des, dim=1).transpose(1, 2)
-    dk = torch.cat([mm(de_t[:, k0:k0 + 32], qf) for k0 in chunks], dim=1)
-    dv = gp * torch.cat([mm(att_t[:, k0:k0 + 32], dyp) for k0 in chunks],
-                        dim=1)
+
+    def g_tile(q0, k0):
+        """dy_Q v_K^T, its slabs of _SLAB channels summed in order."""
+        acc = None
+        for c0 in range(0, c, _SLAB):
+            part = mm(dyp[:, q0:q0 + _TILE, c0:c0 + _SLAB],
+                      vf[:, k0:k0 + _TILE, c0:c0 + _SLAB].transpose(1, 2))
+            acc = part if acc is None else acc + part
+        return acc
+
+    att = torch.empty(b, p, p, dtype=x.dtype, device=x.device)
+    de = torch.empty_like(att)
+    dqs = []
+    pam_shares = torch.zeros(b, ranks, dtype=x.dtype, device=x.device)
+    for qi, q0 in enumerate(tiles):
+        rows = slice(q0, q0 + _TILE)
+        m = torch.full((b, min(_TILE, p - q0)), float("-inf"),
+                       dtype=x.dtype, device=x.device)
+        l = torch.zeros_like(m)
+        w = torch.zeros_like(m)
+        es, gs = [], []
+        for k0 in tiles:
+            e = mm(qf[:, rows], kt[:, :, k0:k0 + _TILE])
+            g_qk = g_tile(q0, k0)
+            nm = torch.maximum(m, e.amax(dim=-1))
+            scale = torch.exp(m - nm)
+            pe = torch.exp(e - nm[..., None])
+            l = l * scale + pe.sum(dim=-1)
+            w = w * scale + (pe * g_qk).sum(dim=-1)
+            m = nm
+            es.append(e)
+            gs.append(g_qk)
+        dd = w / l
+        pam_shares[:, qi % pam_ranks] += dd.sum(dim=-1)
+        dq = 0
+        for k0, e, g_qk in zip(tiles, es, gs):
+            a = torch.exp(e - m[..., None]) / l[..., None]
+            d = a * (gp * g_qk - gp * dd[..., None])
+            att[:, rows, k0:k0 + _TILE] = a
+            de[:, rows, k0:k0 + _TILE] = d
+            dq = dq + mm(d, kf[:, k0:k0 + _TILE])
+        dqs.append(dq)
+    dks, dvs = [], []
+    for k0 in tiles:
+        keys = slice(k0, k0 + _TILE)
+        dk = dv = 0
+        for q0 in tiles:
+            rows = slice(q0, q0 + _TILE)
+            dk = dk + mm(de[:, rows, keys].transpose(1, 2), qf[:, rows])
+            dv = dv + mm(att[:, rows, keys].transpose(1, 2), dyp[:, rows])
+        dks.append(dk)
+        dvs.append(gp * dv)
 
     groups = c // 32
-    ranks = backward_cluster_size(p, c, qf.shape[-1])
     mu = torch.empty(b, c, dtype=x.dtype, device=x.device)
     inv, dot = torch.empty_like(mu), torch.empty_like(mu)
     shares = torch.zeros(b, ranks, dtype=x.dtype, device=x.device)
 
-    def cols(t, g):
-        return t[:, :, 32 * g:32 * g + 32]
+    def cols(t, c0, width=32):
+        return t[:, :, c0:c0 + width]
 
     for g in range(groups):
-        xg, dyg = cols(x, g), cols(dy, g)
-        m = torch.full((b, 32), float("inf"), dtype=x.dtype, device=x.device)
-        s = torch.zeros_like(m)
-        w = torch.zeros_like(m)
-        for ci in range(groups):
-            xc = cols(x, ci)
-            g_gc = mm(xg.transpose(1, 2), xc)
-            h_gc = mm(dyg.transpose(1, 2), xc)
-            nm = torch.minimum(m, g_gc.amin(dim=-1))
-            scale = torch.exp(nm - m)
-            e = torch.exp(nm[..., None] - g_gc)
-            s = s * scale + e.sum(dim=-1)
-            w = w * scale + (e * h_gc).sum(dim=-1)
-            m = nm
+        xg, dyg = cols(x, 32 * g), cols(dy, 32 * g)
+        g_g = mm(xg.transpose(1, 2), x)                # [B, 32, C]
+        h_g = mm(dyg.transpose(1, 2), x)
+        m = g_g.amin(dim=-1)
+        e = torch.exp(m[..., None] - g_g)
+        s = e.sum(dim=-1)
+        w = (e * h_g).sum(dim=-1)
         rows = slice(32 * g, 32 * g + 32)
         mu[:, rows], inv[:, rows] = m, 1 / s
         dot[:, rows] = gc * w * inv[:, rows]
         shares[:, g % ranks] += (w * inv[:, rows]).sum(dim=-1)
     dxs = []
     for g in range(groups):
-        xg, dyg = cols(x, g), cols(dy, g)
+        xg, dyg = cols(x, 32 * g), cols(dy, 32 * g)
         rows = slice(32 * g, 32 * g + 32)
         acc = torch.zeros_like(dyg)
-        for ci in range(groups):
-            xc, dyc = cols(x, ci), cols(dy, ci)
-            crow = slice(32 * ci, 32 * ci + 32)
+        for c0 in range(0, c, 32):
+            xc, dyc = cols(x, c0), cols(dy, c0)
+            crow = slice(c0, c0 + 32)
             g_cg = mm(xc.transpose(1, 2), xg)          # [B, c rows, g cols]
             h_cg = mm(dyc.transpose(1, 2), xg)
             h_gc = mm(dyg.transpose(1, 2), xc)
@@ -450,9 +497,99 @@ def _blocked_wide(qf, kf, vf, dyp, x, dy, gp, gc, mm):
             acc = acc + mm(dyc, gc * bc)
             acc = acc + mm(-xc, n_cg + n_gc)
         dxs.append(dyg + acc)
-    pad = torch.zeros(b, ranks - 1, dtype=x.dtype, device=x.device)
-    part = torch.stack([torch.cat([share_pam[:, None], pad], dim=1), shares])
-    return (torch.cat(dqs, dim=1), dk, dv, torch.cat(dxs, dim=-1), part)
+    part = torch.stack([pam_shares, shares])
+    return (torch.cat(dqs, dim=1), torch.cat(dks, dim=1),
+            torch.cat(dvs, dim=1), torch.cat(dxs, dim=-1), part)
+
+
+# the wide kernels' tiles (csrc/dual_attention_bwd.cu: kTP, kCS;
+# csrc/dual_attention.cu: Wide<T>::kKT, tile_rows)
+_TILE, _SLAB = 32, 128
+
+
+def _key_tile(dtype: torch.dtype) -> int:
+    """Keys of a wide forward PAM tile: 64 in bf16, 32 in f32."""
+    return 64 if dtype == torch.bfloat16 else 32
+
+
+def _position_tile(p: int, c: int, dtype: torch.dtype) -> int:
+    """Positions of a wide forward CAM tile: all of P up to 64, else 64
+    (bf16 up to C = 256, f32 up to C = 128) or 32."""
+    if p <= 64:
+        return p
+    return 64 if c <= (256 if dtype == torch.bfloat16 else 128) else 32
+
+
+def dual_attention_blocked(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam,
+                           products="f32"):
+    """The wide forward kernel's algebra, in its order, on any device: the
+    outputs of `fused_dual_attention` (input dtype f32 or bf16). PAM, per
+    query row, over the key tiles (`_key_tile`), lane l of the row's warp
+    taking the keys l, l + 32, ...: in f32 one walk in which each lane
+    keeps its own running max and sum of exp (rescaled as its max rises),
+    then the row's max over the lanes and its sum of the lanes' sums, each
+    rescaled to that max; in bf16 the row's max, then its sum of
+    exp(e - max), as the plain version's softmax. Then att = exp(e - max)
+    / sum, rounded to the input type, applied to each value tile, the
+    tiles' products summed in order. CAM: the gram, its row softmax of
+    rowmax - gram rounded to the input type, applied to each position tile
+    (`_position_tile`). The energies q k^T are the plain version's f32
+    products, and so is the bf16 gram (the kernel's chains of f32 FMAs in
+    the plain version's order); the f32 gram is summed over the position
+    tiles, and with `products` "3xtf32" it and both f32 applies are formed
+    as the kernel's tensor cores form them (see `_matmul`; bf16 products
+    are exact in f32). Each residual is added in f32 and rounded once. Used
+    by the tests only."""
+    dtype = x_pam.dtype
+    b, h, w, c = x_pam.shape
+    p = h * w
+    bf16 = dtype == torch.bfloat16
+    mm_ = functools.partial(_matmul, products="f32" if bf16 else products)
+    gp = gamma_pam.reshape(()).float()
+    gc = gamma_cam.reshape(()).float()
+    xf, vf = x_pam.reshape(b, p, c), v.reshape(b, p, c)
+    energy = torch.einsum("bpd,bqd->bpq", q.reshape(b, p, -1).float(),
+                          k.reshape(b, p, -1).float())
+    kt = _key_tile(dtype)
+    if bf16:
+        row_max = energy.amax(dim=-1, keepdim=True)
+        row_sum = torch.exp(energy - row_max).sum(dim=-1, keepdim=True)
+    else:
+        # per lane (keys l + 32 j of each tile), then over the lanes
+        lane_max = torch.full((b, p, 32), float("-inf"), device=xf.device)
+        lane_sum = torch.zeros(b, p, 32, device=xf.device)
+        for k0 in range(0, p, 32):
+            e = energy[:, :, k0:k0 + 32]
+            n = e.shape[-1]
+            m = lane_max[..., :n]
+            lane_sum[..., :n] = torch.where(
+                e > m, lane_sum[..., :n] * torch.exp(m - e) + 1,
+                lane_sum[..., :n] + torch.exp(e - m))
+            lane_max[..., :n] = torch.maximum(m, e)
+        row_max = lane_max.amax(dim=-1, keepdim=True)
+        row_sum = (lane_sum * torch.exp(lane_max - row_max)).sum(
+            dim=-1, keepdim=True)
+    out_p = 0
+    for k0 in range(0, p, kt):
+        att = torch.exp(energy[:, :, k0:k0 + kt] - row_max) / row_sum
+        out_p = out_p + mm_(att.to(dtype).float(), vf[:, k0:k0 + kt].float())
+    y_p = (gp * out_p + xf.float()).to(dtype)
+    # CAM
+    xc = x_cam.reshape(b, p, c).float()
+    tp = _position_tile(p, c, dtype)
+    if bf16:
+        gram = torch.einsum("bpc,bpd->bcd", xc, xc)
+    else:
+        gram = 0
+        for p0 in range(0, p, tp):
+            xt = xc[:, p0:p0 + tp]
+            gram = gram + mm_(xt.transpose(1, 2), xt)
+    att = torch.softmax(gram.amax(dim=-1, keepdim=True) - gram, dim=-1)
+    att = att.to(dtype).float()
+    out_c = torch.cat([mm_(xc[:, p0:p0 + tp], att.transpose(1, 2))
+                       for p0 in range(0, p, tp)], dim=1)
+    y_c = (gc * out_c + xc).to(dtype)
+    return y_p.reshape(b, h, w, c), y_c.reshape(b, h, w, c)
 
 
 class DualAttention(torch.autograd.Function):

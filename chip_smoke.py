@@ -13,14 +13,16 @@ Phases, each of which must pass:
      an eval-tier env and a hazard env, dual attention at every shape the
      port calls it with (the eval's B=25, the trainer's B=48 f32 and the
      host-env trainer's f32 B=8 and B=64 among them; the resnet50 head,
-     C=512 and Cqk=64, at B=32, 256 and 48; a 288x512 camera's P=144) and
-     at every position tile and register template it picks (P up to 256),
-     its backward kernel at B=48 (C=128 and 512, P=40 and 144), at phase
-     5's small head and at every cluster size of its two kernels (C = 32
-     to 512, one or two 32-row groups a rank), P = 1 to 256 and Cqk up to
-     64, with non-zero gammas, two calls bit-equal, and a bf16 call that
-     needs a gradient refused; timings against each kernel's bound and,
-     for dual attention and its backward, a PyTorch yardstick;
+     C=512 and Cqk=64, at B=32, 256 and 48; a 288x512 camera's P=144 and
+     an 800x600 camera's P=475) and at every position tile, key tile and
+     template it picks (P = 1 to 1024), the wide kernel's CAM blocks and
+     PAM blocks each alone, timed and equal to the whole kernel's outputs;
+     its backward kernel at B=48 (C=128 and 512, P=40, 144 and 475), at
+     phase 5's small head and at every cluster size of its two kernels
+     (C = 32 to 512, one or two 32-row groups a rank), P = 1 to 1024 and
+     Cqk up to 64, with non-zero gammas, two calls bit-equal, and a bf16
+     call that needs a gradient refused; timings against each kernel's
+     bound and, for dual attention and its backward, a PyTorch yardstick;
   4. the main path: a bf16 CoPM agent at production width drives 32 device
      envs for a 20-step rollout, then trains one whole iteration at
      production size (T=200, 4 PPO epochs of 2 minibatches) after a T=2
@@ -163,7 +165,9 @@ Phases, each of which must pass:
      B=32 and 256, frames/s; (d) one whole device iteration (N=32, T=200,
      E=4, M=2) with that encoder: 400 paints and 201 K2; (e) one f32
      pretraining step of a resnet18 DANet on a 288x512 camera (the head's
-     P=144). Peak memory and the device's idle share for each.
+     P=144); (f) one at B=16 on CARLA's default 800x600 camera (feat
+     19x25, the head's P=475) on 8a's frames resized, one K2 and one K3.
+     Peak memory and the device's idle share for each.
 
 It prints one JSON line of kernel figures (launch counts of every phase's
 main path, `launches_msgpack_eval` of 12a, `launches_parallel` of 12b
@@ -190,12 +194,13 @@ the spread between runs.
 
     python3 chip_smoke.py --phase-times ROOT [ROOT ...]
 
-runs phases 1, 2, 4, 8 and 9 of each checkout ROOT with that checkout's
-own chip_smoke.py, one process per ROOT in the order given, and prints
-phase 4's iteration line, phase 8b's pretraining line and phase 9's
-train_vec and `train` lines of each: the same-card comparison of the
-device iteration, pretraining and the host-env iterations of two
-commits.
+runs phases 1, 2, 4, 8, 9 and 15 of each checkout ROOT with that
+checkout's own chip_smoke.py, one process per ROOT in the order given,
+and prints phase 4's iteration line, phase 8b's pretraining line, phase
+9's train_vec and `train` lines and phase 15a's resnet50 pretraining
+line of each: the same-card comparison of the device iteration,
+pretraining, the host-env iterations and deep-backbone pretraining of
+two commits.
 """
 from __future__ import annotations
 
@@ -674,23 +679,36 @@ def _attention_library(x, q, k, v, gp, xc, gc):
 # perception trainer's B=PERCEPTION_BATCH, and phase 5's small head; the
 # deep backbones' head (resnet50-152: C=512, Cqk=64) on phase 15's device
 # iteration (B=32), at B=256 and in its pretraining (B=48); a 288x512
-# camera's head (P=144) at the trainer's batch
+# camera's head (P=144) and both heads on CARLA's 800x600 camera (P=475)
+# at the trainer's batch
 PERCEPTION_BATCH = 48
 ATTENTION_SHAPES = ((32, 128, 16, 5, 8), (256, 128, 16, 5, 8),
                     (25, 128, 16, 5, 8), (PERCEPTION_BATCH, 128, 16, 5, 8),
                     (2, 32, 4, 5, 8), (32, 512, 64, 5, 8),
                     (256, 512, 64, 5, 8), (PERCEPTION_BATCH, 512, 64, 5, 8),
-                    (PERCEPTION_BATCH, 128, 16, 9, 16))
+                    (PERCEPTION_BATCH, 128, 16, 9, 16),
+                    (PERCEPTION_BATCH, 128, 16, 19, 25),
+                    (PERCEPTION_BATCH, 512, 64, 19, 25))
 # held to the plain version only, both types: every CAM position tile the
-# wide f32 kernel picks (48, 32 and 16 positions at C = 160, 256 and 512)
-# and the bf16 one (64) past one tile, each wide template with a narrow C
-# or P, P = 256 (the most the kernels take) with Cqk = 64, odd P, P = 1,
+# wide kernel picks (all of P in one tile up to 64; past that 64 rows at
+# C <= 128, and in bf16 at C <= 256, else 32) past one tile, each wide
+# template (C <= 128 or up to 512) with a narrow C or P, P = 1, odd P,
+# P = 257, 475 (800x600), 576 and 1024 at C = 128 and 512, PAM's full
+# 128-column ranges at C = 128 (B * C / 32 >= twice the SMs) and its
+# 96- and 64-column ones (C = 288, 320), partial key tiles of both types,
 # and the narrow kernel at Cqk = 33 (past the 32 it used to take) and
 # Cqk = 1
 ATTENTION_EDGE_SHAPES = ((3, 160, 20, 7, 11), (3, 256, 32, 9, 16),
                          (3, 512, 64, 16, 16), (3, 128, 16, 16, 16),
                          (3, 512, 64, 1, 1), (3, 96, 33, 5, 8),
-                         (3, 32, 1, 1, 1), (3, 320, 40, 7, 7))
+                         (3, 32, 1, 1, 1), (3, 320, 40, 7, 7),
+                         (3, 128, 16, 1, 257), (3, 512, 64, 1, 257),
+                         (3, 128, 16, 19, 25), (3, 512, 64, 19, 25),
+                         (3, 256, 32, 19, 25), (3, 128, 16, 18, 32),
+                         (3, 512, 64, 18, 32), (3, 128, 16, 32, 32),
+                         (3, 512, 64, 32, 32), (70, 128, 16, 19, 25),
+                         (70, 288, 36, 10, 10), (30, 320, 40, 7, 7),
+                         (3, 96, 1, 10, 10))
 # the host-env trainer's calls (phase 9, f32 encoder): the newest frame of
 # each of N_HOST envs on an incremental tick, their 8-frame windows on a
 # refresh tick; and the CARLA env trainer's newest frames (phase 14a,
@@ -700,17 +718,21 @@ CARLA_ENVS = 4          # 14a's envs: one stub server at each EnvConfig port
 HOST_ATTENTION_SHAPES = ((N_HOST, 128, 16, 5, 8), (8 * N_HOST, 128, 16, 5, 8),
                          (CARLA_ENVS, 128, 16, 5, 8))
 # the backward kernel's shapes (f32 only), (B, C, Cqk, H, W): the
-# trainer's, the small head's, and the deep backbones' and the 288x512
-# camera's at the trainer's batch, timed; and held to the plain version
-# only: every cluster size of the first kernel (C = 32-128), P = 49 (K not
-# a multiple of 8) and P = 64 (the most it takes), odd Cqk and Cqk = 32;
-# of the wide kernel every cluster size (S = 1-8 ranks: C = 32-256, P > 64
-# or Cqk > 32), ranks of two groups (C = 288: 2,2,2,2,1; C = 512: 2 each),
+# trainer's, the small head's, and the deep backbones' and the 288x512 and
+# 800x600 cameras' at the trainer's batch, timed; and held to the plain
+# version only: every cluster size of the first kernel (C = 32-128), P = 49
+# (K not a multiple of 8) and P = 64 (the most it takes), odd Cqk and
+# Cqk = 32; of the wide kernel every cluster size (S = 1-8 ranks: C =
+# 32-256, P > 64 or Cqk > 32), ranks of two groups (C = 288: 2,2,2,2,1;
+# C = 512: 2 each), both CAM chunk widths (32 at 128 < C <= 256, else 64),
 # P = 144 and 256 with Cqk = 64, odd P, P = 3 (at P = 1 the softmax over
-# one key is constant, so dq and dk are zero)
+# one key is constant, so dq and dk are zero), and P = 257, 475, 576 and
+# 1024 at C = 128 and 512 (more query and key tiles than ranks)
 BACKWARD_SHAPES = ((PERCEPTION_BATCH, 128, 16, 5, 8), (2, 32, 4, 5, 8),
                    (PERCEPTION_BATCH, 512, 64, 5, 8),
-                   (PERCEPTION_BATCH, 128, 16, 9, 16))
+                   (PERCEPTION_BATCH, 128, 16, 9, 16),
+                   (PERCEPTION_BATCH, 128, 16, 19, 25),
+                   (PERCEPTION_BATCH, 512, 64, 19, 25))
 BACKWARD_EDGE_SHAPES = ((3, 64, 8, 5, 8), (3, 96, 12, 5, 8),
                         (3, 32, 5, 7, 7), (3, 128, 32, 7, 7),
                         (3, 128, 32, 8, 8), (3, 64, 17, 8, 8),
@@ -719,7 +741,13 @@ BACKWARD_EDGE_SHAPES = ((3, 64, 8, 5, 8), (3, 96, 12, 5, 8),
                         (3, 160, 20, 7, 11), (3, 192, 24, 5, 8),
                         (3, 224, 28, 5, 8), (3, 256, 32, 9, 16),
                         (3, 288, 36, 5, 8), (3, 512, 64, 9, 16),
-                        (3, 512, 64, 16, 16), (3, 512, 64, 1, 3))
+                        (3, 512, 64, 16, 16), (3, 512, 64, 1, 3),
+                        (3, 128, 16, 1, 257), (3, 512, 64, 1, 257),
+                        (3, 128, 16, 19, 25), (3, 512, 64, 19, 25),
+                        (3, 256, 32, 19, 25), (3, 32, 4, 19, 25),
+                        (3, 288, 36, 19, 25), (3, 128, 16, 18, 32),
+                        (3, 512, 64, 18, 32), (3, 128, 16, 32, 32),
+                        (3, 512, 64, 32, 32))
 
 
 def _tag(b, c, d, h, w, dtype=None):
@@ -755,6 +783,54 @@ def _attention_check(args, bf16):
                           f"<= {BF16_ULP_BOUND}")
 
 
+def _attention_sides(args):
+    """Device ms of the wide forward kernel's CAM blocks alone and of its
+    PAM blocks alone on `args` (graphs of 200 calls of the kernel's side
+    entry, outside the launch counts), which shows the side that sets a
+    shape's pace; {} for a shape of the narrow kernel."""
+    import ctypes
+
+    import torch
+
+    from cadre_tpu_torch.ops import _build
+    from cadre_tpu_torch.ops import dual_attention as da
+
+    x, q, k, v, gp, xc, gc = args
+    b, h, w, c = x.shape
+    p, d = h * w, q.shape[-1]
+    if p <= 64 and c <= 128:
+        return {}
+    fn = _build.load("dual_attention").dual_attention_side
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out_p, out_c = torch.empty_like(x), torch.empty_like(xc)
+    bf16 = int(x.dtype == torch.bfloat16)
+    times = {}
+    for name, side in (("cam_ms", 1), ("pam_ms", 2)):
+        def call(side=side):
+            _build.check(fn(x.data_ptr(), q.data_ptr(), k.data_ptr(),
+                            v.data_ptr(), gp.data_ptr(), xc.data_ptr(),
+                            gc.data_ptr(), out_p.data_ptr(),
+                            out_c.data_ptr(), b, p, c, d, side, bf16,
+                            _build.cuda_stream(x)), "dual_attention_side")
+        times[name] = device_ms(call)
+    # each side alone writes what the whole kernel writes for it
+    want = da.fused_dual_attention(*args)
+    both = [torch.empty_like(x), torch.empty_like(xc)]
+    for side in (1, 2):
+        _build.check(fn(x.data_ptr(), q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), gp.data_ptr(), xc.data_ptr(),
+                        gc.data_ptr(), both[0].data_ptr(), both[1].data_ptr(),
+                        b, p, c, d, side, bf16, _build.cuda_stream(x)),
+                     "dual_attention_side")
+    torch.cuda.synchronize()
+    require(torch.equal(both[0], want[0]) and torch.equal(both[1], want[1]),
+            f"dual_attention: a side alone differs from the whole kernel "
+            f"at B={b} P={p} C={c}")
+    return times
+
+
 def check_dual_attention(gen, device):
     """The forward kernel against the plain versions at every shape of
     ATTENTION_SHAPES (both types), HOST_ATTENTION_SHAPES (f32) and
@@ -786,6 +862,7 @@ def check_dual_attention(gen, device):
                   f"{err_c:.3g} ({tol}); {smem} B shared memory per block")
             continue
         ms = device_ms(lambda: da.fused_dual_attention(*args))
+        sides = _attention_sides(args)
         lib_ms = device_ms(lambda: _attention_library(*args))
         call_ms = time_ms(lambda: da.fused_dual_attention(*args), 200)
         lib_call_ms = time_ms(lambda: _attention_library(*args), 200)
@@ -808,11 +885,15 @@ def check_dual_attention(gen, device):
               f"ms (200 calls), plain {plain_ms:.4f} ms (20 calls); "
               f"bound {max(t_bytes, t_ops):.5f} ms ({bound_by}); "
               f"{smem} B shared memory per block")
+        if sides:
+            print(f"[3] dual_attention {tag}: one side of the wide kernel "
+                  f"alone, CAM blocks {sides['cam_ms']:.4f} ms, PAM blocks "
+                  f"{sides['pam_ms']:.4f} ms (graphs of 200 calls)")
         shapes[tag] = dict(
             max_abs_err=max(err_p, err_c), ms=ms, call_ms=call_ms,
             plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
             bound_by=bound_by, library_ms=lib_ms,
-            library_call_ms=lib_call_ms, smem_bytes=smem)
+            library_call_ms=lib_call_ms, smem_bytes=smem, **sides)
     main = _tag(*ATTENTION_SHAPES[0], torch.bfloat16)
     return dict(
         name="dual_attention", route="cuda",
@@ -874,6 +955,50 @@ def _library_grads(x, q, k, v, gp, xc, gc, dyp, dyc):
         return torch.autograd.grad(_attention_library(*ins), ins, (dyp, dyc))
 
 
+def _backward_sides(args):
+    """Device ms of the wide backward kernel's CAM clusters alone and of
+    its PAM clusters alone on `args` (graphs of 200 calls of the kernel's
+    side entry, outside the launch counts), each side's outputs equal to
+    the whole kernel's; {} for a shape of the first kernel."""
+    import ctypes
+
+    import torch
+
+    from cadre_tpu_torch.ops import _build
+    from cadre_tpu_torch.ops import dual_attention as da
+
+    q, k, v, gp, xc, gc, dyp, dyc = args
+    b, h, w, c = xc.shape
+    p, d = h * w, q.shape[-1]
+    if da.backward_narrow(p, c, d):
+        return {}
+    fn = _build.load("dual_attention_bwd").dual_attention_bwd_side
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    outs = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            torch.empty_like(xc),
+            torch.zeros(2, b * da.backward_cluster_size(p, c, d),
+                        device=xc.device),
+            torch.empty(b, 2, p, (p + 3) // 4 * 4, device=xc.device)]
+    times = {}
+    for name, side in (("cam_ms", 1), ("pam_ms", 2)):
+        def call(side=side):
+            _build.check(fn(*(t.data_ptr() for t in args),
+                            *(t.data_ptr() for t in outs), b, p, c, d, side,
+                            _build.cuda_stream(xc)), "dual_attention_bwd_side")
+        times[name] = device_ms(call)
+    want = da.dual_attention_backward(*args)
+    torch.cuda.synchronize()
+    sums = outs[4].sum(dim=1)
+    got = (outs[0], outs[1], outs[2], sums[0].reshape(1), outs[3],
+           sums[1].reshape(1))
+    require(all(torch.equal(g, w_) for g, w_ in zip(got, want[1:])),
+            f"dual_attention_bwd: a side alone differs from the whole "
+            f"kernel at B={b} P={p} C={c}")
+    return times
+
+
 def check_dual_attention_backward(gen, device):
     """The backward kernel against autograd through the plain versions, at
     every shape of BACKWARD_SHAPES and BACKWARD_EDGE_SHAPES, twice with
@@ -923,10 +1048,16 @@ def check_dual_attention_backward(gen, device):
         require(size == size_fn(p, c, d), f"dual_attention_bwd {tag}: "
                 f"cluster size {size} in the wrapper, {size_fn(p, c, d)} in "
                 f"the kernel")
-        kernel = "first" if da.backward_narrow(p, c, d) else "wide"
-        layout = (f"{kernel} kernel, clusters of {size} CAM blocks and one "
-                  f"PAM block per row, {smem} B shared memory per block, "
-                  f"{active} clusters active at once")
+        if da.backward_narrow(p, c, d):
+            layout = (f"first kernel, clusters of {size} CAM blocks and one "
+                      f"PAM block per row")
+        else:
+            sp = da._pam_ranks(p, c)
+            layout = (f"wide kernel, clusters of {size} CAM ranks per row "
+                      f"and of {sp} PAM ranks per row, {size // sp} rows a "
+                      f"cluster")
+        layout += (f", {smem} B shared memory per block, {active} clusters "
+                   f"active at once")
         errs = ", ".join(f"{k} {v:.2g}" for k, v in worst.items())
         if (b, c, d, h, w) not in BACKWARD_SHAPES:
             print(f"[3] dual_attention_bwd {tag}: max error / scale {errs} "
@@ -934,6 +1065,7 @@ def check_dual_attention_backward(gen, device):
                   f"{layout}")
             continue
         ms = device_ms(lambda: da.dual_attention_backward(*args))
+        sides = _backward_sides(args)
         call_ms = time_ms(lambda: da.dual_attention_backward(*args), 200)
         plain_ms = time_ms(lambda: da.dual_attention_backward_ref(x, *args),
                            20)
@@ -957,13 +1089,18 @@ def check_dual_attention_backward(gen, device):
               f"cores {max(t_bytes, t_tc):.5f} ms (3 x {flops / 1e9:.3f} "
               f"GFLOP at 495 TFLOP/s {t_tc:.5f} ms, bytes {t_bytes:.5f} "
               f"ms); {layout}")
+        if sides:
+            print(f"[3] dual_attention_bwd {tag}: one side of the wide kernel "
+                  f"alone, CAM clusters {sides['cam_ms']:.4f} ms, PAM "
+                  f"clusters {sides['pam_ms']:.4f} ms (graphs of 200 calls)")
         shapes[tag] = dict(
             max_abs_err=max(float((g - w_).abs().max())
                             for g, w_ in zip(got, want)),
             max_rel_err=worst, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops), bound_by=bound_by,
             bound_ms_3xtf32=max(t_bytes, t_tc), library_ms=lib_ms,
-            cluster_blocks=size, smem_bytes=smem, active_clusters=active)
+            cluster_blocks=size, smem_bytes=smem, active_clusters=active,
+            **sides)
     x, q, k, v, gp, xc, gc = _attention_inputs(2, 32, 4, torch.bfloat16,
                                                gen, device)
     try:
@@ -3817,14 +3954,15 @@ def compare_kernel_times(roots) -> int:
 
 # the phases `--phase-times` runs from each checkout, and the lines it keeps
 PHASE_TIMES = ("phase_card", "phase_build", "phase_slice", "phase_perception",
-               "phase_host_env")
+               "phase_host_env", "phase_deep")
 PHASE_LINES = ("[4] iteration", "[8b] 20 steps", "[9] train_vec",
-               "[9] train (")
+               "[9] train (", "[15a] 20 resnet50")
 
 
 def compare_phase_times(roots) -> int:
-    """Phase 4's device iteration, phase 8b's pretraining steps and phase
-    9's host-env iteration and `train` episode of several checkouts, each
+    """Phase 4's device iteration, phase 8b's pretraining steps, phase 9's
+    host-env iteration and `train` episode and phase 15a's resnet50
+    pretraining steps of several checkouts, each
     run by the checkout's own chip_smoke.py in a process of its own, in the
     order given (A B B A shows the spread between runs); prints each run's
     figure lines."""
@@ -3839,7 +3977,7 @@ def compare_phase_times(roots) -> int:
                              capture_output=True, text=True, timeout=900)
         if out.returncode != 0:
             print(out.stdout[-3000:] + out.stderr[-3000:], file=sys.stderr)
-            raise PhaseError(f"phases 4, 8 and 9 of {root} failed")
+            raise PhaseError(f"phases 4, 8, 9 and 15 of {root} failed")
         for line in out.stdout.splitlines():
             if line.startswith(PHASE_LINES):
                 print(f"[p] {os.path.relpath(root)}: {line}")
@@ -4623,12 +4761,12 @@ DEEP_STEPS = 20                 # timed resnet50 pretraining steps
 WIDE_CAMERA = dict(image_height=288, image_width=512, feat_h=9, feat_w=16)
 
 
-def _deep_trainer(cfg, stats, model=None):
+def _deep_trainer(cfg, stats, model=None, batch=PERCEPTION_BATCH):
     from cadre_tpu_torch.configs.danet_config import PerceptionTrainParams
     from cadre_tpu_torch.perception.trainer import PerceptionTrainer
 
     return PerceptionTrainer(
-        cfg, PerceptionTrainParams(batch_size=PERCEPTION_BATCH),
+        cfg, PerceptionTrainParams(batch_size=batch),
         steps_per_epoch=PERCEPTION_SHARDS, seed=0,
         seg_class_weight=stats.seg_class_weight,
         light_class_weight=stats.light_class_weight, device="cuda",
@@ -4834,6 +4972,39 @@ def wide_camera_step(packed, stats):
                       "15e")
 
 
+# CARLA's default RGB camera (800x600): the JAX backbone's 19x25 features,
+# the head's P=475
+CARLA_CAMERA = dict(image_height=600, image_width=800, feat_h=19, feat_w=25)
+CARLA_CAMERA_BATCH = 16
+
+
+def carla_camera_step(packed, stats):
+    """15f: one f32 pretraining step (TF32 off) of a resnet18 DANet on an
+    800x600 camera (feat 19x25: the head's P=475), B=CARLA_CAMERA_BATCH,
+    on 8a's frames resized (nearest) to 600x800: one K2 and one K3, a
+    finite loss, ms (profiled) and peak memory."""
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import danet_params
+
+    h, w = CARLA_CAMERA["image_height"], CARLA_CAMERA["image_width"]
+    n = CARLA_CAMERA_BATCH
+
+    def nearest(t, dims, sizes):
+        for d, size in zip(dims, sizes):
+            idx = (torch.arange(size, device=t.device) * t.shape[d]) // size
+            t = t.index_select(d, idx)
+        return t
+
+    batch = {k: v[:n] for k, v in packed.items()}
+    batch.update(rgb_u8=nearest(batch["rgb_u8"], (1, 2), (h, w)),
+                 route_u8=nearest(batch["route_u8"], (1, 2), (w, h)),
+                 camera_seg=nearest(batch["camera_seg"], (1, 2), (h, w)))
+    trainer = _deep_trainer(danet_params(**CARLA_CAMERA), stats, batch=n)
+    return _one_counted_step(trainer, batch, f"800x600 DANet step (B={n}, "
+                             f"head C=128 Cqk=16 P=475, f32)", "15f")
+
+
 def phase_deep(data_dir=None):
     """The deep-backbone CoPM and the wide camera at full width; returns
     15a's launch counts (pretraining) and 15d's (the device iteration)."""
@@ -4857,6 +5028,7 @@ def phase_deep(data_dir=None):
     deep_da_beta_vae(packed, stats)
     iteration = deep_iteration(deep_encoder())
     wide_camera_step(packed, stats)
+    carla_camera_step(packed, stats)
     print(f"[15] phase 15 in {time.perf_counter() - t0:.1f} s")
     return pretraining, iteration
 

@@ -172,11 +172,12 @@ def test_dual_attention_plain_matches_jax_small_head(batch):
 
 
 @pytest.mark.parametrize("p, c, d", [(40, 48, 16), (40, 544, 16),
-                                     (257, 128, 16), (40, 128, 65),
+                                     (0, 128, 16), (40, 128, 65),
                                      (40, 16, 2)])
 def test_dual_attention_kernel_refuses_shapes_it_does_not_take(p, c, d):
-    """The CUDA wrapper raises on such a shape before any launch; it never
-    falls back to the plain version."""
+    """The CUDA wrapper raises on such a shape before any launch (C not a
+    multiple of 32, C > 512, no positions, Cqk > 64, C < 32; any P >= 1 is
+    taken); it never falls back to the plain version."""
     x = torch.zeros(1, 1, p, c)
     qk = torch.zeros(1, 1, p, d)
     g = torch.ones(1)
