@@ -22,87 +22,107 @@
 // 3 C P values, so at C = 512 in f32 the operations bound it (0.024 ms at
 // B = 48, P = 40 as f32 FMA at 67 TFLOP/s), and its PAM is P^2 C for the
 // same bytes, so a large camera (P = 475 at 800x600) is bound by
-// operations too.
+// operations too. In bf16 the exact-rounding contract below keeps the
+// energies and the gram on the CUDA cores, so the bf16 kernel's floor
+// there is those FMA chains (C^2 P + 3 P^2 D a row at 33.5 TFMA/s), not
+// the tensor cores.
 //
-// Design: a batch row is split over independent blocks of 256 threads,
-// which need no communication:
+// Design: a batch row is split over independent blocks of 256 threads
+// (the wide PAM blocks 512 past C = 256), which need no communication:
 // - CAM block g (C / 32 of them) computes rows i0 = 32 g .. i0 + 31 of the
 //   gram, their row softmax, and from them columns i0 .. i0 + 31 of the CAM
 //   output.
-// - A PAM block computes a range of columns of att v for a range of
-//   queries.
+// - A PAM block computes att v for a range of queries (and, in the narrow
+//   kernel, a range of columns).
 // Two kernels take that split. The narrow one (C <= 128, P <= 64: the
 // main path's resnet18/34 heads at 144x256) holds a whole row's x, the
 // [P, P] scores and the gram rows at their largest in registers and
-// shared memory, and stays as it was measured: wide code at those shapes
-// ran 4% (f32) to 12% (bf16) slower (H100 80GB HBM3, 700 W). The wide one
-// takes the rest, any P:
+// shared memory, one launch with both kinds of block, and stays as it was
+// measured: wide code at those shapes ran 4% (f32) to 12% (bf16) slower
+// (H100 80GB HBM3, 700 W). The wide one takes the rest, any P, in two
+// launches side by side: the PAM launch forked from the caller's stream
+// onto a second one and joined back (fork.cuh), each with its own
+// registers and shared memory. Issued one after the other on the
+// caller's stream instead, the P = 144 rows ran 20% (f32) and 34% (bf16)
+// slower and P = 475, C = 128 2-7% (same card, chip_smoke.py
+// --kernel-times; C = 512, P = 475 within 1%).
 // - its CAM blocks stream the positions through shared memory in tiles
 //   (all of P in one tile up to 64 positions; past that 64 or 32 rows a
 //   tile, two tiles in flight: cp.async brings in the next tile while the
 //   current one is multiplied); the gram pass walks the tiles forward, the
 //   apply pass backward, so the last tile is read once;
-// - its PAM blocks take up to 64 queries and up to 128 value columns each
-//   and walk the keys in tiles (64 in bf16, 32 in f32): pass 1 finds each
-//   row's max and sum of exp (f32: both in one walk, each lane's sum
-//   rescaled as its max rises; bf16: the max, then the sum in the plain
-//   version's order, two walks); pass 2 recomputes the energies, forms
-//   att = exp(e - max) / sum, rounds it to the input type and applies it
-//   to the value tile, which cp.async brought in during the previous
-//   tile (the keys come a tile ahead through registers). Not an online
-//   softmax, so that the rounded attention is the one the plain version
-//   and the TPU kernel round (in bf16 bit for bit where the energies
-//   agree); each walk recomputes q k^T, D / C of the apply (1/8 at every
-//   head), and with a single key tile (P <= 64 in bf16, 32 in f32) the
-//   energies are computed once.
-// bf16: the two products that apply an attention matrix (att v and
-// x att^T) are warp-level mma.sync.m16n8k16 (bf16 in, f32 accumulate),
-// exactly the TPU kernel's contract. Their K dimension is padded with
-// zeros in shared memory (P = 40 -> 48), which leaves every sum unchanged;
-// M is padded to 16 and the padded rows are never stored; padded keys get
-// probability 0, and the attention goes into the product as bf16, the
-// rounding the contract asks for. The two products that make the energies
-// (q k^T and x^T x) stay on the CUDA cores as chains of f32 FMAs in
-// position order, the order of the plain version's f32 products: the
-// attention is rounded to bf16, and an energy that differs in its last f32
-// bits (a tensor-core sum rounds in another order and way) flips that
-// rounding at some weights, which moves an output by up to a bf16 step of
-// its largest term. With all four products on the tensor cores the kernel
-// was 8.9 bf16 ulps from the plain version at B = 256 (H100 80GB HBM3,
-// 700 W; chip_smoke.py's bound is 4); with the same sums the rounding
-// agrees (the wide kernel's chains run on across position tiles in
-// order). v enters as stored, row-major, through ldmatrix.trans.
+// - its PAM blocks (dual_attention_pam_tiles) take a 64-query tile each
+//   over all C value columns (256 threads up to C = 256, 512 past it, 64
+//   accumulators a thread), so that each energy is formed once per walk
+//   and not once per column range. Its key tiles (64 keys) sit transposed
+//   in shared memory as f32 and each thread forms a 4 x 4 (or 2 x 4)
+//   register tile of q k^T whose operands are two vector loads a step.
+//   bf16: three walks, the max, the sum of exp(e - max) in the plain
+//   version's warp order (each tile's exps staged in shared memory, lane l
+//   of a row's warp adding keys l, l + 32, ... in order), then att =
+//   exp(e - max) / sum rounded to bf16 and applied; f32: two walks, the
+//   first keeping each thread's running max and sum (fast exp; the f32
+//   attention is not rounded, so neither the order of the sum nor exp's
+//   last bits matter). The value tiles (32 or 64 keys) come two stages
+//   deep by cp.async and the applies run on the tensor cores, each warp
+//   owning 32 query rows and a C / 4 or C / 8 column range. Up to P = 64
+//   this is one block per batch row; the earlier PAM blocks there (up to
+//   128 columns each, in the CAM blocks' grid, the energies formed again
+//   for each column range) ran 3-24% slower at C = 512, P = 40 (same card,
+//   --kernel-times) and went.
+// bf16: the products that apply an attention matrix (att v and x att^T)
+// are warp-level mma.sync.m16n8k16 (bf16 in, f32 accumulate), exactly the
+// TPU kernel's contract. Their K dimension is padded with zeros in shared
+// memory (P = 40 -> 48), which leaves every sum unchanged; M is padded to
+// 16 and the padded rows are never stored; padded keys get probability 0,
+// and the attention goes into the product as bf16, the rounding the
+// contract asks for. The products that make the energies (q k^T and x^T x)
+// stay on the CUDA cores as chains of f32 FMAs in position (or d) order,
+// the order of the plain version's f32 products, and the softmax's sum
+// runs in the plain version's warp order, so that the rounded attention is
+// the plain version's bit for bit. Rounding is where the bound is: the
+// attention is rounded to bf16, and an energy or a sum that differs in its
+// last f32 bits (a tensor-core sum rounds in another order and way) flips
+// that rounding at some weights, which moves an output by up to a bf16
+// step of its largest term, many steps of a small output where terms
+// cancel. With all four products on the tensor cores the kernel was 8.9
+// bf16 ulps from the plain version at B = 256 (H100 80GB HBM3, 700 W;
+// chip_smoke.py's bound is 4); tests/test_torch_port_deep_head.py holds a
+// reordered f32 energy or gram (16-term exact chunks, as a tensor core
+// sums) to more than 4 ulps at the 800x600 shapes. v enters as stored,
+// row-major, through ldmatrix.trans.
 // f32: the narrow kernel's products run on the CUDA cores; the wide
 // kernel's gram and both applies run on the tensor cores in 3xTF32
 // (mma_tf32.cuh: plain TF32 would break the f32 tolerances, 3xTF32 is as
-// accurate as f32 FMA at these sums), its energies q k^T as f32 FMA.
+// accurate as f32 FMA at these sums); its energies q k^T are f32 FMA
+// chains (D <= 64 deep, a small share of the work beside C-wide applies).
 // mma.sync rather than wgmma and TMA: a CAM block's gram is 32 rows, below
 // wgmma's 64-row warpgroup tile, and the applies are 16 to 64 rows by 32
-// to 128 columns over a few KB, where the block is bound by its latency
-// and not by the tensor-core rate; row strides are padded so that the
-// fragment loads are free of bank conflicts, or nearly.
-// A warp holds whole rows of an energy in its registers, so each row's
-// softmax runs there with warp shuffles and only the rounded attention
-// goes to shared memory.
+// to 128 columns a warp, where the block is bound by its latency and not
+// by the tensor-core rate; row strides are padded so that the fragment
+// loads are free of bank conflicts, or nearly.
+// A warp holds whole rows of an energy in its registers (the wide PAM
+// blocks stage them), so each row's softmax runs there with warp shuffles
+// and only the rounded attention goes to shared memory.
 // Shared memory per block at the main path's shapes: 21 KB in bf16, 36 KB
 // in f32 (the first design: 116 KB), so several blocks share an SM; in the
-// wide kernel at most about 100 KB in bf16 and 198 KB in f32 (C = 512),
-// whatever P, opted in per launch above 48 KB. The wide kernel runs two
-// blocks an SM (128 registers; 207 held one) but for f32 past C = 128,
-// whose tiles hold an SM alone.
-// Measured (H100 80GB HBM3, 700 W, B = 48, graphs of 200 calls; in
-// brackets the library call, then the earlier wide kernel, which refused
-// P > 256): f32 C = 512, P = 40 0.198 ms [0.227; 0.445]; f32 C = 128,
-// P = 144 0.077 [0.087; 0.116]; bf16 P = 144 0.069 [0.038; 0.067], its
-// PAM blocks alone 0.050 (three walks of f32 FMA energies), its CAM
-// blocks 0.029; bf16 C = 512 at B = 256 0.535 [0.496 earlier], its CAM
-// blocks' ordered f32 FMA gram alone 0.434.
+// wide kernel's CAM blocks at most about 100 KB in bf16 and 198 KB in f32
+// (C = 512), whatever P, opted in per launch above 48 KB; its PAM blocks
+// at most 111 KB (bf16) and 186 KB (f32). The CAM blocks run two an SM
+// (128 registers; 207 held one) but for f32 past C = 128, whose tiles
+// hold an SM alone.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py --kernel-times,
+// graph ms at B = 48): P = 475 f32 C = 128 0.2236, bf16 0.1984, f32 C = 512
+// 1.6073, bf16 1.1575 (bound by operations: the bf16 energies and gram's
+// f32 FMA chains, the f32 gram and applies in 3xTF32); P = 144 f32 0.0517,
+// bf16 0.0461; C = 512, P = 40 f32 0.1593, bf16 0.1065. More in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "fork.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -115,8 +135,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 32;       // channels (CAM) or value columns (PAM)
 constexpr int kNarrowC = 128;    // what the narrow kernel takes
 constexpr int kNarrowP = 64;
-constexpr int kQT = 64;          // query rows of one wide PAM block
-constexpr int kMaxNc = 128;      // value columns of one wide PAM block
 constexpr int kMaxC = 512;       // limits the wrapper enforces
 constexpr int kMaxD = 64;
 
@@ -169,15 +187,14 @@ template <> size_t smem_bytes<bf16>(int P, int C, int D) {
   return a > b ? a : b;
 }
 
-// The wide kernel's, per input type: a CAM position tile's row stride
-// (kPadX past C), a PAM key tile (kKT keys) and the strides past their
-// widths of its attention tile (kPadA) and value tile (8).
+// The wide kernel's CAM position tile's row stride past C, per input
+// type.
 template <typename T> struct Wide;
 template <> struct Wide<bf16> {
-  static constexpr int kPadX = 8, kKT = 64, kPadA = 8;
+  static constexpr int kPadX = 8;
 };
 template <> struct Wide<float> {
-  static constexpr int kPadX = 4, kKT = 32, kPadA = 4;
+  static constexpr int kPadX = 4;
 };
 
 // Rows of a CAM tile: all of P in one tile up to 64 positions, else
@@ -199,27 +216,6 @@ template <typename T>
 __host__ __device__ inline size_t wide_cam_bytes(int P, int tp, int C) {
   return cam_bufs(P) * wide_cam_tile<T>(tp, C) +
          align16(static_cast<size_t>(kGroup) * (C + Wide<T>::kPadX) *
-                 sizeof(T));
-}
-// A PAM block: q [kQT, D] and two key tiles [kKT, D + 1] in f32 (the
-// energies' operands, converted once as they are stored), two value
-// tiles [kKT, nc + 8] and the attention tile [kQT, kKT + kPadA].
-template <typename T>
-__host__ __device__ inline size_t wide_pam_q(int D) {
-  return align16(static_cast<size_t>(kQT) * D * 4);
-}
-template <typename T>
-__host__ __device__ inline size_t wide_pam_k(int D) {
-  return align16(static_cast<size_t>(Wide<T>::kKT) * (D + 1) * 4);
-}
-template <typename T>
-__host__ __device__ inline size_t wide_pam_v(int nc) {
-  return align16(static_cast<size_t>(Wide<T>::kKT) * (nc + 8) * sizeof(T));
-}
-template <typename T>
-__host__ __device__ inline size_t wide_pam_bytes(int D, int nc) {
-  return wide_pam_q<T>(D) + 2 * wide_pam_k<T>(D) + 2 * wide_pam_v<T>(nc) +
-         align16(static_cast<size_t>(kQT) * (Wide<T>::kKT + Wide<T>::kPadA) *
                  sizeof(T));
 }
 
@@ -800,19 +796,106 @@ __device__ void cam_wide(const T* __restrict__ x, float g,
   }
 }
 
-// A warp's m16 row tile of a bf16 product, acc[j] += A[16, K] B[K, 8 j ..]
-// for j < nt: A row-major (lda), B row-major [K][ldb] through
-// ldmatrix.trans; K a multiple of 16.
+// ------------------------------------------------------- wide PAM blocks
+//
+// A block of NTH threads per query tile of kTileQ = 64 rows over all C
+// value columns (NTH = 256 up to C = 256, 512 past it: 64 accumulators a
+// thread), so that each energy is formed once per walk and not once per
+// column range. Keys come in energy tiles of kKE = 64: q and the key tile
+// sit transposed in shared memory as f32, and thread (ty, tx) = (tid / 16,
+// tid % 16) forms rows RM ty .. RM ty + RM - 1 (RM = 64 * 16 / NTH) of
+// keys 4 tx .. 4 tx + 3 as chains of f32 FMAs over d in order, the plain
+// version's f32 product (bf16 products are exact), a register tile whose
+// loads are two vectors a step. bf16 walks the key tiles three times: the
+// rows' max; the sum of exp(e - max) in the plain version's softmax order
+// (each tile's exps staged in shared memory, lane l of a row's warp adding
+// the keys l, l + 32, ... in order); then att = exp(e - max) / sum,
+// rounded to bf16 into the attention tile and applied; so the rounded
+// attention is the plain version's bit for bit, as in the narrow kernel.
+// f32 walks twice (the max and sum at once, see walk 1). The value tiles
+// (vk keys) come two stages deep by cp.async and are applied on the tensor
+// cores (bf16 mma.sync m16n8k16, f32 3xTF32), each warp owning 32 query
+// rows and a C / 4 (256 threads) or C / 8 (512) column range.
+
+constexpr int kKE = 64;          // keys of an energy tile
+constexpr int kLdk = kKE + 4;    // the key tile's and the exps' row stride
+
+constexpr int kTileQ = 64;       // query rows of a tiled PAM block
+template <typename T>
+__host__ __device__ inline int pam_vk(int C) {
+  return sizeof(T) == 2 && C <= 256 ? 64 : 32;
+}
+template <typename T>
+__host__ __device__ inline int pam_lda() {
+  return sizeof(T) == 2 ? kKE + 8 : kKE + 4;
+}
+// Regions: q^T [D][QT + 4] and the key tile [D][kLdk] (f32), the rows'
+// max and sum, the attention tile [QT][lda], and two value stages [vk][C +
+// 8], whose room the exps [QT][kLdk] (f32) share in the sum walk.
+template <typename T>
+__host__ __device__ inline size_t tiles_v_bytes(int C) {
+  const size_t v = 2 * align16(static_cast<size_t>(pam_vk<T>(C)) * (C + 8) *
+                               sizeof(T));
+  const size_t e = align16(static_cast<size_t>(kTileQ) * kLdk * 4);
+  return v > e ? v : e;
+}
+template <typename T>
+__host__ __device__ inline size_t tiles_bytes(int C, int D) {
+  const int qt = kTileQ;
+  return align16(static_cast<size_t>(D) * (qt + 4) * 4) +
+         align16(static_cast<size_t>(D) * kLdk * 4) +
+         align16(static_cast<size_t>(2) * qt * 4) +
+         align16(static_cast<size_t>(qt) * pam_lda<T>() * sizeof(T)) +
+         tiles_v_bytes<T>(C);
+}
+
+// energies e = q k^T of thread (ty, tx)'s RM x 4 tile (see above)
+template <int RM>
+__device__ __forceinline__ void tile_energies(float (&e)[RM][4],
+                                              const float* qs, int ldq,
+                                              const float* ks, int D) {
+  const float* qp = qs + RM * (threadIdx.x >> 4);
+  const float* kp = ks + 4 * (threadIdx.x & 15);
+#pragma unroll
+  for (int i = 0; i < RM; ++i) e[i][0] = e[i][1] = e[i][2] = e[i][3] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    const float4 kv = *reinterpret_cast<const float4*>(kp + d * kLdk);
+    float qv[RM];
+    if constexpr (RM == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(qp + d * ldq);
+      qv[0] = t.x, qv[1] = t.y, qv[2] = t.z, qv[3] = t.w;
+    } else {
+      const float2 t = *reinterpret_cast<const float2*>(qp + d * ldq);
+      qv[0] = t.x, qv[1] = t.y;
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      e[i][0] = fmaf(qv[i], kv.x, e[i][0]);
+      e[i][1] = fmaf(qv[i], kv.y, e[i][1]);
+      e[i][2] = fmaf(qv[i], kv.z, e[i][2]);
+      e[i][3] = fmaf(qv[i], kv.w, e[i][3]);
+    }
+  }
+}
+
+// A warp's two m16 row tiles of a bf16 product, acc[i][j] += A[16 i ..,
+// K] B[K, 8 j ..] for j < nt: A row-major (lda), B row-major [K][ldb]
+// through ldmatrix.trans (each B fragment feeds both row tiles); K a
+// multiple of 16.
 template <int NT>
-__device__ __forceinline__ void mma_rows_bf16(float (&acc)[NT][4],
-                                              const bf16* A, int lda,
-                                              const bf16* B, int ldb, int K,
-                                              int nt, int lane) {
+__device__ __forceinline__ void mma_rows2_bf16(float (&acc)[2][NT][4],
+                                               const bf16* A, int lda,
+                                               const bf16* B, int ldb, int K,
+                                               int nt, int lane) {
   const int g = lane >> 2, t = lane & 3;
-  const bf16* a = A + g * lda + 2 * t;
+  const bf16* a0 = A + g * lda + 2 * t;
+  const bf16* a1 = a0 + 16 * lda;
   for (int k = 0; k < K; k += 16) {
-    const uint32_t af[4] = {ld_pair(a + k), ld_pair(a + 8 * lda + k),
-                            ld_pair(a + k + 8), ld_pair(a + 8 * lda + k + 8)};
+    const uint32_t f0[4] = {ld_pair(a0 + k), ld_pair(a0 + 8 * lda + k),
+                            ld_pair(a0 + k + 8), ld_pair(a0 + 8 * lda + k + 8)};
+    const uint32_t f1[4] = {ld_pair(a1 + k), ld_pair(a1 + 8 * lda + k),
+                            ld_pair(a1 + k + 8), ld_pair(a1 + 8 * lda + k + 8)};
     const unsigned row = static_cast<unsigned>(
         __cvta_generic_to_shared(B + (k + (lane & 15)) * ldb));
 #pragma unroll
@@ -823,265 +906,281 @@ __device__ __forceinline__ void mma_rows_bf16(float (&acc)[NT][4],
           "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
           : "=r"(bfr[0]), "=r"(bfr[1])
           : "r"(row + 16u * j));
-      mma_bf16(acc[j], af, bfr);
+      mma_bf16(acc[0][j], f0, bfr);
+      mma_bf16(acc[1][j], f1, bfr);
     }
   }
 }
 
-// A PAM block's value products: acc (a warp's m-tile mi = w / 2 and half
-// of the nc columns) += att v over one key tile of nk keys, and the
-// output store. att: [kQT, lda]; vt: [kKT, nc + 8].
-struct PamApplyBf16 {
-  static constexpr int kNT = kMaxNc / 16;
-  float acc[kNT][4];
-  __device__ void zero() {
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+// PAM of query rows q0 .. q0 + QT - 1 (fewer at the end) and all C value
+// columns of one batch row; x, v, out: [P, C]; q, k: [P, D]. NT: the most
+// n-tiles of 8 columns a warp holds.
+template <typename T, int QT, int NT, int NTH>
+__device__ void pam_tiles(const T* __restrict__ x, const T* __restrict__ q,
+                          const T* __restrict__ k, const T* __restrict__ v,
+                          float g, T* __restrict__ out, int P, int C, int D,
+                          int q0, unsigned char* sm) {
+  constexpr int kW = NTH / 32;          // warps
+  constexpr int RM = QT * 16 / NTH, kRows = QT / kW;
+  constexpr int kStage = kKE * kMaxD / NTH;
+  constexpr int WM = QT / 32, WN = kW / WM;
+  const int nq = min(QT, P - q0), nkt = (P + kKE - 1) / kKE;
+  const int vk = pam_vk<T>(C), nsub = (P + vk - 1) / vk, per = kKE / vk;
+  const int ldq = QT + 4, lda = pam_lda<T>(), ldv = C + 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty = tid >> 4, tx = tid & 15;
+  float* qs = reinterpret_cast<float*>(sm);
+  unsigned char* next = sm + align16(static_cast<size_t>(D) * ldq * 4);
+  float* ks = reinterpret_cast<float*>(next);
+  next += align16(static_cast<size_t>(D) * kLdk * 4);
+  float* rowm = reinterpret_cast<float*>(next);
+  float* rowl = rowm + QT;
+  next += align16(static_cast<size_t>(2) * QT * 4);
+  T* att = reinterpret_cast<T*>(next);
+  next += align16(static_cast<size_t>(QT) * lda * sizeof(T));
+  T* vs = reinterpret_cast<T*>(next);   // two stages; the exps in walk 2
+  float* ps = reinterpret_cast<float*>(next);
+  const size_t vstage = align16(static_cast<size_t>(vk) * ldv * sizeof(T)) /
+                        sizeof(T);
+  auto keys = [&](int t) { return min(kKE, P - t * kKE); };
+
+  // q^T, rows past nq zero
+  for (int i = tid; i < QT * D; i += NTH) {
+    const int r = i / D, d = i % D;
+    qs[d * ldq + r] =
+        r < nq ? to_f32(q[static_cast<size_t>(q0 + r) * D + d]) : 0.f;
   }
-  __device__ void add(const bf16* att, int lda, const bf16* vt, int nc,
-                      int nq, int nk) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int mi = warp >> 1, n0 = (warp & 1) * (nc / 2);
-    if (16 * mi >= nq) return;
-    mma_rows_bf16(acc, att + 16 * mi * lda, lda, vt + n0, nc + 8,
-                  round16(nk), nc / 16, lane);
+  // key tiles through registers a tile ahead (rows of D values need not
+  // be 16-byte aligned), into the transposed tile, keys past P zero; the
+  // thread's elements i = tid + 256 s walk (key, d) by steps
+  T kr[kStage];
+  const int n64 = kKE * D;
+  auto fetch = [&](int t) {
+    const T* src = k + static_cast<size_t>(t) * kKE * D;
+    const int n = keys(t) * D;
+#pragma unroll
+    for (int s = 0; s < kStage; ++s) {
+      const int i = tid + s * NTH;
+      kr[s] = i < n ? src[i] : T(0.f);
+    }
+  };
+  const int step_key = NTH / D, step_d = NTH % D;
+  auto put = [&]() {
+    int key = tid / D, d = tid % D;
+#pragma unroll
+    for (int s = 0; s < kStage; ++s) {
+      if (tid + s * NTH < n64) ks[d * kLdk + key] = to_f32(kr[s]);
+      key += step_key;
+      d += step_d;
+      if (d >= D) {
+        d -= D;
+        ++key;
+      }
+    }
+  };
+  // one walk over the key tiles: f(t, e) on each tile's energies
+  auto walk = [&](auto f) {
+    fetch(0);
+    for (int t = 0; t < nkt; ++t) {
+      __syncthreads();                    // the key tile (and exps) are read
+      put();
+      if (t + 1 < nkt) fetch(t + 1);
+      __syncthreads();                    // the key tile is in
+      float e[RM][4];
+      tile_energies<RM>(e, qs, ldq, ks, D);
+      f(t, e);
+    }
+  };
+
+  // walk 1: each row's max (exact in any order); in f32 also its sum of
+  // exp(e - max) at once, each thread's running sum rescaled as its max
+  // rises, then the 16 threads' sums rescaled to the row's max. The f32
+  // attention is not rounded, so neither the order of the sum nor the
+  // last bits of exp matter there: f32 takes the fast exp (ex2.approx,
+  // within a few 1e-7 relative at these energies) and multiplies by 1 /
+  // sum; bf16 takes expf and divides, as the plain version does
+  float mx[RM], ls[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    mx[i] = -INFINITY;
+    ls[i] = 0.f;
   }
-  // y[p, c0 + c] = g acc + x[p, c0 + c]; x, out point at the block's
-  // first query row
-  __device__ void store(const bf16* x, bf16* out, int C, int c0, int nc,
-                        int nq, float g) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int mi = warp >> 1, n0 = (warp & 1) * (nc / 2);
-    const int g4 = lane >> 2, t2 = 2 * (lane & 3);
+  walk([&](int t, float (&e)[RM][4]) {
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      if (j >= nc / 16) break;
-      const int col = c0 + n0 + 8 * j + t2;
+    for (int j = 0; j < 4; ++j) {
+      if (t * kKE + 4 * tx + j >= P) continue;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = 16 * mi + g4 + 8 * h;
-        if (p < nq) {
-          const size_t o = static_cast<size_t>(p) * C + col;
-          const __nv_bfloat162 r =
-              *reinterpret_cast<const __nv_bfloat162*>(x + o);
-          *reinterpret_cast<__nv_bfloat162*>(out + o) =
-              __floats2bfloat162_rn(g * acc[j][2 * h] + __low2float(r),
-                                    g * acc[j][2 * h + 1] + __high2float(r));
+      for (int i = 0; i < RM; ++i) {
+        const float x = e[i][j];
+        if constexpr (sizeof(T) == 2) {
+          mx[i] = fmaxf(mx[i], x);
+        } else if (x > mx[i]) {
+          ls[i] = ls[i] * __expf(mx[i] - x) + 1.f;
+          mx[i] = x;
+        } else {
+          ls[i] += __expf(x - mx[i]);
         }
       }
     }
-  }
-};
-
-struct PamApplyF32 {
-  static constexpr int kNT = kMaxNc / 16;
-  float acc[1][kNT][4];
-  __device__ void zero() { mma3::zero(acc); }
-  __device__ void add(const float* att, int lda, const float* vt, int nc,
-                      int nq, int nk) {
-    const int warp = threadIdx.x >> 5;
-    const int mi = warp >> 1, n0 = (warp & 1) * (nc / 2);
-    if (16 * mi >= nq) return;
-    mma3::warp_mma3(acc, {View{att, lda, 1, nq}}, {16 * mi}, 1,
-                    View{vt, 1, nc + 8, nc}, n0, nk, nc / 16);
-  }
-  __device__ void store(const float* x, float* out, int C, int c0, int nc,
-                        int nq, float g) {
-    const int warp = threadIdx.x >> 5;
-    const int mi = warp >> 1, n0 = (warp & 1) * (nc / 2);
-    mma3::store_tile(acc[0], 16 * mi, n0, nq, n0 + nc / 2,
-                     [&](int p, int c, float v) {
-                       const size_t o = static_cast<size_t>(p) * C + c0 + c;
-                       out[o] = g * v + x[o];
-                     });
-  }
-};
-
-template <typename T> struct PamApply;
-template <> struct PamApply<bf16> { typedef PamApplyBf16 type; };
-template <> struct PamApply<float> { typedef PamApplyF32 type; };
-
-// PAM of query rows q0 .. q0 + nq - 1 (nq <= 64) and value columns
-// c0 .. c0 + nc - 1 (nc <= 128) of one batch row, the keys in tiles of
-// kKT; x, v, out: [P, C]; q, k: [P, D].
-template <typename T>
-__device__ void pam_wide(const T* __restrict__ x, const T* __restrict__ q,
-                         const T* __restrict__ k, const T* __restrict__ v,
-                         float g, T* __restrict__ out, int P, int C, int D,
-                         int q0, int c0, int nc, unsigned char* sm) {
-  constexpr int kKT = Wide<T>::kKT, kRN = kKT / 32, kRM = kQT / kWarps;
-  constexpr int kStage = kKT * kMaxD / kThreads;
-  const int nq = min(kQT, P - q0), nkt = (P + kKT - 1) / kKT;
-  const int ldk = D + 1, ldv = nc + 8, lda = kKT + Wide<T>::kPadA;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* qs = reinterpret_cast<float*>(sm);
-  unsigned char* next = sm + wide_pam_q<T>(D);
-  float* ks[2] = {reinterpret_cast<float*>(next),
-                  reinterpret_cast<float*>(next + wide_pam_k<T>(D))};
-  next += 2 * wide_pam_k<T>(D);
-  T* vs[2] = {reinterpret_cast<T*>(next),
-              reinterpret_cast<T*>(next + wide_pam_v<T>(nc))};
-  T* att = reinterpret_cast<T*>(next + 2 * wide_pam_v<T>(nc));
-  auto keys = [&](int t) { return min(kKT, P - t * kKT); };
-
-  for (int i = tid; i < nq * D; i += kThreads) {
-    qs[i] = to_f32(q[static_cast<size_t>(q0) * D + i]);
-  }
-  // key tiles come a tile ahead through registers (rows of D values need
-  // not be 16-byte aligned), into [kKT, D + 1] tiles
-  T kr[kStage];
-  auto fetch = [&](int t) {
-    const T* src = k + static_cast<size_t>(t) * kKT * D;
-    const int n = keys(t) * D;
+  });
 #pragma unroll
-    for (int s = 0; s < kStage; ++s) {
-      const int i = tid + s * kThreads;
-      if (i < n) kr[s] = src[i];
+  for (int i = 0; i < RM; ++i) {
+    float m = mx[i];
+    for (int o = 8; o > 0; o >>= 1) {
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
     }
-  };
-  auto put = [&](float* dst, int t) {
-    const int n = keys(t) * D;
-#pragma unroll
-    for (int s = 0; s < kStage; ++s) {
-      const int i = tid + s * kThreads;
-      if (i < n) dst[(i / D) * ldk + i % D] = to_f32(kr[s]);
+    if constexpr (sizeof(T) == 4) {
+      float l = ls[i] * __expf(mx[i] - m);
+      for (int o = 8; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+      if (tx == 0) rowl[RM * ty + i] = 1.f / l;   // f32 keeps 1 / sum
     }
-  };
-  // energies [nq, nk] = q k^T of one key tile, rows warp + 8 i, columns
-  // lane + 32 j, chains of f32 FMAs over d in order
-  float s[kRM][kRN];
-  auto energies = [&](const float* kt, int nk) {
-    gemm_f32(
-        nq, nk, D, [&](int m, int d) { return qs[m * D + d]; },
-        [&](int d, int n) { return kt[n * ldk + d]; }, s);
-  };
-
-  // walks the key tiles, calling f(nk) on each tile's energies in s; with
-  // one tile they are computed once for every walk
-  bool have = false;
-  auto walk = [&](auto f) {
-    if (nkt == 1 && have) {
-      f(keys(0));
-      return;
-    }
-    fetch(0);
-    put(ks[0], 0);
-    __syncthreads();
-    for (int t = 0; t < nkt; ++t) {
-      const int nk = keys(t);
-      if (t + 1 < nkt) fetch(t + 1);
-      energies(ks[t & 1], nk);
-      f(nk);
-      if (t + 1 < nkt) put(ks[(t + 1) & 1], t + 1);
-      __syncthreads();
-    }
-    have = true;
-  };
-  // pass 1: each row's max and sum of exp, lane l over its keys l, l + 32,
-  // ... in order, then over the warp. In bf16 the max first and then the
-  // sum of exp(e - max), as the plain version's softmax (PyTorch's warp
-  // softmax) sums, so that the rounded attention is the plain version's
-  // bit for bit; in f32 both at once, each lane's sum rescaled as its max
-  // rises (the attention is not rounded, so the last bits do not matter).
-  float mx[kRM], sum[kRM];
-#pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    mx[i] = -INFINITY;
-    sum[i] = 0.f;
+    if (tx == 0) rowm[RM * ty + i] = m;
   }
-  if (sizeof(T) == 2) {
-    walk([&](int nk) {
+
+  if constexpr (sizeof(T) == 2) {
+    // walk 2 (bf16): each row's sum of exp(e - max), lane l of the row's
+    // warp over keys l, l + 32, ... in order, then over the warp
+    float sum[kRows];
 #pragma unroll
-      for (int i = 0; i < kRM; ++i)
+    for (int r = 0; r < kRows; ++r) sum[r] = 0.f;
+    walk([&](int t, float (&e)[RM][4]) {
 #pragma unroll
-        for (int j = 0; j < kRN; ++j) {
-          if (lane + 32 * j < nk) mx[i] = fmaxf(mx[i], s[i][j]);
+      for (int i = 0; i < RM; ++i) {
+        const int row = RM * ty + i;
+        const float m = rowm[row];
+        float p[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          p[j] = t * kKE + 4 * tx + j < P ? expf(e[i][j] - m) : 0.f;
         }
+        *reinterpret_cast<float4*>(ps + row * kLdk + 4 * tx) =
+            make_float4(p[0], p[1], p[2], p[3]);
+      }
+      __syncthreads();                    // the tile's exps are in
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float* prow = ps + (kRows * warp + r) * kLdk;
+        sum[r] += prow[lane];
+        sum[r] += prow[lane + 32];
+      }
     });
 #pragma unroll
-    for (int i = 0; i < kRM; ++i) mx[i] = warp_max(mx[i]);
-    walk([&](int nk) {
+    for (int r = 0; r < kRows; ++r) {
+      sum[r] = warp_sum(sum[r]);
+      if (lane == 0) rowl[kRows * warp + r] = sum[r];
+    }
+  }
+  __syncthreads();                        // the statistics are in, the exps read
+
+  // walk 3: att = exp(e - max) / sum rounded to T, applied to the value
+  // sub-tiles u (vk keys each, per of them an energy tile), v(u + 1)
+  // loading while v(u) is applied
+  auto issue_v = [&](int u) {
+    T* dst = vs + (u & 1) * vstage;
+    const int k0 = u * vk, nk = min(vk, P - k0);
+    mma3::load_rows16(dst, ldv, v + static_cast<size_t>(k0) * C, nk, C, C, 0,
+                      NTH);
+    mma3::cp_commit();
+    if (sizeof(T) == 2 && nk < vk) {
+      // the bf16 product runs over all vk keys: past nk the values are
+      // zero (so is their attention)
+      uint4* z = reinterpret_cast<uint4*>(dst + nk * ldv);
+      const int n = (vk - nk) * ldv * static_cast<int>(sizeof(T)) / 16;
+      for (int i = tid; i < n; i += NTH) z[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  const int wm = warp / WN, wn = warp % WN, m0 = 32 * wm;
+  const int ntt = C / 8, npw = (ntt + WN - 1) / WN;
+  const int n0t = wn * npw, nt = min(npw, ntt - n0t);
+  float acc[2][NT][4];
 #pragma unroll
-      for (int i = 0; i < kRM; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < kRN; ++j) {
-          if (lane + 32 * j < nk) sum[i] += expf(s[i][j] - mx[i]);
-        }
-    });
+    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  issue_v(0);
+  fetch(0);
+  for (int t = 0; t < nkt; ++t) {
+    __syncthreads();                      // the key and attention tiles are read
+    put();
+    if (t + 1 < nkt) fetch(t + 1);
+    __syncthreads();                      // the key tile is in
+    {
+      float e[RM][4];
+      tile_energies<RM>(e, qs, ldq, ks, D);
 #pragma unroll
-    for (int i = 0; i < kRM; ++i) sum[i] = warp_sum(sum[i]);
-  } else {
-    walk([&](int nk) {
+      for (int i = 0; i < RM; ++i) {
+        const int row = RM * ty + i;
+        const float m = rowm[row], l = rowl[row];
+        float a[4];
 #pragma unroll
-      for (int i = 0; i < kRM; ++i)
-#pragma unroll
-        for (int j = 0; j < kRN; ++j) {
-          if (lane + 32 * j < nk) {
-            const float e = s[i][j];
-            if (e > mx[i]) {
-              sum[i] = sum[i] * expf(mx[i] - e) + 1.f;
-              mx[i] = e;
-            } else {
-              sum[i] += expf(e - mx[i]);
-            }
+        for (int j = 0; j < 4; ++j) {
+          const bool in = t * kKE + 4 * tx + j < P;
+          if constexpr (sizeof(T) == 2) {
+            a[j] = in ? expf(e[i][j] - m) / l : 0.f;
+          } else {
+            a[j] = in ? __expf(e[i][j] - m) * l : 0.f;
           }
         }
-    });
-#pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      const float m = warp_max(mx[i]);
-      sum[i] = warp_sum(sum[i] * expf(mx[i] - m));
-      mx[i] = m;
+        T* dst = att + row * lda + 4 * tx;
+        if constexpr (sizeof(T) == 2) {
+          __nv_bfloat162 lo = __floats2bfloat162_rn(a[0], a[1]);
+          __nv_bfloat162 hi = __floats2bfloat162_rn(a[2], a[3]);
+          uint2 w;
+          w.x = *reinterpret_cast<uint32_t*>(&lo);
+          w.y = *reinterpret_cast<uint32_t*>(&hi);
+          *reinterpret_cast<uint2*>(dst) = w;
+        } else {
+          *reinterpret_cast<float4*>(dst) = make_float4(a[0], a[1], a[2], a[3]);
+        }
+      }
+    }
+    for (int s = 0; s < per; ++s) {
+      const int u = t * per + s;
+      if (u >= nsub) break;
+      const int nk = min(vk, P - u * vk);
+      mma3::cp_wait<0>();
+      __syncthreads();                    // v(u) and the attention are in
+      if (u + 1 < nsub) issue_v(u + 1);
+      if (nt <= 0) continue;
+      const T* vt = vs + (u & 1) * vstage + 8 * n0t;
+      if constexpr (sizeof(T) == 2) {
+        mma_rows2_bf16<NT>(acc, att + m0 * lda + s * vk, lda, vt, ldv, vk,
+                           nt, lane);
+      } else {
+        const View a = View{att + s * vk, lda, 1, QT};
+        mma3::warp_mma3<2, NT>(acc, {a, a}, {m0, m0 + 16}, 2,
+                               View{vt, 1, ldv, C - 8 * n0t}, 0, nk, nt);
+      }
     }
   }
 
-  // pass 2: the energies again, att = exp(e - max) / sum rounded to T,
-  // applied to the value tile; v and k a tile ahead
-  auto issue_v = [&](T* dst, int t) {
-    mma3::load_rows16(dst, ldv, v + static_cast<size_t>(t) * kKT * C, keys(t),
-                      nc, C, c0, kThreads);
-    mma3::cp_commit();
-  };
-  typename PamApply<T>::type prod;
-  prod.zero();
-  if (nkt > 1) {
-    fetch(0);
-    put(ks[0], 0);
-  }
-  issue_v(vs[0], 0);
-  for (int t = 0; t < nkt; ++t) {
-    const int nk = keys(t);
-    mma3::cp_wait<0>();
-    __syncthreads();                      // tile t is in; t - 1 is applied
-    if (t + 1 < nkt) {
-      issue_v(vs[(t + 1) & 1], t + 1);
-      fetch(t + 1);
-    }
-    if (nkt > 1) energies(ks[t & 1], nk);
+  // y[p, c] = g acc + x[p, c]
+  const size_t o = static_cast<size_t>(q0) * C;
+  const int g4 = lane >> 2, t2 = 2 * (lane & 3);
 #pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      const int row = warp + kWarps * i;
-      if (row >= nq) continue;
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int j = 0; j < kRN; ++j) {
-        const int col = lane + 32 * j;
-        store(att + row * lda + col,
-              col < nk ? expf(s[i][j] - mx[i]) / sum[i] : 0.f);
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nt) break;
+      const int col = 8 * (n0t + j) + t2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = m0 + 16 * mi + g4 + 8 * h;
+        if (p >= nq) continue;
+        const size_t at = o + static_cast<size_t>(p) * C + col;
+        const float y0 = acc[mi][j][2 * h], y1 = acc[mi][j][2 * h + 1];
+        if constexpr (sizeof(T) == 2) {
+          const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(x + at);
+          *reinterpret_cast<__nv_bfloat162*>(out + at) =
+              __floats2bfloat162_rn(g * y0 + __low2float(r),
+                                    g * y1 + __high2float(r));
+        } else {
+          const float2 r = *reinterpret_cast<const float2*>(x + at);
+          *reinterpret_cast<float2*>(out + at) =
+              make_float2(g * y0 + r.x, g * y1 + r.y);
+        }
       }
     }
-    if (sizeof(T) == 2 && nk % 16) {
-      // the bf16 product's K runs to a multiple of 16: keys past nk of
-      // the value tile are zero (their attention is)
-      uint4* z = reinterpret_cast<uint4*>(vs[t & 1] + nk * ldv);
-      const int n = (round16(nk) - nk) * ldv * static_cast<int>(sizeof(T)) / 16;
-      for (int i = tid; i < n; i += kThreads) z[i] = make_uint4(0u, 0u, 0u, 0u);
-    }
-    if (t + 1 < nkt) put(ks[(t + 1) & 1], t + 1);
-    __syncthreads();                      // att and the zeros are in
-    prod.add(att, lda, vs[t & 1], nc, nq, nk);
-  }
-  const size_t o = static_cast<size_t>(q0) * C;
-  prod.store(x + o, out + o, C, c0, nc, nq, g);
 }
 
 // ------------------------------------------------------- kernels
@@ -1109,33 +1208,18 @@ dual_attention_kernel(const T* __restrict__ xp, const T* __restrict__ q,
   }
 }
 
-// Items [0, C / 32) of a batch row do CAM, the rest PAM, one per query
-// tile (64 rows) and column range (pam_cols) of the row; block x is item
-// x + first (first = C / 32 launches the PAM blocks alone).
+// The wide kernel's CAM blocks: block (j, b) takes columns 32 j ..
+// 32 j + 31 of batch row b's CAM, the positions in tiles of tp rows.
 #define WIDE_PARAMS(T)                                                    \
-  const T *__restrict__ xp, const T *__restrict__ q,                      \
-      const T *__restrict__ k, const T *__restrict__ v,                   \
-      const T *__restrict__ gp, const T *__restrict__ xc,                 \
-      const T *__restrict__ gc, T *__restrict__ outp,                     \
-      T *__restrict__ outc, int P, int C, int D, int pam_cols, int tp,    \
-      int first
+  const T *__restrict__ xc, const T *__restrict__ gc,                     \
+      T *__restrict__ outc, int P, int C, int tp
 
 template <typename T, int MC>
-__device__ __forceinline__ void wide_row(WIDE_PARAMS(T)) {
+__device__ __forceinline__ void cam_row(WIDE_PARAMS(T)) {
   extern __shared__ __align__(16) unsigned char sm[];
-  const int groups = C / kGroup;
   const size_t ov = static_cast<size_t>(blockIdx.y) * P * C;
-  const size_t oq = static_cast<size_t>(blockIdx.y) * P * D;
-  const int item = blockIdx.x + first;
-  if (item < groups) {
-    cam_wide<T, MC>(xc + ov, to_f32(gc[0]), outc + ov, P, C, item * kGroup,
-                    tp, sm);
-  } else {
-    const int j = item - groups, ranges = C / pam_cols;
-    pam_wide<T>(xp + ov, q + oq, k + oq, v + ov, to_f32(gp[0]), outp + ov, P,
-                C, D, (j / ranges) * kQT, (j % ranges) * pam_cols, pam_cols,
-                sm);
-  }
+  cam_wide<T, MC>(xc + ov, to_f32(gc[0]), outc + ov, P, C,
+                  blockIdx.x * kGroup, tp, sm);
 }
 
 // Two blocks an SM (128 registers): with up to 207 registers one block
@@ -1144,29 +1228,32 @@ __device__ __forceinline__ void wide_row(WIDE_PARAMS(T)) {
 template <typename T, int MC>
 __global__ void __launch_bounds__(kThreads, 2)
 dual_attention_wide_kernel(WIDE_PARAMS(T)) {
-  wide_row<T, MC>(xp, q, k, v, gp, xc, gc, outp, outc, P, C, D, pam_cols, tp,
-                  first);
+  cam_row<T, MC>(xc, gc, outc, P, C, tp);
 }
 
 // The f32 kernel past C = 128: its CAM tile and gram rows (up to 198 KB)
 // hold an SM alone, so its registers are not capped.
 __global__ void __launch_bounds__(kThreads)
 dual_attention_wide_f32(WIDE_PARAMS(float)) {
-  wide_row<float, kMaxC>(xp, q, k, v, gp, xc, gc, outp, outc, P, C, D,
-                         pam_cols, tp, first);
+  cam_row<float, kMaxC>(xc, gc, outc, P, C, tp);
 }
 
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess) {
-      count = 1;
-    }
-  }
-  return count;
+// The wide kernel's PAM blocks, launched beside its CAM blocks
+// (fork.cuh): block (j, b) takes query tile j of batch row b over all C
+// columns. NT: the most n-tiles of a warp; 256 threads (two blocks an SM)
+// up to C = 256, 512 past it (one block an SM, 64 accumulators a thread).
+template <typename T, int NT, int NTH>
+__global__ void __launch_bounds__(NTH, NTH == kThreads ? 2 : 1)
+dual_attention_pam_tiles(const T* __restrict__ xp, const T* __restrict__ q,
+                         const T* __restrict__ k, const T* __restrict__ v,
+                         const T* __restrict__ gp, T* __restrict__ outp,
+                         int P, int C, int D) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const size_t ov = static_cast<size_t>(blockIdx.y) * P * C;
+  const size_t oq = static_cast<size_t>(blockIdx.y) * P * D;
+  pam_tiles<T, kTileQ, NT, NTH>(xp + ov, q + oq, k + oq, v + ov,
+                                to_f32(gp[0]), outp + ov, P, C, D,
+                                kTileQ * blockIdx.x, sm);
 }
 
 bool takes(int P, int C, int D) {
@@ -1176,16 +1263,16 @@ bool takes(int P, int C, int D) {
 
 bool narrow(int P, int C) { return P <= kNarrowP && C <= kNarrowC; }
 
-// When the CAM blocks alone would not fill the SMs twice over, PAM is
-// split into 32-column blocks as well, which recompute the attention but
-// shorten the row's longest block.
+// When the narrow kernel's CAM blocks alone would not fill the SMs twice
+// over, PAM is split into 32-column blocks as well, which recompute the
+// attention but shorten the row's longest block.
 bool few_blocks(int B, int C) {
-  return static_cast<long long>(B) * (C / kGroup) < 2LL * sm_count();
+  return static_cast<long long>(B) * (C / kGroup) < 2LL * fork2::sm_count();
 }
 
-// What a launch of B batch rows uses: the CAM tile rows, PAM's column
-// range and the dynamic shared memory of one block (the narrow kernel
-// reads only the last two).
+// What a launch of B batch rows uses: the narrow kernel's PAM column
+// range, or the wide kernel's CAM tile rows, and the dynamic shared memory
+// of one (CAM) block.
 struct Plan {
   int tp, pam_cols;
   size_t smem;
@@ -1194,26 +1281,15 @@ struct Plan {
 template <typename T>
 Plan plan(int B, int P, int C, int D) {
   Plan pl;
-  pl.tp = cam_bufs(P) > 1 ? tile_rows<T>(C) : P;
-  int nc = few_blocks(B, C) ? kGroup : C;
   if (narrow(P, C)) {
-    pl.pam_cols = nc;
+    pl.tp = P;
+    pl.pam_cols = few_blocks(B, C) ? kGroup : C;
     pl.smem = smem_bytes<T>(P, C, D);
-    return pl;
+  } else {
+    pl.tp = cam_bufs(P) > 1 ? tile_rows<T>(C) : P;
+    pl.pam_cols = C;
+    pl.smem = wide_cam_bytes<T>(P, pl.tp, C);
   }
-  // the wide kernel's PAM blocks hold at most kMaxNc value columns'
-  // accumulators, a range that divides C; past one query tile the query
-  // tiles give the blocks, and narrower ranges would only walk the keys
-  // again
-  if (P > kQT) nc = C;
-  if (nc > kMaxNc) {
-    nc = kMaxNc;
-    while (C % nc) nc -= kGroup;
-  }
-  pl.pam_cols = nc;
-  const size_t cam = wide_cam_bytes<T>(P, pl.tp, C);
-  const size_t pam = wide_pam_bytes<T>(D, nc);
-  pl.smem = cam > pam ? cam : pam;
   return pl;
 }
 
@@ -1225,12 +1301,11 @@ cudaError_t opt_in(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// sides: 1 the CAM blocks, 2 the PAM blocks, 3 both (the function).
+// The wide kernel's CAM launch on stream s: a block per 32 columns and
+// batch row, its registers sized by MC (the most columns).
 template <typename T, int MC>
-int launch_wide(const Plan& pl, const void* xp, const void* q, const void* k,
-                const void* v, const void* gp, const void* xc, const void* gc,
-                void* outp, void* outc, int B, int P, int C, int D, int sides,
-                void* stream) {
+int launch_cam(const Plan& pl, const void* xc, const void* gc, void* outc,
+               int B, int P, int C, cudaStream_t s) {
   void (*kernel)(WIDE_PARAMS(T));
   if constexpr (sizeof(T) == 4 && MC == kMaxC) {
     kernel = dual_attention_wide_f32;
@@ -1239,23 +1314,44 @@ int launch_wide(const Plan& pl, const void* xp, const void* q, const void* k,
   }
   const cudaError_t err = opt_in(kernel, pl.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int groups = C / kGroup;
-  const int pam = (P + kQT - 1) / kQT * (C / pl.pam_cols);
-  const int first = sides & 1 ? 0 : groups;
-  const int count = (sides & 1 ? groups : 0) + (sides & 2 ? pam : 0);
-  const dim3 grid(count, B);
-  kernel<<<grid, kThreads, pl.smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(C / kGroup, B), kThreads, pl.smem, s>>>(
+      static_cast<const T*>(xc), static_cast<const T*>(gc),
+      static_cast<T*>(outc), P, C, pl.tp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide kernel's PAM launch on stream s: a block per query tile and
+// batch row.
+template <typename T>
+int launch_tiles(const void* xp, const void* q, const void* k, const void* v,
+                 const void* gp, void* outp, int B, int P, int C, int D,
+                 cudaStream_t s) {
+  void (*kernel)(const T*, const T*, const T*, const T*, const T*, T*, int,
+                 int, int);
+  int threads = kThreads;
+  if (C <= kNarrowC) {
+    kernel = dual_attention_pam_tiles<T, 4, kThreads>;
+  } else if (C <= 256) {
+    kernel = dual_attention_pam_tiles<T, 8, kThreads>;
+  } else {
+    kernel = dual_attention_pam_tiles<T, 8, 2 * kThreads>;
+    threads = 2 * kThreads;
+  }
+  const size_t smem = tiles_bytes<T>(C, D);
+  const cudaError_t err = opt_in(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((P + kTileQ - 1) / kTileQ, B);
+  kernel<<<grid, threads, smem, s>>>(
       static_cast<const T*>(xp), static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(gp), static_cast<const T*>(xc),
-      static_cast<const T*>(gc), static_cast<T*>(outp),
-      static_cast<T*>(outc), P, C, D, pl.pam_cols, pl.tp, first);
+      static_cast<const T*>(gp), static_cast<T*>(outp), P, C, D);
   return static_cast<int>(cudaGetLastError());
 }
 
 // C <= 128 and P <= 64 (resnet18/34 at 144x256, the main path) run the
-// narrow kernel; a wider C or P the wide one, its registers sized by the
-// template picked here.
+// narrow kernel; a wider C or P the wide one: its PAM launch forked
+// beside its CAM launch (sides 1: the CAM launch alone, 2: the PAM launch
+// alone, 3: both).
 template <typename T>
 int launch(const void* xp, const void* q, const void* k, const void* v,
            const void* gp, const void* xc, const void* gc, void* outp,
@@ -1264,13 +1360,13 @@ int launch(const void* xp, const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Plan pl = plan<T>(B, P, C, D);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (narrow(P, C)) {
     if (sides != 3) return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t err = opt_in(dual_attention_kernel<T>, pl.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(C / kGroup + C / pl.pam_cols, B);
-    dual_attention_kernel<T><<<grid, kThreads, pl.smem,
-                               static_cast<cudaStream_t>(stream)>>>(
+    dual_attention_kernel<T><<<grid, kThreads, pl.smem, st>>>(
         static_cast<const T*>(xp), static_cast<const T*>(q),
         static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(gp), static_cast<const T*>(xc),
@@ -1278,11 +1374,27 @@ int launch(const void* xp, const void* q, const void* k, const void* v,
         static_cast<T*>(outc), P, C, D, pl.pam_cols);
     return static_cast<int>(cudaGetLastError());
   }
-  return C <= kNarrowC
-             ? launch_wide<T, kNarrowC>(pl, xp, q, k, v, gp, xc, gc, outp,
-                                        outc, B, P, C, D, sides, stream)
-             : launch_wide<T, kMaxC>(pl, xp, q, k, v, gp, xc, gc, outp, outc,
-                                     B, P, C, D, sides, stream);
+  // the PAM tiles beside the CAM blocks, joined back on every path once
+  // forked
+  fork2::Side* sd = nullptr;
+  cudaStream_t pst = st;
+  int err = 0;
+  if (sides == 3) {
+    err = static_cast<int>(fork2::fork(st, &sd));
+    if (err) return err;
+    pst = sd->stream;
+  }
+  if (sides & 2) err = launch_tiles<T>(xp, q, k, v, gp, outp, B, P, C, D, pst);
+  if (!err && (sides & 1)) {
+    err = C <= kNarrowC
+              ? launch_cam<T, kNarrowC>(pl, xc, gc, outc, B, P, C, st)
+              : launch_cam<T, kMaxC>(pl, xc, gc, outc, B, P, C, st);
+  }
+  if (sides == 3) {
+    const int joined = static_cast<int>(fork2::join(st, sd));
+    if (!err) err = joined;
+  }
+  return err;
 }
 
 }  // namespace
@@ -1327,6 +1439,10 @@ extern "C" int dual_attention_side(const void* xp, const void* q,
 extern "C" long long dual_attention_smem_bytes(int B, int P, int C, int D,
                                                int bf16_in) {
   if (!takes(P, C, D)) return -1;
-  return static_cast<long long>(bf16_in ? plan<bf16>(B, P, C, D).smem
-                                        : plan<float>(B, P, C, D).smem);
+  size_t b = bf16_in ? plan<bf16>(B, P, C, D).smem : plan<float>(B, P, C, D).smem;
+  if (!narrow(P, C)) {
+    const size_t t = bf16_in ? tiles_bytes<bf16>(C, D) : tiles_bytes<float>(C, D);
+    if (t > b) b = t;
+  }
+  return static_cast<long long>(b);
 }

@@ -87,6 +87,7 @@
 
 #include <atomic>
 
+#include "fork.cuh"
 #include "mma_tf32.cuh"
 
 namespace cg = cooperative_groups;
@@ -108,7 +109,6 @@ constexpr int kNarrowP = 64;
 constexpr int kNarrowD = 32;
 constexpr int kMaxC = 512;       // what the wide kernel takes (the wrapper's
 constexpr int kMaxD = 64;        // limits; any P)
-constexpr int kMaxRanks = 8;     // a portable cluster
 
 __device__ __forceinline__ void cp_wait_all() {
   mma3::cp_commit();
@@ -518,74 +518,93 @@ __device__ void pam_block(const float* __restrict__ q,
 // matrices beside v and dy. In this kernel no block's shared memory or
 // registers grow with P: positions, queries and keys all come in tiles
 // (16 or 32 positions), two tiles in flight (cp.async brings in the next
-// while the current one is multiplied, one barrier a tile). Per batch row
-// a cluster of S CAM ranks, S = C / 32 up to 8 (above C = 256 a rank
-// takes two 32-row groups, so that the cluster stays portable), and Sp
-// PAM ranks (Sp the largest divisor of S up to the number of query
-// tiles), S / Sp batch rows' PAM ranks to a cluster:
+// while the current one is multiplied, one barrier a tile). It is two
+// launches side by side (fork.cuh: the PAM launch on a second stream,
+// forked from the caller's and joined back), each with its own clusters,
+// shared memory and registers. Per batch row a cluster of S = C / 32 CAM
+// ranks (16 at C = 512, a non-portable cluster: one 32-row group a rank,
+// where two groups a rank in clusters of 8 cost 7 C^2 P a row against 5
+// and left the last of four waves a tenth full; a card that cannot hold a
+// cluster of 16 such blocks, 16 SMs of one GPC, runs C > 256 in portable
+// clusters of 8 ranks of up to two groups each: cam_ranks), and a cluster of Sp PAM
+// ranks (one per query tile, at most 8, and at most 1.5 blocks an SM over
+// the launch: pam_ranks):
 // - CAM rank r owns groups g = r, r + S, ... of Gram rows and of dx_c
-//   columns. Pass 1, per group: G[g, :] = x_g^T x and H[g, :] = dy_g^T x
-//   summed over the position tiles, in chunks of 128 columns (256 above
-//   C = 256), into the group's [32, C] G and H rows in shared memory; then
-//   each row's min mu_i (the softmax of rowmax(G) - G is exp(mu_i - G_ij)
-//   / S_i), S_i = sum_j exp(mu_i - G_ij) and W_i = sum_j H_ij
-//   exp(mu_i - G_ij), dot_i = gc W_i / S_i and the rank's share of dgc,
-//   sum_i W_i / S_i. Each rank stores (mu, 1 / S, dot) of its rows into
-//   every rank's shared memory (distributed shared memory: 3 C floats a
-//   rank). Pass 2, per group, the last first (its G and H are still in
-//   shared memory; a rank's other group computes them again): H[c, g]^T =
-//   x_g^T dy_c over the position tiles, and from it, G and H and every
-//   row's statistics, M = gc Bm[c, g] and N = dN[c, g] + dN[g, c]^T over
-//   G and H in place (as M^T and N^T); then per position tile and chunk
-//   of 128 channels, dx_c[p, g] = dy[p, g] + sum_c (dy[p, c] M[c, g] -
-//   x[p, c] N[c, g]), each warp a 16-channel slice of the chunk over the
-//   whole tile (eight independent sums, where one m16n8 tile a warp over
-//   all of C was a serial chain), the warps' sums added in warp order.
-//   That is 5 C^2 P multiply-adds a row (7 for a rank's first group
-//   above C = 256), as the narrow kernel's, for no [P, C] exchange.
+//   columns (one group but in clusters of 8 past C = 256). Pass 1, per group:
+//   G[g, :] = x_g^T x and H[g, :] = dy_g^T x summed over the position
+//   tiles, in chunks of 128 columns (256 above C = 256), into the group's
+//   [32, C] G and H rows in shared memory; then each row's min mu_i (the
+//   softmax of rowmax(G) - G is exp(mu_i - G_ij) / S_i), S_i = sum_j
+//   exp(mu_i - G_ij) and W_i = sum_j H_ij exp(mu_i - G_ij), dot_i = gc W_i
+//   / S_i and the rank's share of dgc, sum_i W_i / S_i. Each rank stores
+//   (mu, 1 / S, dot) of its rows into every rank's shared memory
+//   (distributed shared memory: 3 C floats a rank). Pass 2 (its G and H
+//   are still in shared memory): H[c, g]^T = x_g^T dy_c over the position
+//   tiles, and from it, G and H and every row's statistics, M = gc Bm[c,
+//   g] and N = dN[c, g] + dN[g, c]^T over G and H in place (as M^T and
+//   N^T); then per position tile and chunk of 128 channels, dx_c[p, g] =
+//   dy[p, g] + sum_c (dy[p, c] M[c, g] - x[p, c] N[c, g]), each warp a
+//   16-channel slice of the chunk over the whole tile (eight independent
+//   sums, where one m16n8 tile a warp over all of C was a serial chain),
+//   the warps' sums added in warp order. That is 5 C^2 P multiply-adds a
+//   row, as the narrow kernel's, for no [P, C] exchange.
 // - PAM rank r of a row takes query tiles Q = r, r + Sp, ... in phase 1,
 //   then key tiles K = Sp - 1 - r, 2 Sp - 1 - r, ... in phase 2 (so that
 //   a rank with one query tile more has one key tile less), the two
-//   phases split by
-//   a cluster barrier; A and dE go between them through a [B, 2, P, P']
-//   f32 scratch the wrapper allocates (P' = P rounded up to 4; 1.81 MB a
-//   row at P = 475). Phase 1, per query tile: over the key tiles, E = q_Q
-//   k_K^T and G = dy_Q v_K^T (dy and v in slabs of 128 channels), each
-//   row's running max m, sum l of exp(E - m) and sum of exp(E - m) G
-//   (whose quotient by l is D_i = sum_j A_ij G_ij, the flash-attention
-//   identity rowsum(dA * A)_i = gp D_i), E and G stored to the scratch;
-//   then over the key tiles again, A = exp(E - m) / l and dE = A (gp G -
-//   gp D_i) from the scratch (each thread reads back what it wrote), A
-//   and dE stored over E and G, and dq_Q += dE_QK k_K. Phase 2, per key
-//   tile: dk_K = sum_Q dE_QK^T q_Q and dv_K = gp sum_Q A_QK^T dy_Q (dy in
+//   phases split by a cluster barrier; A and dE go between them through a
+//   [B, 2, P, P'] f32 scratch the wrapper allocates (P' = P rounded up to
+//   4; 1.81 MB a row at P = 475). Phase 1, per query tile: over the key
+//   tiles, E = q_Q k_K^T and G = dy_Q v_K^T (dy and v in slabs of 128
+//   channels, or dy_Q kept whole for the query tile up to C = 128), and
+//   from the mma fragments each thread's running max, sum of exp(E - max)
+//   and sum of exp(E - max) G over the columns it holds, rescaled as its
+//   max rises (the row's statistics are formed once a query tile over its
+//   16 threads, not once a key tile), E and G from the fragments to the
+//   scratch;
+//   D_i = (sum of exp(E - m) G) / l = sum_j A_ij G_ij (the flash-attention
+//   identity rowsum(dA * A)_i = gp D_i); then over the key tiles again, A
+//   = exp(E - m) / l and dE = A (gp G - gp D_i) from the scratch, A and dE
+//   stored over E and G, and dq_Q += dE_QK k_K. Phase 2, per pair of key
+//   tiles: dk_K = sum_Q dE_QK^T q_Q and dv_K = gp sum_Q A_QK^T dy_Q (dy in
 //   slabs of 128 channels), read back from the scratch after the cluster
-//   barrier. The attention is still recomputed from the inputs, not
-//   saved by the forward; the scratch lives for this launch only.
+//   barrier, each fragment of dy and q feeding both key tiles. The
+//   attention is still recomputed from the inputs, not saved by the
+//   forward; the scratch lives for the call only.
 // Shared memory: 103 KB up to C = 256 (two blocks an SM), 226 KB at
-// C = 512 (one), whatever P. Gamma shares [2, B, S], one per rank.
-// Measured (H100 80GB HBM3, 700 W, B = 48, graphs of 200 calls): 0.556
-// ms at C = 512, P = 40, where the CAM clusters alone take 0.546 (one
-// block an SM, the 3xTF32 products at about a sixth of mma.sync's rate:
-// per-warp chains of small tiles); 0.178 ms at C = 128, P = 144, where
-// the PAM clusters alone take 0.121 (five query and five key tiles over
-// four ranks, the phases split by a barrier). The earlier wide kernel
-// took 0.540 and 0.174 on the same card, but refused P > 256.
+// C = 512 (one) for a CAM rank; at most 103 KB for a PAM rank (two),
+// whatever P. Gamma shares [2, B, R], R = max(S, 8), one per rank.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py --kernel-times,
+// graph ms at B = 48): P = 475 C = 128 0.8489, its PAM ranks setting the
+// pace (latency-bound: each rank's phases a serial chain of 32-key
+// tiles), C = 512 5.1211, its CAM clusters setting it (bound by the 5 C^2
+// P multiply-adds in 3xTF32); P = 144 0.1824; C = 512, P = 40 0.5413. The
+// sides alone and the rest: PERF.md (phase 3).
 
 constexpr int kTP = 32;          // queries or keys of a PAM tile
 constexpr int kKC = 128;         // channels of a dx_c chunk (CAM)
 constexpr int kCS = 128;         // channels of a dy and v slab (PAM)
+constexpr int kKG = 2;           // key tiles a PAM rank takes at once (phase 2)
+constexpr int kMaxPam = 8;       // PAM ranks of a row (a portable cluster)
+constexpr int kPortable = 8;     // the largest portable cluster
 
-__host__ __device__ inline int wide_ranks(int C) {
-  const int nc = C / kRows;
-  return nc <= kMaxRanks ? nc : (nc + 1) / 2;
-}
-// PAM ranks of a batch row: the largest divisor of S up to the number of
-// query tiles
-__host__ __device__ inline int pam_ranks(int P, int C) {
-  const int S = wide_ranks(C), nt = (P + kTP - 1) / kTP;
-  int sp = S;
-  while (sp > 1 && (S % sp || sp > nt)) --sp;
+// CAM ranks of a batch row: one per 32-row group (16 at C = 512, a
+// non-portable cluster)
+__host__ __device__ inline int wide_ranks(int C) { return C / kRows; }
+// PAM ranks of a batch row: one per query tile, at most kMaxPam, and no
+// more than B rows of them make `slots` blocks. A rank's phases are a
+// serial chain of tiles, so more ranks shorten the pass while the card has
+// room; the launch passes 1.5 blocks an SM, past which more ranks
+// lengthened the pass on an H100.
+inline int pam_ranks(int P, int B, int slots) {
+  const int nt = (P + kTP - 1) / kTP, fit = B > 0 ? slots / B : kMaxPam;
+  int sp = nt < kMaxPam ? nt : kMaxPam;
+  if (fit < sp) sp = fit > 1 ? fit : 1;
   return sp;
+}
+// gamma shares of a batch row in each of dgamma's two rows
+__host__ __device__ inline int wide_shares(int C) {
+  const int s = wide_ranks(C);
+  return s > kMaxPam ? s : kMaxPam;
 }
 __host__ __device__ inline int scratch_ld(int P) { return (P + 3) / 4 * 4; }
 // A CAM rank's chunk of Gram columns (128, 256 above C = 256: the
@@ -611,24 +630,24 @@ __host__ __device__ inline size_t cam_wide_floats(int C) {
   return 3 * static_cast<size_t>(C) + 2 * static_cast<size_t>(kRows) * ld4(C) +
          2 * static_cast<size_t>(cam_buf(C));
 }
-// A PAM rank: phase 1's q tile, two buffers (a [32, D] k tile and
-// [32, 128] slabs of dy and v) and E and G tiles; phase 2's two buffers
-// ([32, 32] tiles of A and dE, a [32, D] q tile, a [32, 128] slab of dy).
+// A PAM rank, phase 1: the q tile; up to C = 128 dy's rows of the query
+// tile (all C channels, kept for every key tile); two buffers, each a
+// [32, D] k tile and a [32, cs] slab of v and, past C = 128, one of dy;
+// the rows' statistics from each warp. Phase 2: two buffers, each [32,
+// 64] tiles of A and
+// dE (kKG key tiles), a [32, D] q tile and a [32, 128] slab of dy.
 __host__ __device__ inline int pam_p1_buf(int C, int D) {
   const int cs = C < kCS ? C : kCS;
-  return kTP * (ld4(D) + 2 * ld4(cs));
+  return kTP * (ld4(D) + (C <= kCS ? 1 : 2) * ld4(cs));
 }
 __host__ __device__ inline int pam_p2_buf(int D) {
-  return kTP * (2 * ld8(kTP) + ld8(D) + ld8(kCS));
+  return kTP * (2 * ld8(kKG * kTP) + ld8(D) + ld8(kCS));
 }
 __host__ __device__ inline size_t pam_wide_floats(int C, int D) {
-  const size_t p1 = kTP * ld4(D) + 2 * pam_p1_buf(C, D) + 2 * kTP * ld4(kTP);
+  const size_t p1 = kTP * ld4(D) + (C <= kCS ? kTP * ld4(C) : 0) +
+                    2 * pam_p1_buf(C, D) + kTP * ld4(kTP);
   const size_t p2 = 2 * static_cast<size_t>(pam_p2_buf(D));
   return p1 > p2 ? p1 : p2;
-}
-size_t wide_smem_bytes(int C, int D) {
-  const size_t a = cam_wide_floats(C), b = pam_wide_floats(C, D);
-  return (a > b ? a : b) * sizeof(float);
 }
 
 template <int R>
@@ -870,9 +889,7 @@ __device__ void cam_rank_wide(const float* __restrict__ x,
 }
 
 // PAM rank r of the S ranks of one batch row (see above); scr: this
-// row's [2][P][P'] scratch. q, k, dq, dk: [P, D]; v, dy, dv: [P, C]. A
-// rank of a row past the last (valid false) only takes part in the
-// cluster barrier.
+// row's [2][P][P'] scratch. q, k, dq, dk: [P, D]; v, dy, dv: [P, C].
 __device__ void pam_rank_wide(const float* __restrict__ q,
                               const float* __restrict__ k,
                               const float* __restrict__ v,
@@ -880,15 +897,15 @@ __device__ void pam_rank_wide(const float* __restrict__ q,
                               float* __restrict__ dq, float* __restrict__ dk,
                               float* __restrict__ dv, float* __restrict__ dg,
                               float* __restrict__ scr, int P, int C, int D,
-                              int r, int S, bool valid, float* sm,
-                              float* red) {
+                              int r, int S, float* sm, float* red) {
   constexpr int ldt = ld4(kTP);        // E, G and dE tiles
-  constexpr int ld2 = ld8(kTP);        // phase 2's A and dE tiles
+  constexpr int ld2 = ld8(kKG * kTP);  // phase 2's A and dE tiles
   constexpr int ldy = ld8(kCS);        // phase 2's dy slab
   constexpr int kR = kTP / kWarps;     // rows of a warp (statistics)
   const int ldq = ld4(D), ldq8 = ld8(D), cs = min(C, kCS), lds = ld4(cs);
   const int sp = scratch_ld(P), nt = (P + kTP - 1) / kTP;
   const int nsl = (C + cs - 1) / cs, nsl2 = (C + kCS - 1) / kCS;
+  const bool kept = C <= kCS;          // dy_Q kept for the query tile
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int m0 = 16 * (warp & 1), n0 = 8 * (warp >> 1);
   float* sa = scr;                     // [P][sp]: E, then A
@@ -898,36 +915,45 @@ __device__ void pam_rank_wide(const float* __restrict__ q,
 
   // phase 1, per query tile of this rank
   float* qs = sm;                      // [32][ldq]
-  float* b1[2] = {qs + kTP * ldq, qs + kTP * ldq + pam_p1_buf(C, D)};
-  float* te = qs + kTP * ldq + 2 * pam_p1_buf(C, D);   // [32][ldt]
-  float* tg = te + kTP * ldt;          // [32][ldt]
-  for (int qt = valid ? r : nt; qt < nt; qt += S) {
+  float* dyq = qs + kTP * ldq;         // [32][lds] when kept
+  float* b1[2] = {dyq + (kept ? kTP * lds : 0),
+                  dyq + (kept ? kTP * lds : 0) + pam_p1_buf(C, D)};
+  float* te = b1[0] + 2 * pam_p1_buf(C, D);   // the statistics' exchange
+  for (int qt = r; qt < nt; qt += S) {
     const int q0 = kTP * qt, nq = tile(qt);
-    // (a) items (key tile, slab of dy and v)
+    // (a) items (key tile, slab of v and, unless kept, of dy): a buffer
+    // holds the k tile, then the v slab, then the dy slab
     const int n = nt * nsl;
     auto issue = [&](int it) {
       const int kt = it / nsl, c0 = cs * (it % nsl), nk = tile(kt);
       float* kb = b1[it & 1];
-      if (it == 0) load_rows(qs, ldq, q + static_cast<size_t>(q0) * D, nq, D);
+      if (it == 0) {
+        load_rows(qs, ldq, q + static_cast<size_t>(q0) * D, nq, D);
+        if (kept) {
+          load_rows4(dyq, lds, dy + static_cast<size_t>(q0) * C, nq, C, C, 0);
+        }
+      }
       if (it % nsl == 0) {
         load_rows(kb, ldq, k + static_cast<size_t>(kt) * kTP * D, nk, D);
       }
-      load_rows4(kb + kTP * ldq, lds, dy + static_cast<size_t>(q0) * C, nq,
-                 min(cs, C - c0), C, c0);
-      load_rows4(kb + kTP * ldq + kTP * lds, lds,
-                 v + static_cast<size_t>(kt) * kTP * C, nk, min(cs, C - c0),
-                 C, c0);
+      load_rows4(kb + kTP * ldq, lds, v + static_cast<size_t>(kt) * kTP * C,
+                 nk, min(cs, C - c0), C, c0);
+      if (!kept) {
+        load_rows4(kb + kTP * ldq + kTP * lds, lds,
+                   dy + static_cast<size_t>(q0) * C, nq, min(cs, C - c0), C,
+                   c0);
+      }
       mma3::cp_commit();
     };
     float ae[1][1][4], ag[1][1][4];
     zero(ae);
     zero(ag);
-    float m[kR], l[kR], ds[kR];
-#pragma unroll
-    for (int rr = 0; rr < kR; ++rr) {
-      m[rr] = -INFINITY;
-      l[rr] = ds[rr] = 0.f;
-    }
+    // this thread's running max, sum of exp(E - max) and sum of exp(E -
+    // max) G over its columns (n0 + 2 t, n0 + 2 t + 1 of each key tile)
+    // of its two rows (m0 + g, m0 + g + 8), rescaled as its max rises
+    const int gq = lane >> 2, t2 = 2 * (lane & 3);
+    float tm[2] = {-INFINITY, -INFINITY}, tl[2] = {0.f, 0.f},
+          tw[2] = {0.f, 0.f};
     issue(0);
     for (int it = 0; it < n; ++it) {
       mma3::cp_wait<0>();
@@ -939,58 +965,89 @@ __device__ void pam_rank_wide(const float* __restrict__ q,
         warp_mma3(ae, {View{qs, ldq, 1, nq}}, {m0}, 1, View{kb, ldq, 1, nk},
                   n0, D);
       }
-      warp_mma3(ag, {View{kb + kTP * ldq, lds, 1, nq}}, {m0}, 1,
-                View{kb + kTP * ldq + kTP * lds, lds, 1, nk}, n0,
+      warp_mma3(ag, {View{kept ? dyq : kb + kTP * ldq + kTP * lds, lds, 1, nq}},
+                {m0}, 1, View{kb + kTP * ldq, lds, 1, nk}, n0,
                 min(cs, C - cs * sl));
       if (sl < nsl - 1) continue;
-      // the key tile's E and G are whole: the running statistics of each
-      // row (warp + 8 rr, its keys on the lanes), E and G to the scratch
-      store_tile(ae[0], m0, n0, kTP, kTP,
-                 [&](int i, int j, float e) { te[i * ldt + j] = e; });
-      store_tile(ag[0], m0, n0, kTP, kTP,
-                 [&](int i, int j, float e) { tg[i * ldt + j] = e; });
+      // the key tile's E and G are whole: the statistics of this thread's
+      // elements, and E and G to the scratch, straight from the fragments
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = m0 + gq + 8 * h, j = n0 + t2;
+        if (i >= nq) continue;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (j + c >= nk) continue;
+          const float e = ae[0][0][2 * h + c], gv = ag[0][0][2 * h + c];
+          if (e > tm[h]) {
+            const float scale = expf(tm[h] - e);   // 0 at the first
+            tl[h] = tl[h] * scale + 1.f;
+            tw[h] = tw[h] * scale + gv;
+            tm[h] = e;
+          } else {
+            const float p = expf(e - tm[h]);
+            tl[h] += p;
+            tw[h] = fmaf(p, gv, tw[h]);
+          }
+        }
+        const size_t o = static_cast<size_t>(q0 + i) * sp + k0 + j;
+        if (j + 1 < nk) {
+          __stcg(reinterpret_cast<float2*>(sa + o),
+                 make_float2(ae[0][0][2 * h], ae[0][0][2 * h + 1]));
+          __stcg(reinterpret_cast<float2*>(sb + o),
+                 make_float2(ag[0][0][2 * h], ag[0][0][2 * h + 1]));
+        } else if (j < nk) {
+          __stcg(sa + o, ae[0][0][2 * h]);
+          __stcg(sb + o, ag[0][0][2 * h]);
+        }
+      }
       zero(ae);
       zero(ag);
-      __syncthreads();
-      float cm[kR], e[kR], gv[kR], ps[kR], pg[kR];
+    }
+    // each row's max, sum l and D = w / l (sum_j A_ij G_ij): the 4 lanes
+    // of a row in the fragment, then the 4 warps of its m-tile through
+    // shared memory (te), then into the rows of (b)'s layout (warp + 8 rr)
+    float* part = te;                  // [4 n-groups][32 rows][3]
 #pragma unroll
-      for (int rr = 0; rr < kR; ++rr) {
-        const int i = warp + kWarps * rr;
-        e[rr] = te[i * ldt + lane];
-        gv[rr] = tg[i * ldt + lane];
-        if (i < nq && lane < nk) {
-          const size_t o = static_cast<size_t>(q0 + i) * sp + k0 + lane;
-          __stcg(sa + o, e[rr]);
-          __stcg(sb + o, gv[rr]);
-        }
-        cm[rr] = i >= nq ? 0.f : lane < nk ? e[rr] : -INFINITY;
+    for (int h = 0; h < 2; ++h) {
+      float mm = tm[h];
+      for (int o = 1; o < 4; o <<= 1) {
+        mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, o));
       }
-      warp_max_n(cm);
-#pragma unroll
-      for (int rr = 0; rr < kR; ++rr) {
-        const float nm = fmaxf(m[rr], cm[rr]);
-        const float scale = expf(m[rr] - nm);    // 0 on the first tile
-        const float p = lane < nk ? expf(e[rr] - nm) : 0.f;
-        ps[rr] = p;
-        pg[rr] = p * gv[rr];
-        l[rr] *= scale;
-        ds[rr] *= scale;
-        m[rr] = nm;
+      const float f = tm[h] == -INFINITY ? 0.f : expf(tm[h] - mm);
+      float ll = tl[h] * f, ww = tw[h] * f;
+      for (int o = 1; o < 4; o <<= 1) {
+        ll += __shfl_xor_sync(0xffffffffu, ll, o);
+        ww += __shfl_xor_sync(0xffffffffu, ww, o);
       }
-      warp_sum_n(ps);
-      warp_sum_n(pg);
-#pragma unroll
-      for (int rr = 0; rr < kR; ++rr) {
-        l[rr] += ps[rr];
-        ds[rr] += pg[rr];
+      if ((lane & 3) == 0) {
+        float* pp = part + ((warp >> 1) * kTP + m0 + gq + 8 * h) * 3;
+        pp[0] = mm;
+        pp[1] = ll;
+        pp[2] = ww;
       }
     }
-    // D_i = sum_j A_ij G_ij; this rank's share of dgp is their sum
-    float dd[kR];
+    __syncthreads();
+    float m[kR], l[kR], dd[kR];
 #pragma unroll
     for (int rr = 0; rr < kR; ++rr) {
-      dd[rr] = ds[rr] / l[rr];
-      if (lane == 0 && warp + kWarps * rr < nq) dg_part += dd[rr];
+      const int i = warp + kWarps * rr;
+      float mm = -INFINITY;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mm = fmaxf(mm, part[(q * kTP + i) * 3]);
+      float ll = 0.f, ww = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float* pp = part + (q * kTP + i) * 3;
+        const float f = pp[0] == -INFINITY ? 0.f : expf(pp[0] - mm);
+        ll = fmaf(pp[1], f, ll);
+        ww = fmaf(pp[2], f, ww);
+      }
+      m[rr] = mm;
+      l[rr] = ll;
+      // D_i = sum_j A_ij G_ij; this rank's share of dgp is their sum
+      dd[rr] = i < nq ? ww / ll : 0.f;
+      if (lane == 0 && i < nq) dg_part += dd[rr];
     }
 
     // (b) per key tile: A and dE over E and G in the scratch, dq_Q +=
@@ -1062,24 +1119,35 @@ __device__ void pam_rank_wide(const float* __restrict__ q,
   cluster_arrive();
   cluster_wait();
 
-  // phase 2, per key tile of this rank; items (key tile, slab, query tile)
+  // phase 2, per group of kKG key tiles of this rank; items (group, slab,
+  // query tile)
   {
     float* b2[2] = {sm, sm + pam_p2_buf(D)};
     // key tiles K = S - 1 - r, 2 S - 1 - r, ...: the ranks that took one
     // query tile more take one key tile less
     const int r2 = S - 1 - r;
-    const int nkr = valid && r2 < nt ? (nt - r2 + S - 1) / S : 0;
-    const int per = nsl2 * nt, n = nkr * per;
+    const int nkr = r2 < nt ? (nt - r2 + S - 1) / S : 0;
+    const int ngr = (nkr + kKG - 1) / kKG;
+    const int per = nsl2 * nt, n = ngr * per;
+    auto ktile = [&](int gi, int j) { return r2 + S * (kKG * gi + j); };
+    auto tiles_in = [&](int gi) { return min(kKG, nkr - kKG * gi); };
+    // a buffer: A [32 q][ld2] (key tile j at column 32 j), dE likewise, the
+    // q tile, the dy slab
     auto issue = [&](int it) {
-      const int kt = r2 + S * (it / per), sl = it % per / nt, qt = it % nt;
-      const int k0 = kTP * kt, nk = tile(kt), q0 = kTP * qt, nq = tile(qt);
-      const int c0 = kCS * sl;
+      const int gi = it / per, sl = it % per / nt, qt = it % nt;
+      const int q0 = kTP * qt, nq = tile(qt), c0 = kCS * sl;
       float* b = b2[it & 1];
-      const int kw = (nk + 3) / 4 * 4;
-      load_rows4(b, ld2, sa + static_cast<size_t>(q0) * sp, nq, kw, sp, k0);
-      if (sl == 0) {
-        load_rows4(b + kTP * ld2, ld2, sb + static_cast<size_t>(q0) * sp, nq,
+      for (int j = 0; j < tiles_in(gi); ++j) {
+        const int kt = ktile(gi, j), k0 = kTP * kt;
+        const int kw = (tile(kt) + 3) / 4 * 4;
+        load_rows4(b + kTP * j, ld2, sa + static_cast<size_t>(q0) * sp, nq,
                    kw, sp, k0);
+        if (sl == 0) {
+          load_rows4(b + kTP * ld2 + kTP * j, ld2,
+                     sb + static_cast<size_t>(q0) * sp, nq, kw, sp, k0);
+        }
+      }
+      if (sl == 0) {
         load_rows(b + 2 * kTP * ld2, ldq8, q + static_cast<size_t>(q0) * D,
                   nq, D);
       }
@@ -1088,7 +1156,7 @@ __device__ void pam_rank_wide(const float* __restrict__ q,
                  c0);
       mma3::cp_commit();
     };
-    float av[1][4][4], ak[1][2][4];
+    float av[kKG][4][4], ak[kKG][2][4];
     zero(av);
     zero(ak);
     const int nv0 = 32 * (warp >> 1), nd0 = 16 * (warp >> 1);
@@ -1098,38 +1166,50 @@ __device__ void pam_rank_wide(const float* __restrict__ q,
       mma3::cp_wait<0>();
       __syncthreads();                 // item it is in; it - 1 is done
       if (it + 1 < n) issue(it + 1);
-      const int kt = r2 + S * (it / per), sl = it % per / nt, qt = it % nt;
-      const int k0 = kTP * kt, nk = tile(kt), nq = tile(qt), c0 = kCS * sl;
-      const int cw = min(kCS, C - c0);
-      const int ntv = min(4, max(0, (cw - nv0) / 8));
+      const int gi = it / per, sl = it % per / nt, qt = it % nt;
+      const int nq = tile(qt), c0 = kCS * sl, cw = min(kCS, C - c0);
+      const int ntv = min(4, max(0, (cw - nv0) / 8)), mt = tiles_in(gi);
       const float* b = b2[it & 1];
-      // dv_K[:, slab] += A_QK^T dy_Q, dk_K += dE_QK^T q_Q (slab 0)
+      // dv_K[:, slab] += A_QK^T dy_Q, dk_K += dE_QK^T q_Q (slab 0), the
+      // group's key tiles sharing each fragment of dy and q
+      View va[kKG], ve[kKG];
+      int mm0[kKG];
+#pragma unroll
+      for (int j = 0; j < kKG; ++j) {
+        const int nk = j < mt ? tile(ktile(gi, j)) : 1;
+        va[j] = View{b + kTP * j, 1, ld2, nk};
+        ve[j] = View{b + kTP * ld2 + kTP * j, 1, ld2, nk};
+        mm0[j] = m0;
+      }
       if (ntv > 0) {
-        warp_mma3(av, {View{b, 1, ld2, nk}}, {m0}, 1,
+        warp_mma3(av, va, mm0, mt,
                   View{b + 2 * kTP * ld2 + kTP * ldq8, 1, ldy, cw}, nv0, nq,
                   ntv);
       }
       if (sl == 0 && ntd > 0) {
-        warp_mma3(ak, {View{b + kTP * ld2, 1, ld2, nk}}, {m0}, 1,
-                  View{b + 2 * kTP * ld2, 1, ldq8, D}, nd0, nq, ntd);
+        warp_mma3(ak, ve, mm0, mt, View{b + 2 * kTP * ld2, 1, ldq8, D}, nd0,
+                  nq, ntd);
       }
       if (qt < nt - 1) continue;
-      store_tile(av[0], m0, nv0, nk, min(cw, nv0 + 32),
-                 [&](int i, int c, float s) {
-                   dv[static_cast<size_t>(k0 + i) * C + c0 + c] = g * s;
-                 });
-      zero(av);
-      if (sl == 0) {
-        store_tile(ak[0], m0, nd0, nk, min(D, nd0 + 16),
-                   [&](int i, int d, float s) {
-                     dk[static_cast<size_t>(k0 + i) * D + d] = s;
+      for (int j = 0; j < mt; ++j) {
+        const int k0 = kTP * ktile(gi, j), nk = tile(ktile(gi, j));
+        store_tile(av[j], m0, nv0, nk, min(cw, nv0 + 32),
+                   [&](int i, int c, float s) {
+                     dv[static_cast<size_t>(k0 + i) * C + c0 + c] = g * s;
                    });
-        zero(ak);
+        if (sl == 0) {
+          store_tile(ak[j], m0, nd0, nk, min(D, nd0 + 16),
+                     [&](int i, int d, float s) {
+                       dk[static_cast<size_t>(k0 + i) * D + d] = s;
+                     });
+        }
       }
+      zero(av);
+      if (sl == 0) zero(ak);
     }
   }
   const float total = block_sum(dg_part, red);
-  if (valid && threadIdx.x == 0) *dg = total;
+  if (threadIdx.x == 0) *dg = total;
 }
 
 // ------------------------------------------------------- kernels
@@ -1173,51 +1253,14 @@ dual_attention_bwd_kernel(const float* __restrict__ q,
 }
 
 
-// Block (x, y), y < R = ceil(B Sp / S): PAM rank x % Sp of batch row
-// y S / Sp + x / Sp, Sp = pam_ranks(P, C); y >= R: CAM rank x of batch
-// row y - R; clusters of S = wide_ranks(C) blocks. The PAM rows come
-// first: past one query tile they are the longer, and blocks start in
-// row order. scratch: [B, 2, P,
-// scratch_ld(P)] f32 for the PAM ranks. dgamma: [2, B, S]; [0, b, r] PAM
-// rank r's share (zeros past Sp), [1, b, r] CAM rank r's.
-template <int kCW>
-__device__ __forceinline__ void wide_block(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ gp,
-    const float* __restrict__ xc, const float* __restrict__ gc,
-    const float* __restrict__ dyp, const float* __restrict__ dyc,
-    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-    float* __restrict__ dxc, float* __restrict__ dgamma,
-    float* __restrict__ scratch, int B, int P, int C, int D, int y0) {
-  extern __shared__ __align__(16) float sm[];
-  __shared__ float red[kWarps];
-  const int S = wide_ranks(C), sp = pam_ranks(P, C);
-  const int pam_rows = (B + S / sp - 1) / (S / sp);
-  const int y = blockIdx.y + y0;
-  if (y >= pam_rows) {
-    const int b = y - pam_rows, rank = blockIdx.x;
-    const size_t ov = static_cast<size_t>(b) * P * C;
-    cam_rank_wide<kCW>(xc + ov, dyc + ov, gc[0], dxc + ov,
-                       dgamma + static_cast<size_t>(B + b) * S + rank, P, C,
-                       rank, S, sm, red);
-    return;
-  }
-  const int rank = blockIdx.x % sp;
-  const int b = y * (S / sp) + blockIdx.x / sp;
-  const bool valid = b < B;
-  const int bb = valid ? b : 0;
-  const size_t ov = static_cast<size_t>(bb) * P * C;
-  const size_t oq = static_cast<size_t>(bb) * P * D;
-  float* share = dgamma + static_cast<size_t>(bb) * S;
-  if (valid && rank == 0 && threadIdx.x >= sp && threadIdx.x < S) {
-    share[threadIdx.x] = 0.f;
-  }
-  pam_rank_wide(q + oq, k + oq, v + ov, dyp + ov, gp[0], dq + oq, dk + oq,
-                dv + ov, share + rank,
-                scratch + static_cast<size_t>(bb) * 2 * P * scratch_ld(P), P,
-                C, D, rank, sp, valid, sm, red);
-}
-
+// The wide kernel is two launches, each with its own clusters, shared
+// memory and registers, which run side by side (fork.cuh): the PAM
+// ranks, block (r, b) PAM rank r of batch row b in clusters of Sp =
+// pam_ranks(P); the CAM ranks, block (r, b) CAM rank r of batch row b in
+// clusters of S = wide_ranks(C). scratch: [B, 2, P, scratch_ld(P)] f32 for the PAM ranks.
+// dgamma: [2, B, R], R = wide_shares(C); [0, b, r] PAM rank r's share,
+// [1, b, r] CAM rank r's, zeros past Sp and S (written by each side's
+// rank 0).
 #define WIDE_BWD_PARAMS                                                     \
   const float *__restrict__ q, const float *__restrict__ k,                 \
       const float *__restrict__ v, const float *__restrict__ gp,            \
@@ -1225,23 +1268,54 @@ __device__ __forceinline__ void wide_block(
       const float *__restrict__ dyp, const float *__restrict__ dyc,         \
       float *__restrict__ dq, float *__restrict__ dk, float *__restrict__ dv, \
       float *__restrict__ dxc, float *__restrict__ dgamma,                  \
-      float *__restrict__ scratch, int B, int P, int C, int D, int y0
+      float *__restrict__ scratch, int B, int P, int C, int D
+
+template <int kCW>
+__device__ __forceinline__ void cam_block_wide(WIDE_BWD_PARAMS) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float red[kWarps];
+  const int S = gridDim.x, R = wide_shares(C);   // S: cam_ranks
+  const int b = blockIdx.y, rank = blockIdx.x;
+  const size_t ov = static_cast<size_t>(b) * P * C;
+  float* share = dgamma + static_cast<size_t>(B + b) * R;
+  if (rank == 0 && threadIdx.x >= S && threadIdx.x < R) share[threadIdx.x] = 0.f;
+  cam_rank_wide<kCW>(xc + ov, dyc + ov, gc[0], dxc + ov, share + rank, P, C,
+                     rank, S, sm, red);
+}
 
 // Up to C = 256: two blocks an SM (128 registers, 103 KB). An earlier wide
 // kernel at one block an SM (178 registers) held only 15 clusters of 8 at
 // once and took 0.795 ms against 0.535 at B = 48, C = 512 (H100 80GB
 // HBM3, 700 W).
 __global__ void __launch_bounds__(kThreads, 2)
-dual_attention_bwd_wide_kernel(WIDE_BWD_PARAMS) {
-  wide_block<128>(q, k, v, gp, xc, gc, dyp, dyc, dq, dk, dv, dxc, dgamma,
-                  scratch, B, P, C, D, y0);
+dual_attention_bwd_wide_cam(WIDE_BWD_PARAMS) {
+  cam_block_wide<128>(q, k, v, gp, xc, gc, dyp, dyc, dq, dk, dv, dxc, dgamma,
+                      scratch, B, P, C, D);
 }
 // Past C = 256: the G and H rows (132 KB at C = 512) hold an SM alone, so
-// the registers are not capped and the Gram chunks are 256 columns.
+// the registers are not capped and the Gram chunks are 256 columns; one
+// 32-row group a rank, in clusters of up to 16 (non-portable), or two
+// groups a rank in clusters of 8 (cam_ranks).
 __global__ void __launch_bounds__(kThreads)
-dual_attention_bwd_wide_c512(WIDE_BWD_PARAMS) {
-  wide_block<256>(q, k, v, gp, xc, gc, dyp, dyc, dq, dk, dv, dxc, dgamma,
-                  scratch, B, P, C, D, y0);
+dual_attention_bwd_wide_cam512(WIDE_BWD_PARAMS) {
+  cam_block_wide<256>(q, k, v, gp, xc, gc, dyp, dyc, dq, dk, dv, dxc, dgamma,
+                      scratch, B, P, C, D);
+}
+// The PAM ranks: two blocks an SM (at most 103 KB).
+__global__ void __launch_bounds__(kThreads, 2)
+dual_attention_bwd_wide_pam(WIDE_BWD_PARAMS) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float red[kWarps];
+  const int sp = gridDim.x, R = wide_shares(C);   // sp: pam_ranks
+  const int b = blockIdx.y, rank = blockIdx.x;
+  const size_t ov = static_cast<size_t>(b) * P * C;
+  const size_t oq = static_cast<size_t>(b) * P * D;
+  float* share = dgamma + static_cast<size_t>(b) * R;
+  if (rank == 0 && threadIdx.x >= sp && threadIdx.x < R) share[threadIdx.x] = 0.f;
+  pam_rank_wide(q + oq, k + oq, v + ov, dyp + ov, gp[0], dq + oq, dk + oq,
+                dv + ov, share + rank,
+                scratch + static_cast<size_t>(b) * 2 * P * scratch_ld(P), P, C,
+                D, rank, sp, sm, red);
 }
 
 bool narrow(int P, int C, int D) {
@@ -1253,20 +1327,36 @@ bool takes(int P, int C, int D) {
          D <= kMaxD;
 }
 
-int cluster_size(int P, int C, int D) {
-  return narrow(P, C, D) ? C / kRows : wide_ranks(C);
+size_t cam_smem(int C) { return cam_wide_floats(C) * sizeof(float); }
+size_t pam_smem(int C, int D) { return pam_wide_floats(C, D) * sizeof(float); }
+
+// A launch of `rows` grid rows of `size` blocks, in clusters of `size`,
+// with `smem` bytes of dynamic shared memory a block.
+void configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int size,
+               int rows, size_t smem, cudaStream_t stream) {
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(size, rows, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = size;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
 }
 
-// The wide kernel for C.
-const void* wide_kernel(int C) {
-  return C > 256 ? reinterpret_cast<const void*>(dual_attention_bwd_wide_c512)
-                 : reinterpret_cast<const void*>(dual_attention_bwd_wide_kernel);
-}
+// Devices that can hold a cluster of 16 C = 512 CAM ranks (bit dev & 63),
+// found by opt_in_smem.
+std::atomic<unsigned long long> holds16{0};
 
 // Opts the kernels in to the dynamic shared memory of the largest shape
-// each takes and to the largest shared-memory carveout, once per device
-// (the attributes are the device's, so later launches there skip the host
-// calls).
+// each takes, to the largest shared-memory carveout and (the CAM kernel
+// past C = 256) to clusters of 16, and asks whether the device can hold
+// one such cluster at C = 512 (16 blocks of 226 KB: 16 SMs of one GPC),
+// once per device (the attributes are the device's, so later launches
+// there skip the host calls).
 cudaError_t opt_in_smem() {
   static std::atomic<unsigned long long> done{0};
   int dev = 0;
@@ -1274,17 +1364,20 @@ cudaError_t opt_in_smem() {
   if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (dev & 63);
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  const size_t w128 = wide_smem_bytes(128, kMaxD), w256 = wide_smem_bytes(256, kMaxD);
+  const size_t c128 = cam_smem(128), c256 = cam_smem(256);
+  const size_t p128 = pam_smem(128, kMaxD), p512 = pam_smem(kMaxC, kMaxD);
   const struct {
     const void* kernel;
     size_t smem;
-  } all[3] = {
+  } all[4] = {
       {reinterpret_cast<const void*>(dual_attention_bwd_kernel),
        smem_bytes(kNarrowP, kNarrowC, kNarrowD)},
-      {reinterpret_cast<const void*>(dual_attention_bwd_wide_kernel),
-       w128 > w256 ? w128 : w256},
-      {reinterpret_cast<const void*>(dual_attention_bwd_wide_c512),
-       wide_smem_bytes(kMaxC, kMaxD)}};
+      {reinterpret_cast<const void*>(dual_attention_bwd_wide_cam),
+       c128 > c256 ? c128 : c256},
+      {reinterpret_cast<const void*>(dual_attention_bwd_wide_cam512),
+       cam_smem(kMaxC)},
+      {reinterpret_cast<const void*>(dual_attention_bwd_wide_pam),
+       p128 > p512 ? p128 : p512}};
   for (const auto& a : all) {
     if (err == cudaSuccess) {
       err = cudaFuncSetAttribute(a.kernel,
@@ -1297,36 +1390,48 @@ cudaError_t opt_in_smem() {
                                  cudaSharedmemCarveoutMaxShared);
     }
   }
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(dual_attention_bwd_wide_cam512),
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  configure(cfg, attr, wide_ranks(kMaxC), 1, cam_smem(kMaxC), nullptr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(
+          &n, reinterpret_cast<const void*>(dual_attention_bwd_wide_cam512),
+          &cfg) != cudaSuccess) {
+    n = 0;
+    cudaGetLastError();                // a size the device refuses: 8
+  }
+  if (n > 0) holds16.fetch_or(bit, std::memory_order_release);
+  done.fetch_or(bit, std::memory_order_release);
+  return cudaSuccess;
 }
 
-// The launch of B batch rows in clusters of (S, 1, 1), S =
-// cluster_size(P, C, D): the first kernel's grid of (S, B + ceil(B / S))
-// blocks, the wide kernel's of (S, ceil(B Sp / S) + B), Sp = pam_ranks;
-// sides 1 launches the wide kernel's CAM rows alone, 2 its PAM rows (the
-// returned y0 is the first row's index), 3 both.
-int configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B,
-              int P, int C, int D, cudaStream_t stream, int sides = 3) {
-  const int size = cluster_size(P, C, D);
-  const bool first = narrow(P, C, D);
-  const int rows = first ? size : size / pam_ranks(P, C);
-  const int pam = (B + rows - 1) / rows;
-  cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3(size, (sides & 1 ? B : 0) + (sides & 2 ? pam : 0), 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = first ? smem_bytes(P, C, D) : wide_smem_bytes(C, D);
-  cfg.stream = stream;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = size;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return sides == 1 ? pam : 0;         // the wide kernel's first row
+// CAM ranks of a batch row of the wide kernel (after opt_in_smem): one
+// per 32-row group where the device holds such clusters, else (past C =
+// 256, or `portable`) portable clusters of 8.
+int cam_ranks(int C, bool portable) {
+  int dev = 0;
+  const bool big = !portable && cudaGetDevice(&dev) == cudaSuccess &&
+                   (holds16.load(std::memory_order_acquire) >> (dev & 63) & 1);
+  const int s = wide_ranks(C);
+  return s > kPortable && !big ? kPortable : s;
 }
 
-// One launch of the backward; sides as in configure (the wide kernel).
+// Blocks in one CAM cluster of a launch (after opt_in_smem).
+int cluster_size(int P, int C, int D) {
+  return narrow(P, C, D) ? C / kRows : cam_ranks(C, false);
+}
+
+// One launch of the backward: the first kernel's grid of (S, B +
+// ceil(B / S)) blocks in clusters of S = C / 32, or the wide kernel's two
+// launches (sides 1: the CAM ranks alone, 2: the PAM ranks alone, 3: both;
+// | 4: the CAM ranks in portable clusters of 8 past C = 256, the layout of
+// a card that cannot hold 16).
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* gamma_pam, const void* x_cam,
                    const void* gamma_cam, const void* dy_pam,
@@ -1335,46 +1440,73 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int C, int D, int sides, void* stream) {
   cudaError_t err = opt_in_smem();
   if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  const int y0 =
-      configure(cfg, attr, B, P, C, D, static_cast<cudaStream_t>(stream), sides);
-  const float* args[8] = {
+  const float* in[8] = {
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(gamma_pam),
       static_cast<const float*>(x_cam), static_cast<const float*>(gamma_cam),
       static_cast<const float*>(dy_pam), static_cast<const float*>(dy_cam)};
+  float* out[6] = {static_cast<float*>(dq), static_cast<float*>(dk),
+                   static_cast<float*>(dv), static_cast<float*>(dx_cam),
+                   static_cast<float*>(dgamma), static_cast<float*>(scratch)};
   if (narrow(P, C, D)) {
-    return cudaLaunchKernelEx(
-        &cfg, dual_attention_bwd_kernel, args[0], args[1], args[2], args[3],
-        args[4], args[5], args[6], args[7], static_cast<float*>(dq),
-        static_cast<float*>(dk), static_cast<float*>(dv),
-        static_cast<float*>(dx_cam), static_cast<float*>(dgamma), B, P, C, D);
+    const int size = C / kRows;
+    configure(cfg, attr, size, B + (B + size - 1) / size, smem_bytes(P, C, D),
+              st);
+    return cudaLaunchKernelEx(&cfg, dual_attention_bwd_kernel, in[0], in[1],
+                              in[2], in[3], in[4], in[5], in[6], in[7],
+                              out[0], out[1], out[2], out[3], out[4], B, P, C,
+                              D);
   }
-  return cudaLaunchKernelEx(
-      &cfg,
-      C > 256 ? dual_attention_bwd_wide_c512 : dual_attention_bwd_wide_kernel,
-      args[0], args[1], args[2], args[3], args[4], args[5], args[6], args[7],
-      static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), static_cast<float*>(dx_cam),
-      static_cast<float*>(dgamma), static_cast<float*>(scratch), B, P, C, D,
-      y0);
+  // both sides: the PAM launch beside the CAM launch (fork.cuh), joined
+  // back on every path once forked
+  const bool both = (sides & 3) == 3;
+  fork2::Side* sd = nullptr;
+  cudaStream_t pst = st;
+  if (both) {
+    err = fork2::fork(st, &sd);
+    if (err != cudaSuccess) return err;
+    pst = sd->stream;
+  }
+  if (sides & 2) {
+    configure(cfg, attr, pam_ranks(P, B, 3 * fork2::sm_count() / 2), B,
+              pam_smem(C, D), pst);
+    err = cudaLaunchKernelEx(&cfg, dual_attention_bwd_wide_pam, in[0], in[1],
+                             in[2], in[3], in[4], in[5], in[6], in[7], out[0],
+                             out[1], out[2], out[3], out[4], out[5], B, P, C,
+                             D);
+  }
+  if (err == cudaSuccess && (sides & 1)) {
+    configure(cfg, attr, cam_ranks(C, sides & 4), B, cam_smem(C), st);
+    err = cudaLaunchKernelEx(
+        &cfg,
+        C > 256 ? dual_attention_bwd_wide_cam512 : dual_attention_bwd_wide_cam,
+        in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], out[0],
+        out[1], out[2], out[3], out[4], out[5], B, P, C, D);
+  }
+  if (both) {
+    const cudaError_t joined = fork2::join(st, sd);
+    if (err == cudaSuccess) err = joined;
+  }
+  return err;
 }
 
 }  // namespace
 
 // q, k, dq, dk: [B, P, D]; v, x_cam, dy_pam, dy_cam, dv, dx_cam: [B, P, C];
 // gamma_pam, gamma_cam: [1]; all f32, contiguous, on the device; v, x_cam,
-// dy_pam, dy_cam and dx_cam 16-byte aligned. dgamma: [2, B * S] f32,
-// S = dual_attention_bwd_cluster_size(P, C, D); row 0 gets the PAM
-// shares of dgamma_pam (the first kernel: one a batch row, then S - 1
-// zeros; the wide one: one a PAM rank, then zeros), row 1 each CAM
-// rank's share of
-// dgamma_cam, so that one sum over the last axis gives both. scratch:
-// [B, 2, P, (P + 3) / 4 * 4] f32, 16-byte aligned, read only by the wide
-// kernel (P > 64, C > 128 or D > 32). P >= 1, C a multiple of 32 up to
-// 512, 1 <= D <= 64 (the wrapper checks). Returns cudaGetLastError() (or
-// the error of the shared-memory opt-in or of the launch).
+// dy_pam, dy_cam and dx_cam 16-byte aligned. dgamma: [2, B * R] f32,
+// R = dual_attention_bwd_shares(P, C, D); row 0 gets the PAM shares of
+// dgamma_pam (the first kernel: one a batch row, then R - 1 zeros; the
+// wide one: one a PAM rank, then zeros), row 1 each CAM rank's share of
+// dgamma_cam (then zeros), so that one sum over the last axis gives both.
+// scratch: [B, 2, P, (P + 3) / 4 * 4] f32, 16-byte aligned, read only by
+// the wide kernel (P > 64, C > 128 or D > 32). P >= 1, C a multiple of 32
+// up to 512, 1 <= D <= 64 (the wrapper checks). Returns
+// cudaGetLastError() (or the error of the shared-memory opt-in or of a
+// launch).
 extern "C" int dual_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* gamma_pam,
     const void* x_cam, const void* gamma_cam, const void* dy_pam,
@@ -1391,7 +1523,9 @@ extern "C" int dual_attention_bwd_f32(
 // One side of the wide kernel alone (sides 1: the CAM clusters, 2: the
 // PAM clusters), the arguments as dual_attention_bwd_f32's, which
 // chip_smoke.py times to see which side sets a shape's pace; the other
-// side's outputs are left unwritten. Refuses (cudaErrorInvalidValue) a
+// side's outputs are left unwritten. sides | 4: the CAM clusters portable
+// (8 ranks past C = 256), which chip_smoke.py holds to the plain version
+// on a card that runs clusters of 16. Refuses (cudaErrorInvalidValue) a
 // shape of the first kernel.
 extern "C" int dual_attention_bwd_side(
     const void* q, const void* k, const void* v, const void* gamma_pam,
@@ -1399,7 +1533,8 @@ extern "C" int dual_attention_bwd_side(
     const void* dy_cam, void* dq, void* dk, void* dv, void* dx_cam,
     void* dgamma, void* scratch, int B, int P, int C, int D, int sides,
     void* stream) {
-  if (!takes(P, C, D) || B < 1 || narrow(P, C, D) || sides < 1 || sides > 2) {
+  if (!takes(P, C, D) || B < 1 || narrow(P, C, D) || (sides & 3) == 0 ||
+      sides > 7) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err =
@@ -1409,34 +1544,56 @@ extern "C" int dual_attention_bwd_side(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Bytes of dynamic shared memory one block uses, which chip_smoke.py
-// reports beside the kernel's times; -1 for a shape it does not take.
+// Bytes of dynamic shared memory one block uses (the wide kernel: the
+// larger of its two launches'), which chip_smoke.py reports beside the
+// kernel's times; -1 for a shape it does not take.
 extern "C" long long dual_attention_bwd_smem_bytes(int P, int C, int D) {
   if (!takes(P, C, D)) return -1;
-  return static_cast<long long>(narrow(P, C, D) ? smem_bytes(P, C, D)
-                                                : wide_smem_bytes(C, D));
+  if (narrow(P, C, D)) return static_cast<long long>(smem_bytes(P, C, D));
+  const size_t a = cam_smem(C), b = pam_smem(C, D);
+  return static_cast<long long>(a > b ? a : b);
 }
 
-// Blocks in one cluster (S); -1 for a shape the kernel does not take.
+// Blocks in one CAM cluster (S) on the current device; -1 for a shape
+// the kernel does not take, or minus the CUDA error.
 extern "C" int dual_attention_bwd_cluster_size(int P, int C, int D) {
-  return takes(P, C, D) ? cluster_size(P, C, D) : -1;
+  if (!takes(P, C, D)) return -1;
+  const cudaError_t err = opt_in_smem();
+  return err == cudaSuccess ? cluster_size(P, C, D) : -static_cast<int>(err);
 }
 
-// How many of a shape's clusters the device can hold at once
+// Gamma shares a batch row (R: dgamma is [2, B * R]); -1 for a shape the
+// kernel does not take.
+extern "C" int dual_attention_bwd_shares(int P, int C, int D) {
+  if (!takes(P, C, D)) return -1;
+  return narrow(P, C, D) ? C / kRows : wide_shares(C);
+}
+
+// PAM ranks a batch row of a launch of B rows of the wide kernel (its
+// clusters' size); -1 for a shape the kernel does not take.
+extern "C" int dual_attention_bwd_pam_ranks(int B, int P, int C, int D) {
+  if (!takes(P, C, D) || narrow(P, C, D)) return -1;
+  return pam_ranks(P, B, 3 * fork2::sm_count() / 2);
+}
+
+// How many of a shape's CAM clusters the device can hold at once
 // (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
 extern "C" int dual_attention_bwd_active_clusters(int P, int C, int D) {
   if (!takes(P, C, D)) return -static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = opt_in_smem();
   if (err != cudaSuccess) return -static_cast<int>(err);
+  const bool first = narrow(P, C, D);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  configure(cfg, attr, 1, P, C, D, nullptr);
+  configure(cfg, attr, cluster_size(P, C, D), 1,
+            first ? smem_bytes(P, C, D) : cam_smem(C), nullptr);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(
       &n,
-      narrow(P, C, D)
-          ? reinterpret_cast<const void*>(dual_attention_bwd_kernel)
-          : wide_kernel(C),
+      first ? reinterpret_cast<const void*>(dual_attention_bwd_kernel)
+            : (C > 256
+                   ? reinterpret_cast<const void*>(dual_attention_bwd_wide_cam512)
+                   : reinterpret_cast<const void*>(dual_attention_bwd_wide_cam)),
       &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }

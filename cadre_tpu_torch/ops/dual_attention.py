@@ -54,7 +54,7 @@ _MAX_C, _MAX_D = 512, 64
 # the backward's first kernel takes P <= 64, C <= 128, Cqk <= 32 (resnet18
 # and 34 at 144x256); its wide kernel the rest
 _NARROW_P, _NARROW_C, _NARROW_D = 64, 128, 32
-_MAX_RANKS = 8            # CAM ranks of a wide cluster: a portable size
+_MAX_PAM_RANKS = 8        # PAM ranks of a row in the wide backward, at most
 
 
 def pam_apply(x, q, k, v, gamma) -> torch.Tensor:
@@ -97,13 +97,21 @@ def backward_narrow(p: int, c: int, d: int) -> bool:
 
 
 def backward_cluster_size(p: int, c: int, d: int) -> int:
-    """CAM ranks per batch row of the backward (the blocks of a cluster):
-    one per 32 Gram rows, and in the wide kernel at most _MAX_RANKS, a
-    rank then taking two groups of 32 rows."""
-    groups = c // 32
-    if backward_narrow(p, c, d) or groups <= _MAX_RANKS:
-        return groups
-    return (groups + 1) // 2
+    """CAM ranks per batch row of the backward (the blocks of a CAM
+    cluster): one per 32 Gram rows (16 at C = 512, a non-portable cluster
+    on the card; a card that cannot hold 16 such blocks in one GPC runs 8
+    ranks of up to two groups past C = 256, csrc/dual_attention_bwd.cu:
+    cam_ranks)."""
+    return c // 32
+
+
+def backward_shares(p: int, c: int, d: int) -> int:
+    """Gamma shares per batch row of the backward kernel: its CAM ranks,
+    or in the wide kernel the larger of its CAM ranks and the most PAM
+    ranks a row can have (_MAX_PAM_RANKS)."""
+    if backward_narrow(p, c, d):
+        return c // 32
+    return max(c // 32, _MAX_PAM_RANKS)
 
 
 def smem_bytes(b: int, p: int, c: int, d: int, dtype: torch.dtype) -> int:
@@ -113,6 +121,12 @@ def smem_bytes(b: int, p: int, c: int, d: int, dtype: torch.dtype) -> int:
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_longlong
     return int(fn(b, p, c, d, int(dtype == torch.bfloat16)))
+
+
+def backward_scratch_floats(p: int) -> int:
+    """Floats of one batch row's scratch in the wide backward: E and G,
+    then A and dE ([P][P'] each, P' = P rounded up to 4)."""
+    return 2 * p * ((p + 3) // 4 * 4)
 
 
 def backward_smem_bytes(p: int, c: int, d: int) -> int:
@@ -196,18 +210,22 @@ def dual_attention_backward(q, k, v, gamma_pam, x_cam, gamma_cam, dy_pam,
     dgamma_pam, dx_cam, dgamma_cam), each gamma's gradient shaped and typed
     as the gamma. x_pam is not an input: its gradient is dy_pam. The
     attention matrices are recomputed from the inputs, not saved by the
-    forward. One launch, every product in 3xTF32 on the tensor cores (as
-    accurate as f32 at these shapes; `dual_attention_backward_blocked` is
-    the same algebra on the CPU). Up to P = 64, C = 128, Cqk = 32
-    (`backward_narrow`) a cluster of C / 32 CAM ranks per batch row, each
-    owning 32 rows of the C x C Gram and exchanging its shares of dx_cam
-    through distributed shared memory, and one PAM block per row; past
-    that (any P) a cluster of CAM ranks (at most 8:
-    `backward_cluster_size`) that exchange only each Gram row's softmax
-    statistics and own 32 columns of dx_cam each, and a cluster of as many
-    PAM ranks that split the query tiles, then the key tiles, with A and
-    dE between them in a [B, 2, P, P'] scratch allocated here for the
-    launch. Each gamma's gradient is a sum over B * P * C terms, taken in a
+    forward. Every product in 3xTF32 on the tensor cores (as accurate as
+    f32 at these shapes; `dual_attention_backward_blocked` is the same
+    algebra on the CPU). Up to P = 64, C = 128, Cqk = 32
+    (`backward_narrow`) one launch: a cluster of C / 32 CAM ranks per
+    batch row, each owning 32 rows of the C x C Gram and exchanging its
+    shares of dx_cam through distributed shared memory, and one PAM block
+    per row; past that (any P) two launches side by side (the PAM one on
+    a stream of the kernel's own, forked from and joined back to the
+    caller's by events): a cluster per batch row of up to 8 PAM ranks
+    (`_pam_ranks`) that split the query tiles, then the key tiles, with A
+    and dE between them in a scratch allocated here for the call
+    (`backward_scratch_floats`); and a cluster per batch row of C / 32 CAM
+    ranks
+    (`backward_cluster_size`, 16 at C = 512) that exchange only each Gram
+    row's softmax statistics and own 32 columns of dx_cam each. Each
+    gamma's gradient is a sum over B * P * C terms, taken in a
     fixed order (per block in the kernel, one share per block, then the
     shares summed here over a fixed axis), so two calls on the same inputs
     give bit-equal outputs."""
@@ -242,12 +260,12 @@ def dual_attention_backward(q, k, v, gamma_pam, x_cam, gamma_cam, dy_pam,
     # first kernel's PAM block's, padded with zeros; the wide kernel's PAM
     # ranks'), row 1 the CAM ranks' of dgamma_cam; one reduction over the
     # last axis sums both
-    part = torch.empty(2, b * backward_cluster_size(p, c, d),
+    part = torch.empty(2, b * backward_shares(p, c, d),
                        dtype=torch.float32, device=x_cam.device)
     # the wide kernel's PAM ranks keep E and G, then A and dE, here
     scratch = (None if backward_narrow(p, c, d) else
-               torch.empty(b, 2, p, (p + 3) // 4 * 4, dtype=torch.float32,
-                           device=x_cam.device))
+               torch.empty(b, backward_scratch_floats(p),
+                           dtype=torch.float32, device=x_cam.device))
     if b:
         _build.check(_bwd_entry(dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gp.data_ptr(),
@@ -375,36 +393,52 @@ def _blocked_narrow(qf, kf, vf, dyp, x, dy, gp, gc, mm):
     return dq, dk, dv, dx, part
 
 
-def _pam_ranks(p: int, c: int) -> int:
-    """PAM ranks of a batch row in the wide backward: the largest divisor
-    of the cluster size up to the number of query tiles."""
-    size, tiles = backward_cluster_size(p, c, _MAX_D), -(-p // _TILE)
-    sp = size
-    while sp > 1 and (size % sp or sp > tiles):
-        sp -= 1
-    return sp
+# SMs of the card the CPU model stands for: an H100 SXM's 132
+_SM_COUNT = 132
+
+
+def _pam_slots(sm_count: int = _SM_COUNT) -> int:
+    """Blocks the wide backward's PAM launch may take: 1.5 an SM, as the
+    kernel's `3 * sm_count() / 2` (csrc/dual_attention_bwd.cu: launch);
+    198 on an H100 SXM."""
+    return 3 * sm_count // 2
+
+
+def _pam_ranks(p: int, c: int, b: int = 1, slots: int = None) -> int:
+    """PAM ranks of a batch row in a wide backward of b rows (a cluster of
+    its own): one per query tile, at most _MAX_PAM_RANKS, and no more than
+    b rows of them make `slots` blocks (`_pam_slots()` by default;
+    csrc/dual_attention_bwd.cu: pam_ranks)."""
+    if slots is None:
+        slots = _pam_slots()
+    sp = min(_MAX_PAM_RANKS, -(-p // _TILE))
+    return max(1, min(sp, slots // max(b, 1)))
 
 
 def _blocked_wide(qf, kf, vf, dyp, x, dy, gp, gc, mm):
     """The wide kernel, every PAM tile of _TILE queries or keys. PAM, Sp
     ranks (`_pam_ranks`) per row: rank r takes query tiles Q = r, r + Sp,
-    ...: over the key tiles K, E_QK = q_Q k_K^T and
-    G_QK = dy_Q v_K^T (dy and v in slabs of _SLAB channels), each row's
-    running max m, sum l of exp(E - m) and sum w of exp(E - m) G, rescaled
-    as m rises; D = w / l (sum_j A_ij G_ij); then A_QK = exp(E - m) / l,
+    ...: over the key tiles K, E_QK = q_Q k_K^T and G_QK = dy_Q v_K^T (dy
+    and v in slabs of _SLAB channels), and for each of a row's 16 threads
+    (two columns of each key tile, where the mma fragments hold them) its
+    running max, sum of exp(E - max) and sum of exp(E - max) G, rescaled as
+    its max rises; the row's max m, and the threads' sums rescaled to it,
+    l and w; D = w / l (sum_j A_ij G_ij); then A_QK = exp(E - m) / l,
     dE_QK = A (gp G - gp D) and dq_Q = sum_K dE_QK k_K; then each key
-    tile, dk_K = sum_Q dE_QK^T q_Q and dv_K = gp sum_Q A_QK^T dy_Q. CAM, S
-    ranks (`backward_cluster_size`), rank r owning the 32-row groups g = r,
-    r + S, ...: per group G[g, :] = x_g^T x and H[g, :] = dy_g^T x, each
+    tile, dk_K = sum_Q dE_QK^T q_Q and dv_K = gp sum_Q A_QK^T dy_Q (the
+    kernel takes a rank's key tiles two at a time; each tile's sum still
+    runs over the query tiles in order). CAM, S ranks
+    (`backward_cluster_size`), rank r owning the 32-row group g = r: G[g,
+    :] = x_g^T x and H[g, :] = dy_g^T x, each
     row's min mu, S = sum exp(mu - G) and W = sum H exp(mu - G); with
     every row's (mu, 1 / S, gc W / S), M = gc Bm[:, g], N = dN[:, g] +
     dN[g, :]^T and dx_cam[:, g] = dy_g + dy M - x N. Shares: each PAM
-    rank's sum of D over its rows (zeros past Sp), each CAM rank's sum of
-    W / S ([2, B, S])."""
+    rank's sum of D over its rows, each CAM rank's sum of W / S, zeros past
+    Sp and S ([2, B, max(S, 8)])."""
     b, p, c = x.shape
     tiles = range(0, p, _TILE)
     ranks = backward_cluster_size(p, c, qf.shape[-1])
-    pam_ranks = _pam_ranks(p, c)
+    pam_ranks = _pam_ranks(p, c, b)
     kt = kf.transpose(1, 2)
 
     def g_tile(q0, k0):
@@ -419,25 +453,43 @@ def _blocked_wide(qf, kf, vf, dyp, x, dy, gp, gc, mm):
     att = torch.empty(b, p, p, dtype=x.dtype, device=x.device)
     de = torch.empty_like(att)
     dqs = []
-    pam_shares = torch.zeros(b, ranks, dtype=x.dtype, device=x.device)
+    width = max(ranks, _MAX_PAM_RANKS)
+    pam_shares = torch.zeros(b, width, dtype=x.dtype, device=x.device)
     for qi, q0 in enumerate(tiles):
         rows = slice(q0, q0 + _TILE)
-        m = torch.full((b, min(_TILE, p - q0)), float("-inf"),
-                       dtype=x.dtype, device=x.device)
-        l = torch.zeros_like(m)
-        w = torch.zeros_like(m)
+        nq = min(_TILE, p - q0)
+        # 16 threads a row, thread (n-group, lane t) taking columns 2 j
+        # and 2 j + 1 of each key tile (j = 4 n-group + t): its own running
+        # max, sum of exp(E - max) and sum of exp(E - max) G
+        tm = torch.full((b, nq, 16), float("-inf"), dtype=x.dtype,
+                        device=x.device)
+        tl = torch.zeros_like(tm)
+        tw = torch.zeros_like(tm)
         es, gs = [], []
         for k0 in tiles:
             e = mm(qf[:, rows], kt[:, :, k0:k0 + _TILE])
             g_qk = g_tile(q0, k0)
-            nm = torch.maximum(m, e.amax(dim=-1))
-            scale = torch.exp(m - nm)
-            pe = torch.exp(e - nm[..., None])
-            l = l * scale + pe.sum(dim=-1)
-            w = w * scale + (pe * g_qk).sum(dim=-1)
-            m = nm
+            nk = e.shape[-1]
+            for c2 in range(2):
+                cols = torch.arange(c2, _TILE, 2)
+                ok = cols < nk
+                cols = cols.clamp(max=nk - 1)
+                ec, gc2 = e[..., cols], g_qk[..., cols]
+                up = (ec > tm) & ok
+                scale = torch.exp(tm - ec)
+                pe = torch.exp(ec - tm)
+                tl = torch.where(up, tl * scale + 1,
+                                 torch.where(ok, tl + pe, tl))
+                tw = torch.where(up, tw * scale + gc2,
+                                 torch.where(ok, tw + pe * gc2, tw))
+                tm = torch.where(up, ec, tm)
             es.append(e)
             gs.append(g_qk)
+        # the row's max, and the threads' sums rescaled to it
+        m = tm.amax(dim=-1)
+        f = torch.exp(tm - m[..., None])
+        l = (tl * f).sum(dim=-1)
+        w = (tw * f).sum(dim=-1)
         dd = w / l
         pam_shares[:, qi % pam_ranks] += dd.sum(dim=-1)
         dq = 0
@@ -462,7 +514,7 @@ def _blocked_wide(qf, kf, vf, dyp, x, dy, gp, gc, mm):
     groups = c // 32
     mu = torch.empty(b, c, dtype=x.dtype, device=x.device)
     inv, dot = torch.empty_like(mu), torch.empty_like(mu)
-    shares = torch.zeros(b, ranks, dtype=x.dtype, device=x.device)
+    shares = torch.zeros(b, width, dtype=x.dtype, device=x.device)
 
     def cols(t, c0, width=32):
         return t[:, :, c0:c0 + width]
@@ -503,13 +555,14 @@ def _blocked_wide(qf, kf, vf, dyp, x, dy, gp, gc, mm):
 
 
 # the wide kernels' tiles (csrc/dual_attention_bwd.cu: kTP, kCS;
-# csrc/dual_attention.cu: Wide<T>::kKT, tile_rows)
+# csrc/dual_attention.cu: pam_vk, tile_rows)
 _TILE, _SLAB = 32, 128
 
 
-def _key_tile(dtype: torch.dtype) -> int:
-    """Keys of a wide forward PAM tile: 64 in bf16, 32 in f32."""
-    return 64 if dtype == torch.bfloat16 else 32
+def _value_tile(c: int, dtype: torch.dtype) -> int:
+    """Keys of a value tile of the wide forward's PAM: 64 in
+    bf16 up to C = 256, else 32 (csrc/dual_attention.cu: pam_vk)."""
+    return 64 if dtype == torch.bfloat16 and c <= 256 else 32
 
 
 def _position_tile(p: int, c: int, dtype: torch.dtype) -> int:
@@ -520,26 +573,42 @@ def _position_tile(p: int, c: int, dtype: torch.dtype) -> int:
     return 64 if c <= (256 if dtype == torch.bfloat16 else 128) else 32
 
 
+def _warp_softmax_sum(ex: torch.Tensor) -> torch.Tensor:
+    """Each row's sum of `ex` (f32, [..., n]) in the order of PyTorch's
+    warp softmax on the card, which the kernel follows: lane l adds the
+    columns l, l + 32, ... in order, then a butterfly over the 32 lanes
+    (offsets 16, 8, 4, 2, 1). Returns [..., 1]."""
+    n = ex.shape[-1]
+    lanes = torch.zeros(*ex.shape[:-1], 32, dtype=ex.dtype, device=ex.device)
+    for k0 in range(0, n, 32):
+        part = ex[..., k0:k0 + 32]
+        lanes[..., :part.shape[-1]] += part
+    idx = torch.arange(32, device=ex.device)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., idx ^ o]
+    return lanes[..., :1]
+
+
 def dual_attention_blocked(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam,
                            products="f32"):
     """The wide forward kernel's algebra, in its order, on any device: the
-    outputs of `fused_dual_attention` (input dtype f32 or bf16). PAM, per
-    query row, over the key tiles (`_key_tile`), lane l of the row's warp
-    taking the keys l, l + 32, ...: in f32 one walk in which each lane
-    keeps its own running max and sum of exp (rescaled as its max rises),
-    then the row's max over the lanes and its sum of the lanes' sums, each
-    rescaled to that max; in bf16 the row's max, then its sum of
-    exp(e - max), as the plain version's softmax. Then att = exp(e - max)
-    / sum, rounded to the input type, applied to each value tile, the
-    tiles' products summed in order. CAM: the gram, its row softmax of
-    rowmax - gram rounded to the input type, applied to each position tile
-    (`_position_tile`). The energies q k^T are the plain version's f32
-    products, and so is the bf16 gram (the kernel's chains of f32 FMAs in
-    the plain version's order); the f32 gram is summed over the position
-    tiles, and with `products` "3xtf32" it and both f32 applies are formed
-    as the kernel's tensor cores form them (see `_matmul`; bf16 products
-    are exact in f32). Each residual is added in f32 and rounded once. Used
-    by the tests only."""
+    outputs of `fused_dual_attention` (input dtype f32 or bf16). PAM (a
+    block per 64-query tile over all C columns): the energies q k^T are
+    the plain version's f32 products (the kernel's chains of f32 FMAs over
+    d in order); in bf16 each row's max, then its sum of exp(e - max) in
+    the plain version's warp order (`_warp_softmax_sum`); in f32 one walk
+    in which each of a row's 16 threads (keys 4 tx .. 4 tx + 3 of each
+    64-key tile) keeps its running max and sum, then the row's max and the
+    threads' sums rescaled to it; att = exp(e - max) / sum rounded to the
+    input type, applied to each value tile (`_value_tile`), the tiles'
+    products summed in order. CAM: the gram, its row softmax of rowmax -
+    gram rounded to the input type, applied to each position tile
+    (`_position_tile`). The bf16 gram is the plain version's f32 product
+    (the kernel's chains of f32 FMAs in position order); the f32 gram is
+    summed over the position tiles, and with `products` "3xtf32" it and
+    both f32 applies are formed as the kernel's tensor cores form them
+    (see `_matmul`; bf16 products are exact in f32). Each residual is
+    added in f32 and rounded once. Used by the tests only."""
     dtype = x_pam.dtype
     b, h, w, c = x_pam.shape
     p = h * w
@@ -550,24 +619,23 @@ def dual_attention_blocked(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam,
     xf, vf = x_pam.reshape(b, p, c), v.reshape(b, p, c)
     energy = torch.einsum("bpd,bqd->bpq", q.reshape(b, p, -1).float(),
                           k.reshape(b, p, -1).float())
-    kt = _key_tile(dtype)
+    kt = _value_tile(c, dtype)
     if bf16:
         row_max = energy.amax(dim=-1, keepdim=True)
-        row_sum = torch.exp(energy - row_max).sum(dim=-1, keepdim=True)
+        row_sum = _warp_softmax_sum(torch.exp(energy - row_max))
     else:
-        # per lane (keys l + 32 j of each tile), then over the lanes
-        lane_max = torch.full((b, p, 32), float("-inf"), device=xf.device)
-        lane_sum = torch.zeros(b, p, 32, device=xf.device)
-        for k0 in range(0, p, 32):
-            e = energy[:, :, k0:k0 + 32]
-            n = e.shape[-1]
-            m = lane_max[..., :n]
-            lane_sum[..., :n] = torch.where(
-                e > m, lane_sum[..., :n] * torch.exp(m - e) + 1,
-                lane_sum[..., :n] + torch.exp(e - m))
-            lane_max[..., :n] = torch.maximum(m, e)
-        row_max = lane_max.amax(dim=-1, keepdim=True)
-        row_sum = (lane_sum * torch.exp(lane_max - row_max)).sum(
+        # thread tx of a row takes keys 4 tx .. 4 tx + 3 of each 64-key
+        # tile, keeping its own running max and sum; then the 16 threads'
+        th_max = torch.full((b, p, 16), float("-inf"), device=xf.device)
+        th_sum = torch.zeros(b, p, 16, device=xf.device)
+        for k in range(p):
+            e, g = energy[:, :, k], (k % 64) // 4
+            m = th_max[..., g]
+            th_sum[..., g] = torch.where(e > m, th_sum[..., g] * torch.exp(m - e)
+                                         + 1, th_sum[..., g] + torch.exp(e - m))
+            th_max[..., g] = torch.maximum(m, e)
+        row_max = th_max.amax(dim=-1, keepdim=True)
+        row_sum = (th_sum * torch.exp(th_max - row_max)).sum(
             dim=-1, keepdim=True)
     out_p = 0
     for k0 in range(0, p, kt):

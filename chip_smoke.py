@@ -166,13 +166,18 @@ Phases, each of which must pass:
      E=4, M=2) with that encoder: 400 paints and 201 K2; (e) one f32
      pretraining step of a resnet18 DANet on a 288x512 camera (the head's
      P=144); (f) one at B=16 on CARLA's default 800x600 camera (feat
-     19x25, the head's P=475) on 8a's frames resized, one K2 and one K3.
-     Peak memory and the device's idle share for each.
+     19x25, the head's P=475) on 8a's frames resized, one K2 and one K3;
+     (g) the bf16 latent (DANet.latent as the agent runs it) of a
+     resnet18 and of a resnet50 DANet on that camera at B=32, frames/s and
+     one K2 each (the head's bf16 P=475 at C=128 and 512), then K2 and K3
+     timed at (f)'s B=16 shape. Peak memory and the device's idle share
+     for each.
 
 It prints one JSON line of kernel figures (launch counts of every phase's
 main path, `launches_msgpack_eval` of 12a, `launches_parallel` of 12b
 and of each 12c rank, `launches_options` of 13a, `launches_carla` of 14a,
-`launches_nocrash` of 14f and `launches_deep` of 15a and 15d among them;
+`launches_nocrash` of 14f and `launches_deep` of 15a, 15d and 15g among
+them;
 under `shapes` each kernel's figures at every timed shape), the card's
 name and power limit, and,
 last, {"ok": true, "device": {...}}. It exits non-zero, printing no
@@ -693,11 +698,10 @@ ATTENTION_SHAPES = ((32, 128, 16, 5, 8), (256, 128, 16, 5, 8),
 # wide kernel picks (all of P in one tile up to 64; past that 64 rows at
 # C <= 128, and in bf16 at C <= 256, else 32) past one tile, each wide
 # template (C <= 128 or up to 512) with a narrow C or P, P = 1, odd P,
-# P = 257, 475 (800x600), 576 and 1024 at C = 128 and 512, PAM's full
-# 128-column ranges at C = 128 (B * C / 32 >= twice the SMs) and its
-# 96- and 64-column ones (C = 288, 320), partial key tiles of both types,
-# and the narrow kernel at Cqk = 33 (past the 32 it used to take) and
-# Cqk = 1
+# P = 257, 475 (800x600), 576 and 1024 at C = 128 and 512, each PAM
+# block width (C <= 128, <= 256, past 256: C = 288, 320) with a partial
+# or a single query tile, partial key tiles of both types, and the narrow
+# kernel at Cqk = 33 (past the 32 it used to take) and Cqk = 1
 ATTENTION_EDGE_SHAPES = ((3, 160, 20, 7, 11), (3, 256, 32, 9, 16),
                          (3, 512, 64, 16, 16), (3, 128, 16, 16, 16),
                          (3, 512, 64, 1, 1), (3, 96, 33, 5, 8),
@@ -722,9 +726,11 @@ HOST_ATTENTION_SHAPES = ((N_HOST, 128, 16, 5, 8), (8 * N_HOST, 128, 16, 5, 8),
 # 800x600 cameras' at the trainer's batch, timed; and held to the plain
 # version only: every cluster size of the first kernel (C = 32-128), P = 49
 # (K not a multiple of 8) and P = 64 (the most it takes), odd Cqk and
-# Cqk = 32; of the wide kernel every cluster size (S = 1-8 ranks: C =
-# 32-256, P > 64 or Cqk > 32), ranks of two groups (C = 288: 2,2,2,2,1;
-# C = 512: 2 each), both CAM chunk widths (32 at 128 < C <= 256, else 64),
+# Cqk = 32; of the wide kernel every cluster size (S = 1-16 ranks: C =
+# 32-512, P > 64 or Cqk > 32), past C = 256 also in portable clusters of
+# 8, ranks of two groups (C = 288: 2,1,...,1; C = 512: 2 each), the
+# layout of a card that cannot hold 16, both CAM chunk widths (32 at
+# 128 < C <= 256, else 64),
 # P = 144 and 256 with Cqk = 64, odd P, P = 3 (at P = 1 the softmax over
 # one key is constant, so dq and dk are zero), and P = 257, 475, 576 and
 # 1024 at C = 128 and 512 (more query and key tiles than ranks)
@@ -978,9 +984,9 @@ def _backward_sides(args):
     fn.restype = ctypes.c_int
     outs = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
             torch.empty_like(xc),
-            torch.zeros(2, b * da.backward_cluster_size(p, c, d),
+            torch.zeros(2, b * da.backward_shares(p, c, d),
                         device=xc.device),
-            torch.empty(b, 2, p, (p + 3) // 4 * 4, device=xc.device)]
+            torch.empty(b, da.backward_scratch_floats(p), device=xc.device)]
     times = {}
     for name, side in (("cam_ms", 1), ("pam_ms", 2)):
         def call(side=side):
@@ -997,6 +1003,53 @@ def _backward_sides(args):
             f"dual_attention_bwd: a side alone differs from the whole "
             f"kernel at B={b} P={p} C={c}")
     return times
+
+
+def _backward_portable(args, want, tag):
+    """The wide backward past C = 256 with its CAM ranks in portable
+    clusters of 8 (two groups a rank at C = 512: the layout of a card that
+    cannot hold a cluster of 16), through the kernel's side entry, held to
+    `want` (autograd through the plain versions) within BWD_TOL, twice
+    bit-equal; returns the errors' text."""
+    import ctypes
+
+    import torch
+
+    from cadre_tpu_torch.ops import _build
+    from cadre_tpu_torch.ops import dual_attention as da
+
+    q, k, v, gp, xc, gc, dyp, dyc = args
+    b, h, w, c = xc.shape
+    p, d = h * w, q.shape[-1]
+    fn = _build.load("dual_attention_bwd").dual_attention_bwd_side
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    runs = []
+    for _ in range(2):
+        outs = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+                torch.empty_like(xc),
+                torch.zeros(2, b * da.backward_shares(p, c, d),
+                            device=xc.device),
+                torch.empty(b, da.backward_scratch_floats(p),
+                            device=xc.device)]
+        _build.check(fn(*(t.data_ptr() for t in args),
+                        *(t.data_ptr() for t in outs), b, p, c, d, 3 | 4,
+                        _build.cuda_stream(xc)), "dual_attention_bwd_side")
+        sums = outs[4].sum(dim=1)
+        runs.append((dyp, outs[0], outs[1], outs[2], sums[0].reshape(1),
+                     outs[3], sums[1].reshape(1)))
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, a) for g, a in zip(*runs)),
+            f"dual_attention_bwd {tag}: two portable calls differ")
+    worst = []
+    for (name, tol), g, w_ in zip(BWD_TOL.items(), runs[0], want):
+        rel = float((g - w_).abs().max()) / max(float(w_.abs().max()), 1e-30)
+        require(rel <= tol, f"dual_attention_bwd {tag} in portable "
+                f"clusters: {name} {rel:.3g} of its scale > {tol}")
+        worst.append(rel)
+    return (f"(max error / scale {max(worst):.2g}, within the same bounds, "
+            f"two calls bit-equal)")
 
 
 def check_dual_attention_backward(gen, device):
@@ -1016,7 +1069,8 @@ def check_dual_attention_backward(gen, device):
     lib = _build.load("dual_attention_bwd")
     active_fn = lib.dual_attention_bwd_active_clusters
     size_fn = lib.dual_attention_bwd_cluster_size
-    for fn in (active_fn, size_fn):
+    shares_fn = lib.dual_attention_bwd_shares
+    for fn in (active_fn, size_fn, shares_fn):
         fn.argtypes = [ctypes.c_int] * 3
         fn.restype = ctypes.c_int
     shapes = {}
@@ -1048,15 +1102,32 @@ def check_dual_attention_backward(gen, device):
         require(size == size_fn(p, c, d), f"dual_attention_bwd {tag}: "
                 f"cluster size {size} in the wrapper, {size_fn(p, c, d)} in "
                 f"the kernel")
+        require(da.backward_shares(p, c, d) == shares_fn(p, c, d),
+                f"dual_attention_bwd {tag}: {da.backward_shares(p, c, d)} "
+                f"gamma shares a row in the wrapper, {shares_fn(p, c, d)} in "
+                f"the kernel")
         if da.backward_narrow(p, c, d):
             layout = (f"first kernel, clusters of {size} CAM blocks and one "
                       f"PAM block per row")
         else:
-            sp = da._pam_ranks(p, c)
-            layout = (f"wide kernel, clusters of {size} CAM ranks per row "
-                      f"and of {sp} PAM ranks per row, {size // sp} rows a "
-                      f"cluster")
-        layout += (f", {smem} B shared memory per block, {active} clusters "
+            ranks_fn = lib.dual_attention_bwd_pam_ranks
+            ranks_fn.argtypes = [ctypes.c_int] * 4
+            ranks_fn.restype = ctypes.c_int
+            # the CPU model's PAM partition (and so its gamma-share
+            # order) is the kernel's on this card's SM count
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            model = da._pam_ranks(p, c, b, da._pam_slots(sms))
+            require(model == ranks_fn(b, p, c, d), f"dual_attention_bwd "
+                    f"{tag}: {model} PAM ranks a row in the CPU model, "
+                    f"{ranks_fn(b, p, c, d)} in the kernel")
+            layout = (f"wide kernel, a launch of clusters of "
+                      f"{ranks_fn(b, p, c, d)} PAM ranks per row beside one "
+                      f"of {size} CAM ranks per row")
+            if c > 256:
+                layout += (", and in portable clusters of 8 CAM ranks "
+                           + _backward_portable(args, want, tag))
+        layout += (f", {smem} B shared memory per block, {active} "
+                   f"{'' if da.backward_narrow(p, c, d) else 'CAM '}clusters "
                    f"active at once")
         errs = ", ".join(f"{k} {v:.2g}" for k, v in worst.items())
         if (b, c, d, h, w) not in BACKWARD_SHAPES:
@@ -5005,9 +5076,63 @@ def carla_camera_step(packed, stats):
                              f"head C=128 Cqk=16 P=475, f32)", "15f")
 
 
+def carla_camera_latent():
+    """15g: the bf16 latent (DANet.latent, as the agent runs it) of a
+    resnet18 and of a resnet50 DANet on the 800x600 camera at B=N_ENVS,
+    random weights from seeds: frames/s, peak memory and one K2 a call
+    (the head's bf16 P=475 at C=128 and at C=512); then K2 and K3 timed at
+    15f's shape (B=CARLA_CAMERA_BATCH, f32, C=128). Returns the two
+    latents' launches."""
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.ops import dual_attention as da
+    from cadre_tpu_torch.rl.agent import CadreAgent
+
+    h, w = CARLA_CAMERA["image_height"], CARLA_CAMERA["image_width"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    total = {"paint": 0, "dual_attention": 0, "dual_attention_bwd": 0}
+    for backbone, c in (("resnet18", 128), (DEEP_BACKBONE, 512)):
+        agent = CadreAgent.create(
+            danet_params(backbone=backbone, **CARLA_CAMERA),
+            bf16_encoder=True, device="cuda")
+        x = torch.rand(N_ENVS, h, w, 4, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            agent.encoder.latent(x)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            z, launches = _counted(lambda: agent.encoder.latent(x))
+            want = {"paint": 0, "dual_attention": 1, "dual_attention_bwd": 0}
+            require(launches == want and tuple(z.shape) == (
+                N_ENVS, agent.danet_cfg.latent_dim), f"{backbone} latent on "
+                f"the 800x600 camera: {tuple(z.shape)}, launches {launches}")
+            _finite(f"{backbone} latent on the 800x600 camera", z)
+            ms = time_ms(lambda: agent.encoder.latent(x), 10)
+            peak = torch.cuda.max_memory_allocated()
+        print(f"[15g] {backbone} encoder on the 800x600 camera, bf16 B="
+              f"{N_ENVS} (head C={c} P=475): {ms:.3f} ms, "
+              f"{N_ENVS / ms * 1e3:.1f} frames/s; peak memory allocated "
+              f"{peak / 2**30:.2f} GiB; launches {launches}")
+        for name in total:
+            total[name] += launches[name]
+        del agent, x, z
+        torch.cuda.empty_cache()
+    b = CARLA_CAMERA_BATCH
+    args = _attention_inputs(b, 128, 16, torch.float32, gen, "cuda", 19, 25)
+    bargs, _ = _backward_inputs(b, 128, 16, gen, "cuda", 19, 25)
+    fwd = device_ms(lambda: da.fused_dual_attention(*args))
+    bwd = device_ms(lambda: da.dual_attention_backward(*bargs))
+    print(f"[15g] at 15f's shape (B={b} P=475 C=128 Cqk=16 f32): K2 "
+          f"{fwd:.4f} ms, K3 {bwd:.4f} ms (graphs of 200 calls)")
+    return total
+
+
 def phase_deep(data_dir=None):
-    """The deep-backbone CoPM and the wide camera at full width; returns
-    15a's launch counts (pretraining) and 15d's (the device iteration)."""
+    """The deep-backbone CoPM and the wide cameras at full width; returns
+    15a's launch counts (pretraining), 15d's (the device iteration) and
+    15g's (the 800x600 latents)."""
     import torch
 
     from cadre_tpu_torch.perception.data import (
@@ -5029,8 +5154,9 @@ def phase_deep(data_dir=None):
     iteration = deep_iteration(deep_encoder())
     wide_camera_step(packed, stats)
     carla_camera_step(packed, stats)
+    latent = carla_camera_latent()
     print(f"[15] phase 15 in {time.perf_counter() - t0:.1f} s")
-    return pretraining, iteration
+    return pretraining, iteration, latent
 
 
 # ---------------------------------------------------------------- main
@@ -5098,7 +5224,8 @@ def main(argv) -> int:
         entry["launches_carla"] = carla_launches[name]
         entry["launches_nocrash"] = nocrash_launches[name]
         entry["launches_deep"] = {"15a": deep_launches[0][name],
-                                  "15d": deep_launches[1][name]}
+                                  "15d": deep_launches[1][name],
+                                  "15g": deep_launches[2][name]}
         entry["launches_parallel"] = {
             "12b": parallel["12b"][name],
             "12c": [rank[name] for rank in parallel["12c"]]}

@@ -123,7 +123,7 @@ def test_kernels_take_every_head_a_danet_params_builds(backbone, geometry):
     c, d = _head_widths(channels, cfg.feat_h, cfg.feat_w)
     p = cfg.feat_h * cfg.feat_w
     tda._check_shape(p, c, d)
-    assert 1 <= tda.backward_cluster_size(p, c, d) <= 8
+    assert 1 <= tda.backward_cluster_size(p, c, d) <= 16
 
 
 def _inputs(case, dtype, b=2):
@@ -204,6 +204,53 @@ def test_forward_algebra_matches_jax(case, mode):
             assert _bf16_ulps(o, r, x) <= BF16_ULP_BOUND
         else:
             np.testing.assert_allclose(o.numpy(), r.numpy(), atol=atol)
+
+
+def _chunked_f32(a, b):
+    """a @ b (batched) summed as a tensor core sums: exact 16-term chunks
+    of the reduction, accumulated in f32."""
+    acc = None
+    for k0 in range(0, a.shape[-1], 16):
+        part = (a[..., k0:k0 + 16].double() @ b[:, k0:k0 + 16].double())
+        acc = part.float() if acc is None else acc + part.float()
+    return acc
+
+
+@pytest.mark.parametrize("branch", ["pam", "cam"])
+def test_reordered_f32_energies_break_the_bf16_bound(branch):
+    """Why the bf16 kernels form the PAM energies q k^T and the CAM gram
+    x^T x as chains of f32 FMAs in the plain version's order (and never on
+    the tensor cores): with only that sum reordered, as a tensor core sums
+    it, and everything else the plain version's, the output moves past
+    chip_smoke's BF16_ULP_BOUND at the 800x600 resnet50 head (8 rows of
+    C = 512, Cqk = 64, P = 475): a last-bit change in an energy flips the
+    bf16 rounding of some attention weights, and where the terms of an
+    output cancel that is many ulps of it."""
+    b, (c, d, h, w) = 8, SHAPES[4]
+    p = h * w
+    rng = np.random.RandomState(0)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(torch.bfloat16)
+    x, q, k, v, xc = (f(b, h, w, c), f(b, h, w, d), f(b, h, w, d),
+                      f(b, h, w, c), f(b, h, w, c))
+    gp = torch.tensor([0.5]).bfloat16()
+    gc = torch.tensor([0.3]).bfloat16()
+    if branch == "pam":
+        ref = tda.pam_apply(x, q, k, v, gp)
+        e = _chunked_f32(q.reshape(b, p, d).float(),
+                         k.reshape(b, p, d).float().transpose(1, 2))
+        att = torch.softmax(e, -1).to(torch.bfloat16).float()
+        out = (att @ v.reshape(b, p, c).float()).to(torch.bfloat16)
+        ours, resid = gp * out.reshape(b, h, w, c) + x, x
+    else:
+        ref = tda.cam_apply(xc, gc)
+        xf = xc.reshape(b, p, c).float()
+        g = _chunked_f32(xf.transpose(1, 2), xf)
+        att = torch.softmax(g.amax(-1, keepdim=True) - g, -1)
+        out = (xf @ att.to(torch.bfloat16).float().transpose(1, 2)).to(
+            torch.bfloat16)
+        ours, resid = gc * out.reshape(b, h, w, c) + xc, xc
+    assert _bf16_ulps(ours, ref, resid) > BF16_ULP_BOUND
 
 
 def _want_grads(case):
