@@ -11,11 +11,13 @@ input type before the gamma residual. `fused_dual_attention` computes both
 branches with the hand-written kernel (`csrc/dual_attention.cu`: several
 blocks per batch row, products on the tensor cores; past the main path's
 heads the positions, queries and keys stream through shared memory in
-tiles, so any P) for CUDA tensors and with the plain versions, under
-ordinary autograd, for CPU tensors. The kernel adds the residual in f32
-and rounds once, as the TPU kernel did, so in bf16 the two differ by about
-one unit in the last place. `dual_attention_blocked` spells out the wide
-kernel's algebra in its order, for the tests.
+tiles, so any P; in bf16 the CAM's gram is formed once per symmetric pair
+into a [B, C, C] f32 scratch allocated here, `gram_scratch_floats`) for
+CUDA tensors and with the plain versions, under ordinary autograd, for
+CPU tensors. The kernel adds the residual in f32 and rounds once, as the
+TPU kernel did, so in bf16 the two differ by about one unit in the last
+place. `dual_attention_blocked` spells out the wide kernel's algebra in
+its order, for the tests.
 
 On CUDA tensors that need a gradient, `fused_dual_attention` is the
 autograd function `DualAttention`: its forward is that kernel and its
@@ -51,8 +53,8 @@ _BWD_ENTRY = {torch.float32: "dual_attention_bwd_f32"}
 # what the kernels take (with C % 32 and any P >= 1): every head the JAX
 # package builds, resnet50-152's C = 512 and Cqk = 64 among them
 _MAX_C, _MAX_D = 512, 64
-# the backward's first kernel takes P <= 64, C <= 128, Cqk <= 32 (resnet18
-# and 34 at 144x256); its wide kernel the rest
+# the narrow kernels take P <= 64, C <= 128 (resnet18 and 34 at 144x256),
+# the backward's also only Cqk <= 32; the wide kernels the rest
 _NARROW_P, _NARROW_C, _NARROW_D = 64, 128, 32
 _MAX_PAM_RANKS = 8        # PAM ranks of a row in the wide backward, at most
 
@@ -115,8 +117,9 @@ def backward_shares(p: int, c: int, d: int) -> int:
 
 
 def smem_bytes(b: int, p: int, c: int, d: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block of the forward kernel launched
-    on B rows of this shape (CUDA only: the plan reads the SM count)."""
+    """Dynamic shared memory of the largest block of the forward kernel's
+    launches on B rows of this shape (CUDA only: the plan reads the
+    card)."""
     fn = _build.load("dual_attention").dual_attention_smem_bytes
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_longlong
@@ -137,11 +140,26 @@ def backward_smem_bytes(p: int, c: int, d: int) -> int:
     return int(fn(p, c, d))
 
 
+def forward_narrow(p: int, c: int) -> bool:
+    """Whether the forward runs its narrow kernel (else its wide one)."""
+    return p <= _NARROW_P and c <= _NARROW_C
+
+
+def gram_scratch_floats(p: int, c: int, dtype: torch.dtype) -> int:
+    """Floats of one batch row's scratch in the forward: the wide bf16
+    kernel's gram launch writes the whole C x C gram there for its apply
+    launch; the other kernels need none."""
+    if dtype != torch.bfloat16 or forward_narrow(p, c):
+        return 0
+    return c * c
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype):
     """The kernel's C entry for `dtype`, loaded and typed once."""
     fn = getattr(_build.load("dual_attention"), _ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -183,11 +201,17 @@ def _dual_attention_cuda(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam):
     out_c = torch.empty_like(x_cam)
     if b == 0:
         return out_p, out_c
+    # the wide bf16 kernel's gram, written by one launch, read by the next
+    n = gram_scratch_floats(p, c, dtype)
+    scratch = (torch.empty(b, n, dtype=torch.float32, device=x_pam.device)
+               if n else None)
     fn = _entry(dtype)
     stream = _build.cuda_stream(x_pam)
     _build.check(fn(x_pam.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     gp.data_ptr(), x_cam.data_ptr(), gc.data_ptr(),
-                    out_p.data_ptr(), out_c.data_ptr(), b, p, c, d, stream),
+                    out_p.data_ptr(), out_c.data_ptr(),
+                    0 if scratch is None else scratch.data_ptr(), b, p, c, d,
+                    stream),
                  "dual_attention")
     launches += 1
     return out_p, out_c
@@ -555,7 +579,7 @@ def _blocked_wide(qf, kf, vf, dyp, x, dy, gp, gc, mm):
 
 
 # the wide kernels' tiles (csrc/dual_attention_bwd.cu: kTP, kCS;
-# csrc/dual_attention.cu: pam_vk, tile_rows)
+# csrc/dual_attention.cu: pam_vk, tile_rows, gram_tile)
 _TILE, _SLAB = 32, 128
 
 
@@ -565,12 +589,48 @@ def _value_tile(c: int, dtype: torch.dtype) -> int:
     return 64 if dtype == torch.bfloat16 and c <= 256 else 32
 
 
-def _position_tile(p: int, c: int, dtype: torch.dtype) -> int:
-    """Positions of a wide forward CAM tile: all of P up to 64, else 64
-    (bf16 up to C = 256, f32 up to C = 128) or 32."""
+def _gram_tile(c: int) -> int:
+    """Rows and columns of a tile of the wide bf16 forward's gram launch: 32
+    up to C = 128, else 64 (csrc/dual_attention.cu: gram_tile)."""
+    return 32 if c <= 128 else 64
+
+
+def _ordered_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (batched, f32) with each element one chain of multiply-adds
+    over the reduction in order, as the bf16 kernel's f32 FMA chains form
+    it: a bf16 x bf16 product is exact in f32, so each step rounds once, as
+    fmaf does."""
+    acc = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32,
+                      device=a.device)
+    for i in range(a.shape[-1]):
+        acc = acc + a[..., i:i + 1].float() * b[..., i:i + 1, :].float()
+    return acc
+
+
+def _mirrored_gram(x: torch.Tensor) -> torch.Tensor:
+    """x^T x of x [B, P, C] as the bf16 gram launch forms it: each tile
+    (i-block, j-block >= i-block) of `_gram_tile` rows and columns one
+    ordered chain over the positions (`_ordered_products`), written at (i,
+    j) and, off the diagonal, mirrored at (j, i)."""
+    b, p, c = x.shape
+    ti = _gram_tile(c)
+    gram = torch.empty(b, c, c, dtype=torch.float32, device=x.device)
+    for i0 in range(0, c, ti):
+        for j0 in range(i0, c, ti):
+            tile = _ordered_products(x[:, :, i0:i0 + ti].transpose(1, 2),
+                                     x[:, :, j0:j0 + ti])
+            gram[:, i0:i0 + ti, j0:j0 + ti] = tile
+            if j0 != i0:
+                gram[:, j0:j0 + ti, i0:i0 + ti] = tile.transpose(1, 2)
+    return gram
+
+
+def _position_tile(p: int, c: int) -> int:
+    """Positions of a wide f32 forward CAM tile: all of P up to 64, else 64
+    up to C = 128, else 32 (csrc/dual_attention.cu: tile_rows)."""
     if p <= 64:
         return p
-    return 64 if c <= (256 if dtype == torch.bfloat16 else 128) else 32
+    return 64 if c <= 128 else 32
 
 
 def _warp_softmax_sum(ex: torch.Tensor) -> torch.Tensor:
@@ -593,22 +653,23 @@ def dual_attention_blocked(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam,
                            products="f32"):
     """The wide forward kernel's algebra, in its order, on any device: the
     outputs of `fused_dual_attention` (input dtype f32 or bf16). PAM (a
-    block per 64-query tile over all C columns): the energies q k^T are
-    the plain version's f32 products (the kernel's chains of f32 FMAs over
-    d in order); in bf16 each row's max, then its sum of exp(e - max) in
-    the plain version's warp order (`_warp_softmax_sum`); in f32 one walk
-    in which each of a row's 16 threads (keys 4 tx .. 4 tx + 3 of each
-    64-key tile) keeps its running max and sum, then the row's max and the
-    threads' sums rescaled to it; att = exp(e - max) / sum rounded to the
-    input type, applied to each value tile (`_value_tile`), the tiles'
-    products summed in order. CAM: the gram, its row softmax of rowmax -
-    gram rounded to the input type, applied to each position tile
-    (`_position_tile`). The bf16 gram is the plain version's f32 product
-    (the kernel's chains of f32 FMAs in position order); the f32 gram is
-    summed over the position tiles, and with `products` "3xtf32" it and
-    both f32 applies are formed as the kernel's tensor cores form them
-    (see `_matmul`; bf16 products are exact in f32). Each residual is
-    added in f32 and rounded once. Used by the tests only."""
+    block per query tile over all C columns): in bf16 the energies q k^T
+    formed once as chains of f32 FMAs over d in order (`_ordered_products`)
+    and kept, each row's max, then its sum of exp(e - max) in the plain
+    version's warp order (`_warp_softmax_sum`); in f32 the energies are the
+    plain version's f32 products, and one walk in which each of a row's 16
+    threads (keys 4 tx .. 4 tx + 3 of each 64-key tile) keeps its running
+    max and sum, then the row's max and the threads' sums rescaled to it;
+    att = exp(e - max) / sum rounded to the input type, applied to each
+    value tile (`_value_tile`), the tiles' products summed in order. CAM:
+    the gram, its row softmax of rowmax - gram rounded to the input type,
+    applied to x. The bf16 gram is the gram launch's (`_mirrored_gram`:
+    upper-triangle tiles, each element a chain of f32 FMAs in position
+    order, mirrored); the f32 gram is summed over the position tiles
+    (`_position_tile`), and with `products` "3xtf32" it and both f32
+    applies are formed as the kernel's tensor cores form them (see
+    `_matmul`; bf16 products are exact in f32). Each residual is added in
+    f32 and rounded once. Used by the tests only."""
     dtype = x_pam.dtype
     b, h, w, c = x_pam.shape
     p = h * w
@@ -617,8 +678,11 @@ def dual_attention_blocked(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam,
     gp = gamma_pam.reshape(()).float()
     gc = gamma_cam.reshape(()).float()
     xf, vf = x_pam.reshape(b, p, c), v.reshape(b, p, c)
-    energy = torch.einsum("bpd,bqd->bpq", q.reshape(b, p, -1).float(),
-                          k.reshape(b, p, -1).float())
+    qf, kf = q.reshape(b, p, -1).float(), k.reshape(b, p, -1).float()
+    if bf16:
+        energy = _ordered_products(qf, kf.transpose(1, 2))
+    else:
+        energy = torch.einsum("bpd,bqd->bpq", qf, kf)
     kt = _value_tile(c, dtype)
     if bf16:
         row_max = energy.amax(dim=-1, keepdim=True)
@@ -644,18 +708,17 @@ def dual_attention_blocked(x_pam, q, k, v, gamma_pam, x_cam, gamma_cam,
     y_p = (gp * out_p + xf.float()).to(dtype)
     # CAM
     xc = x_cam.reshape(b, p, c).float()
-    tp = _position_tile(p, c, dtype)
     if bf16:
-        gram = torch.einsum("bpc,bpd->bcd", xc, xc)
+        gram = _mirrored_gram(xc)
     else:
         gram = 0
+        tp = _position_tile(p, c)
         for p0 in range(0, p, tp):
             xt = xc[:, p0:p0 + tp]
             gram = gram + mm_(xt.transpose(1, 2), xt)
     att = torch.softmax(gram.amax(dim=-1, keepdim=True) - gram, dim=-1)
     att = att.to(dtype).float()
-    out_c = torch.cat([mm_(xc[:, p0:p0 + tp], att.transpose(1, 2))
-                       for p0 in range(0, p, tp)], dim=1)
+    out_c = mm_(xc, att.transpose(1, 2))
     y_c = (gc * out_c + xc).to(dtype)
     return y_p.reshape(b, h, w, c), y_c.reshape(b, h, w, c)
 

@@ -15,8 +15,11 @@ Phases, each of which must pass:
      host-env trainer's f32 B=8 and B=64 among them; the resnet50 head,
      C=512 and Cqk=64, at B=32, 256 and 48; a 288x512 camera's P=144 and
      an 800x600 camera's P=475) and at every position tile, key tile and
-     template it picks (P = 1 to 1024), the wide kernel's CAM blocks and
-     PAM blocks each alone, timed and equal to the whole kernel's outputs;
+     template it picks (P = 1 to 1537; the bf16 PAM either side of the P
+     past which it no longer keeps its energies), the wide kernel's CAM
+     and PAM sides each alone (bf16: its gram, softmax and apply launches
+     too), timed and equal to the whole kernel's outputs, with each
+     launch's registers and blocks an SM;
      its backward kernel at B=48 (C=128 and 512, P=40, 144 and 475), at
      phase 5's small head and at every cluster size of its two kernels
      (C = 32 to 512, one or two 32-row groups a rank), P = 1 to 1024 and
@@ -168,8 +171,9 @@ Phases, each of which must pass:
      P=144); (f) one at B=16 on CARLA's default 800x600 camera (feat
      19x25, the head's P=475) on 8a's frames resized, one K2 and one K3;
      (g) the bf16 latent (DANet.latent as the agent runs it) of a
-     resnet18 and of a resnet50 DANet on that camera at B=32, frames/s and
-     one K2 each (the head's bf16 P=475 at C=128 and 512), then K2 and K3
+     resnet18 and of a resnet50 DANet on that camera at B=32, frames/s,
+     one K2 each (the head's bf16 P=475 at C=128 and 512) and K2's device
+     time beside the latent's (torch.profiler), then K2 and K3
      timed at (f)'s B=16 shape. Peak memory and the device's idle share
      for each.
 
@@ -700,8 +704,11 @@ ATTENTION_SHAPES = ((32, 128, 16, 5, 8), (256, 128, 16, 5, 8),
 # template (C <= 128 or up to 512) with a narrow C or P, P = 1, odd P,
 # P = 257, 475 (800x600), 576 and 1024 at C = 128 and 512, each PAM
 # block width (C <= 128, <= 256, past 256: C = 288, 320) with a partial
-# or a single query tile, partial key tiles of both types, and the narrow
-# kernel at Cqk = 33 (past the 32 it used to take) and Cqk = 1
+# or a single query tile, partial key tiles of both types, the narrow
+# kernel at Cqk = 33 (past the 32 it used to take) and Cqk = 1, the bf16
+# gram's tiles (32 up to C = 128, one at C = 32; 64 past it, the last half
+# at C = 160, 288 and 320) and the bf16 PAM either side of its
+# kept-energies limit at C = 128, 256 and 512 (PAM_KEPT_EDGES)
 ATTENTION_EDGE_SHAPES = ((3, 160, 20, 7, 11), (3, 256, 32, 9, 16),
                          (3, 512, 64, 16, 16), (3, 128, 16, 16, 16),
                          (3, 512, 64, 1, 1), (3, 96, 33, 5, 8),
@@ -712,7 +719,16 @@ ATTENTION_EDGE_SHAPES = ((3, 160, 20, 7, 11), (3, 256, 32, 9, 16),
                          (3, 512, 64, 18, 32), (3, 128, 16, 32, 32),
                          (3, 512, 64, 32, 32), (70, 128, 16, 19, 25),
                          (70, 288, 36, 10, 10), (30, 320, 40, 7, 7),
-                         (3, 96, 1, 10, 10))
+                         (3, 96, 1, 10, 10), (3, 32, 4, 9, 9),
+                         (3, 128, 16, 1, 1536), (3, 128, 16, 1, 1537),
+                         (3, 256, 32, 8, 79), (3, 256, 32, 8, 80),
+                         (3, 512, 64, 1, 640), (3, 512, 64, 1, 641))
+# the bf16 PAM launch either side of the P past which a block's energies
+# no longer fit the card's shared memory (csrc/dual_attention.cu:
+# kept_bytes), by (C, P): kept energies up to it, the walks past it
+PAM_KEPT_EDGES = {(128, 1536): "pam_kept", (128, 1537): "pam_walks",
+                  (256, 632): "pam_kept", (256, 640): "pam_walks",
+                  (512, 640): "pam_kept", (512, 641): "pam_walks"}
 # the host-env trainer's calls (phase 9, f32 encoder): the newest frame of
 # each of N_HOST envs on an incremental tick, their 8-frame windows on a
 # refresh tick; and the CARLA env trainer's newest frames (phase 14a,
@@ -789,11 +805,48 @@ def _attention_check(args, bf16):
                           f"<= {BF16_ULP_BOUND}")
 
 
+# the forward kernel's launches by kind (csrc/dual_attention.cu: Kind)
+LAUNCH_KINDS = ("narrow", "cam_f32", "pam_walks", "pam_kept", "cam_gram",
+                "cam_softmax", "cam_apply")
+
+
+def _attention_launches(b, p, c, d, dtype):
+    """What each launch of a forward call on B rows is, in issue order
+    (the kernel's dual_attention_launch_info): kind, threads and blocks,
+    dynamic shared memory a block, registers a thread, blocks an SM."""
+    import ctypes
+
+    import torch
+
+    from cadre_tpu_torch.ops import _build
+
+    fn = _build.load("dual_attention").dual_attention_launch_info
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 24)()
+    n = fn(b, p, c, d, int(dtype == torch.bfloat16), ctypes.addressof(out), 4)
+    require(n > 0, f"dual_attention_launch_info: CUDA error {-n}")
+    keys = ("kind", "threads", "blocks", "smem_bytes", "registers",
+            "blocks_per_sm")
+    launches = [dict(zip(keys, out[6 * i:6 * i + 6])) for i in range(n)]
+    for launch in launches:
+        launch["kind"] = LAUNCH_KINDS[launch["kind"]]
+    return launches
+
+
+def _launches_text(launches):
+    return "; ".join(f"{x['kind']} {x['blocks']} x {x['threads']} threads, "
+                     f"{x['registers']} registers, {x['smem_bytes']} B, "
+                     f"{x['blocks_per_sm']} an SM" for x in launches)
+
+
 def _attention_sides(args):
-    """Device ms of the wide forward kernel's CAM blocks alone and of its
-    PAM blocks alone on `args` (graphs of 200 calls of the kernel's side
-    entry, outside the launch counts), which shows the side that sets a
-    shape's pace; {} for a shape of the narrow kernel."""
+    """Device ms of the wide forward kernel's sides alone on `args` (graphs
+    of 200 calls of the kernel's side entry, outside the launch counts):
+    the CAM side and the PAM launch, and in bf16 the CAM's gram, softmax
+    and apply launches each alone, which shows the side and the launch
+    that set a shape's pace; {} for a shape of the narrow kernel. Each
+    side alone writes what the whole kernel writes for it."""
     import ctypes
 
     import torch
@@ -804,34 +857,44 @@ def _attention_sides(args):
     x, q, k, v, gp, xc, gc = args
     b, h, w, c = x.shape
     p, d = h * w, q.shape[-1]
-    if p <= 64 and c <= 128:
+    if da.forward_narrow(p, c):
         return {}
     fn = _build.load("dual_attention").dual_attention_side
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out_p, out_c = torch.empty_like(x), torch.empty_like(xc)
     bf16 = int(x.dtype == torch.bfloat16)
-    times = {}
-    for name, side in (("cam_ms", 1), ("pam_ms", 2)):
-        def call(side=side):
-            _build.check(fn(x.data_ptr(), q.data_ptr(), k.data_ptr(),
-                            v.data_ptr(), gp.data_ptr(), xc.data_ptr(),
-                            gc.data_ptr(), out_p.data_ptr(),
-                            out_c.data_ptr(), b, p, c, d, side, bf16,
-                            _build.cuda_stream(x)), "dual_attention_side")
-        times[name] = device_ms(call)
-    # each side alone writes what the whole kernel writes for it
-    want = da.fused_dual_attention(*args)
-    both = [torch.empty_like(x), torch.empty_like(xc)]
-    for side in (1, 2):
+    n = da.gram_scratch_floats(p, c, x.dtype)
+    scratch = torch.empty(b, max(n, 1), dtype=torch.float32, device=x.device)
+
+    def side(s, out_p, out_c):
         _build.check(fn(x.data_ptr(), q.data_ptr(), k.data_ptr(),
                         v.data_ptr(), gp.data_ptr(), xc.data_ptr(),
-                        gc.data_ptr(), both[0].data_ptr(), both[1].data_ptr(),
-                        b, p, c, d, side, bf16, _build.cuda_stream(x)),
-                     "dual_attention_side")
+                        gc.data_ptr(), out_p.data_ptr(), out_c.data_ptr(),
+                        scratch.data_ptr(), b, p, c, d, s, bf16,
+                        _build.cuda_stream(x)), "dual_attention_side")
+
+    out_p, out_c = torch.empty_like(x), torch.empty_like(xc)
+    names = [("cam_ms", 1), ("pam_ms", 2)]
+    if bf16:
+        names += [("cam_gram_ms", 4), ("cam_softmax_ms", 8),
+                  ("cam_apply_ms", 16)]
+    times = {}
+    for name, s in names:
+        # the softmax and the apply alone read what the runs before left
+        times[name] = device_ms(lambda s=s: side(s, out_p, out_c))
+    want = da.fused_dual_attention(*args)
+    both = [torch.empty_like(x), torch.empty_like(xc)]
+    side(1, *both)
+    side(2, *both)
+    split = torch.empty_like(xc)
+    if bf16:
+        scratch.fill_(float("nan"))
+        for s in (4, 8, 16):
+            side(s, both[0], split)
     torch.cuda.synchronize()
-    require(torch.equal(both[0], want[0]) and torch.equal(both[1], want[1]),
+    require(torch.equal(both[0], want[0]) and torch.equal(both[1], want[1])
+            and (not bf16 or torch.equal(split, want[1])),
             f"dual_attention: a side alone differs from the whole kernel "
             f"at B={b} P={p} C={c}")
     return times
@@ -858,14 +921,20 @@ def check_dual_attention(gen, device):
         p = h * w
         tag = _tag(b, c, d, h, w, dtype)
         smem = da.smem_bytes(b, p, c, d, dtype)
+        launches = _attention_launches(b, p, c, d, dtype)
         args = _attention_inputs(b, c, d, dtype, gen, device, h, w)
         try:
             err_p, err_c, tol = _attention_check(args, bf16)
         except PhaseError as exc:
             raise PhaseError(f"dual_attention {tag}: {exc}") from None
+        want_pam = PAM_KEPT_EDGES.get((c, p)) if bf16 else None
+        require(want_pam in (None, launches[0]["kind"]),
+                f"dual_attention {tag}: the PAM launch is "
+                f"{launches[0]['kind']}, not {want_pam}")
         if ((b, c, d, h, w), dtype) in edges:
             print(f"[3] dual_attention {tag}: max|err| PAM {err_p:.3g} CAM "
-                  f"{err_c:.3g} ({tol}); {smem} B shared memory per block")
+                  f"{err_c:.3g} ({tol}); launches: "
+                  + ", ".join(x["kind"] for x in launches))
             continue
         ms = device_ms(lambda: da.fused_dual_attention(*args))
         sides = _attention_sides(args)
@@ -884,22 +953,38 @@ def check_dual_attention(gen, device):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / peak * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        floor = ""
+        if bf16 and not da.forward_narrow(p, c):
+            # the exact-rounding contract keeps the gram (one chain a
+            # symmetric pair) and the energies (once) on f32 FMA at half
+            # the f32 FLOP rate, beside the applies on the tensor cores
+            fma = b * (p * c * (c + 1) // 2 + p * p * d)
+            contract_ms = max(t_bytes, fma / (FP32_FLOPS / 2) * 1e3,
+                              b * 2.0 * (p * p * c + p * c * c)
+                              / BF16_TC_FLOPS * 1e3)
+            floor = f", contract floor {contract_ms:.5f} ms (f32 FMA chains)"
         print(f"[3] dual_attention {tag}: max|err| PAM {err_p:.3g} CAM "
               f"{err_c:.3g} ({tol}); kernel {ms:.4f} ms, library "
               f"{lib_ms:.4f} ms (graphs of 200 calls); issued one by "
               f"one: kernel {call_ms:.4f} ms, library {lib_call_ms:.4f} "
               f"ms (200 calls), plain {plain_ms:.4f} ms (20 calls); "
-              f"bound {max(t_bytes, t_ops):.5f} ms ({bound_by}); "
+              f"bound {max(t_bytes, t_ops):.5f} ms ({bound_by}){floor}; "
               f"{smem} B shared memory per block")
         if sides:
+            split = ("" if "cam_gram_ms" not in sides else
+                     f" (its gram launch {sides['cam_gram_ms']:.4f} ms, "
+                     f"softmax {sides['cam_softmax_ms']:.4f} ms, apply "
+                     f"{sides['cam_apply_ms']:.4f} ms)")
             print(f"[3] dual_attention {tag}: one side of the wide kernel "
-                  f"alone, CAM blocks {sides['cam_ms']:.4f} ms, PAM blocks "
+                  f"alone, CAM {sides['cam_ms']:.4f} ms{split}, PAM "
                   f"{sides['pam_ms']:.4f} ms (graphs of 200 calls)")
+        print(f"[3] dual_attention {tag}: launches {_launches_text(launches)}")
         shapes[tag] = dict(
             max_abs_err=max(err_p, err_c), ms=ms, call_ms=call_ms,
             plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
             bound_by=bound_by, library_ms=lib_ms,
-            library_call_ms=lib_call_ms, smem_bytes=smem, **sides)
+            library_call_ms=lib_call_ms, smem_bytes=smem,
+            launches_of_call=launches, **sides)
     main = _tag(*ATTENTION_SHAPES[0], torch.bfloat16)
     return dict(
         name="dual_attention", route="cuda",
@@ -5076,11 +5161,38 @@ def carla_camera_step(packed, stats):
                              f"head C=128 Cqk=16 P=475, f32)", "15f")
 
 
+LATENT_PROFILE_CALLS = 5
+
+
+def _k2_share(fn):
+    """K2's device ms per call of fn() and all device ms per call, from
+    torch.profiler over LATENT_PROFILE_CALLS calls: the kernels whose name
+    holds dual_attention against every device op."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(LATENT_PROFILE_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [e for e in prof.key_averages() if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in rows)
+    k2 = sum(e.self_device_time_total for e in rows
+             if "dual_attention" in e.key)
+    require(k2 > 0 and busy > 0, "profile of the latent: no K2 device time")
+    return (k2 / LATENT_PROFILE_CALLS / 1e3, busy / LATENT_PROFILE_CALLS / 1e3)
+
+
 def carla_camera_latent():
     """15g: the bf16 latent (DANet.latent, as the agent runs it) of a
     resnet18 and of a resnet50 DANet on the 800x600 camera at B=N_ENVS,
-    random weights from seeds: frames/s, peak memory and one K2 a call
-    (the head's bf16 P=475 at C=128 and at C=512); then K2 and K3 timed at
+    random weights from seeds: frames/s, peak memory, one K2 a call (the
+    head's bf16 P=475 at C=128 and at C=512) and K2's device time beside
+    the latent's (`_k2_share`); then K2 and K3 timed at
     15f's shape (B=CARLA_CAMERA_BATCH, f32, C=128). Returns the two
     latents' launches."""
     import torch
@@ -5111,10 +5223,16 @@ def carla_camera_latent():
             _finite(f"{backbone} latent on the 800x600 camera", z)
             ms = time_ms(lambda: agent.encoder.latent(x), 10)
             peak = torch.cuda.max_memory_allocated()
+            k2_ms, busy_ms = _k2_share(lambda: agent.encoder.latent(x))
         print(f"[15g] {backbone} encoder on the 800x600 camera, bf16 B="
               f"{N_ENVS} (head C={c} P=475): {ms:.3f} ms, "
               f"{N_ENVS / ms * 1e3:.1f} frames/s; peak memory allocated "
               f"{peak / 2**30:.2f} GiB; launches {launches}")
+        print(f"[15g] {backbone}: K2 {k2_ms:.4f} ms of device time a call "
+              f"(profiler, {LATENT_PROFILE_CALLS} calls), "
+              f"{100 * k2_ms / ms:.2f}% of the latent's {ms:.3f} ms and "
+              f"{100 * k2_ms / busy_ms:.2f}% of its {busy_ms:.3f} ms of "
+              f"device time")
         for name in total:
             total[name] += launches[name]
         del agent, x, z

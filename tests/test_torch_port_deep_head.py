@@ -18,9 +18,12 @@ kernel tests' bounds) and bf16 (within 4 bf16 ulps of each element's
 scale, chip_smoke.py's bound on the card: both sides sum in f32 and
 round the attention to bf16, so a last-bit difference in an energy can
 flip one rounding); the wide forward kernel's algebra
-(`dual_attention_blocked`: two passes over key tiles, position tiles,
-f32 and 3xTF32 products) against the JAX functions at P = 40, 144 and
-475 within the same bounds; the backward kernel's algebra
+(`dual_attention_blocked`: walks over key tiles, position tiles, f32 and
+3xTF32 products; in bf16 the energies formed once and the gram from
+mirrored upper-triangle tiles) against the JAX functions at P = 40, 144
+and 475 within the same bounds; the bf16 order bit for bit at both
+800x600 heads (the mirrored gram and the once-formed energies against
+ordered FMA chains in numpy); the backward kernel's algebra
 (`dual_attention_backward_blocked`, which takes these shapes through the
 wide kernel's streamed blocking) and the plain backward against
 `jax.vjp` in f32 (1e-4 of each gradient's scale, as
@@ -251,6 +254,55 @@ def test_reordered_f32_energies_break_the_bf16_bound(branch):
             torch.bfloat16)
         ours, resid = gc * out.reshape(b, h, w, c) + xc, xc
     assert _bf16_ulps(ours, ref, resid) > BF16_ULP_BOUND
+
+
+def _fma_chains(a, b):
+    """a @ b (batched, numpy float32), each element one chain over the
+    reduction in order: a bf16 x bf16 product is exact in f32, so each
+    float32 `acc + a * b` rounds once, as fmaf does."""
+    acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    for i in range(a.shape[-1]):
+        acc = acc + a[..., i:i + 1] * b[..., i:i + 1, :]
+    return acc
+
+
+# both heads on the 800x600 camera: resnet50's and resnet18's
+CAMERA_HEADS = [SHAPES[4], SHAPES[3]]
+
+
+@pytest.mark.parametrize("case", CAMERA_HEADS,
+                         ids=[SHAPE_IDS[SHAPES.index(c)] for c in CAMERA_HEADS])
+def test_bf16_gram_pairs_and_kept_energies_equal_the_ordered_chains(case):
+    """The wide bf16 forward's order within its exact-rounding contract,
+    bit for bit at the 800x600 heads (B = 2 rows of bf16 inputs): the gram
+    built from upper-triangle tiles and mirrored (`_mirrored_gram`, the
+    gram launch's tiles) equals the whole gram of ordered FMA chains over
+    the positions, which is symmetric bit for bit; and the PAM energies
+    formed once over all keys (`_ordered_products`, kept for the max, the
+    sum and the attention) equal those formed per 64-key tile, as each of
+    the kernel's walks formed them before."""
+    c, d, h, w = case
+    b, p = 2, h * w
+    rng = np.random.RandomState(300 + c)
+
+    def bf16(*shape):
+        t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        return t.to(torch.bfloat16).float().numpy()
+
+    def bits(a):
+        return np.ascontiguousarray(a, np.float32).view(np.uint32)
+
+    x, q, k = bf16(b, p, c), bf16(b, p, d), bf16(b, p, d)
+    whole = _fma_chains(x.transpose(0, 2, 1), x)
+    assert np.array_equal(bits(whole), bits(whole.transpose(0, 2, 1)))
+    tiled = tda._mirrored_gram(torch.from_numpy(x)).numpy()
+    assert np.array_equal(bits(tiled), bits(whole))
+    once = tda._ordered_products(torch.from_numpy(q),
+                                 torch.from_numpy(k).transpose(1, 2)).numpy()
+    per_tile = np.concatenate(
+        [_fma_chains(q, k[:, k0:k0 + 64].transpose(0, 2, 1))
+         for k0 in range(0, p, 64)], axis=-1)
+    assert np.array_equal(bits(once), bits(per_tile))
 
 
 def _want_grads(case):
