@@ -49,6 +49,7 @@ from cadre_tpu_torch.envs.synthetic import (
 from cadre_tpu_torch.envs.town_maps import town_map, trace_dense_route
 from cadre_tpu_torch.ops import paint
 from cadre_tpu_torch.utils.device import resolve_device
+from cadre_tpu_torch.utils.profiling import span
 
 # ---------------------------------------------------------------- constants
 
@@ -1227,5 +1228,6 @@ class DrivingEnv:
     def step(self, state: EnvState, controls: torch.Tensor,
              draws: Optional[StepDraws] = None
              ) -> Tuple[EnvState, StepOutput]:
-        draws = draws if draws is not None else self.draw_step()
-        return step_envs(self.cfg, self.bank, state, controls, draws)
+        with span("env"):
+            draws = draws if draws is not None else self.draw_step()
+            return step_envs(self.cfg, self.bank, state, controls, draws)

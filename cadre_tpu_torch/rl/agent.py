@@ -55,6 +55,7 @@ from cadre_tpu_torch.rl.rollout import Minibatch, RolloutBuffer, insert
 from cadre_tpu_torch.utils import checkpoint as ckpt
 from cadre_tpu_torch.utils.convert import policy_from_flax, policy_to_flax
 from cadre_tpu_torch.utils.device import resolve_device
+from cadre_tpu_torch.utils.profiling import span
 
 Gumbel = Tuple[torch.Tensor, torch.Tensor]      # (steer [N, A], throttle)
 StateDict = Dict[str, torch.Tensor]
@@ -163,9 +164,10 @@ class CadreAgent:
 
     def encode(self, obs: dict) -> torch.Tensor:
         """obs (rgb, route_fig, measurements) -> features [N, obs_dim]."""
-        x = preprocess_obs(obs["rgb"], obs["route_fig"],
-                           blank_route=self.danet_cfg.in_route_blank)
-        return latent_features(self.encoder, x, obs["measurements"])
+        with span("encode"):
+            x = preprocess_obs(obs["rgb"], obs["route_fig"],
+                               blank_route=self.danet_cfg.in_route_blank)
+            return latent_features(self.encoder, x, obs["measurements"])
 
     def act_from_hist(self, feat_hist: torch.Tensor, commands: torch.Tensor,
                       hidden: Carry, steer_gumbel: torch.Tensor,

@@ -37,6 +37,7 @@ from cadre_tpu_torch.rl.agent import CadreAgent
 from cadre_tpu_torch.rl.distributions import gumbel
 from cadre_tpu_torch.rl.fused_update import Perms, make_fused_iteration_update
 from cadre_tpu_torch.rl.rollout import RolloutBuffer
+from cadre_tpu_torch.utils.profiling import span
 
 
 class DeviceCarry(NamedTuple):
@@ -245,7 +246,8 @@ def make_device_iteration(agent: CadreAgent, env: DrivingEnv,
         carry, steer_buf, throttle_buf, next_values, m = rollout(carry, draws)
         _sync(agent.device)
         rollout_seconds = time.perf_counter() - t0
-        aux = update(opt, steer_buf, throttle_buf, next_values, perms)
+        with span("update"):
+            aux = update(opt, steer_buf, throttle_buf, next_values, perms)
         with torch.no_grad():
             # the JAX checksum's first params leaf: steer control fc1 bias
             checksum = (steer_buf.reward.sum() + throttle_buf.reward.sum()

@@ -18,6 +18,7 @@ import torch
 
 from cadre_tpu_torch.models.policy import PolicyBank
 from cadre_tpu_torch.rl.rollout import Minibatch
+from cadre_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,13 +101,16 @@ def update_step(steer: PolicyBank, throttle: PolicyBank,
     Adam moves every bank on every step, as optax does. `grad_reduce`
     combines the gradients over data-parallel ranks in place before the
     clip (parallel/mesh.py: a sum or a mean)."""
-    total, aux = ppo_loss(steer, throttle, steer_mb, throttle_mb, cfg)
+    with span("update/loss"):
+        total, aux = ppo_loss(steer, throttle, steer_mb, throttle_mb, cfg)
     params = [p for group in opt.param_groups for p in group["params"]]
-    grads = list(torch.autograd.grad(total, params))
+    with span("update/backward"):
+        grads = list(torch.autograd.grad(total, params))
     if grad_reduce is not None:
         grad_reduce(grads)
-    clip_by_global_norm_(grads, cfg.max_grad_norm)
-    for p, g in zip(params, grads):
-        p.grad = g
-    opt.step()
+    with span("update/optim"):
+        clip_by_global_norm_(grads, cfg.max_grad_norm)
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
     return LossAux(*(x.detach() for x in aux))
