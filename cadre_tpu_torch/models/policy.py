@@ -2,9 +2,12 @@
 
 PyTorch counterpart of cadre_tpu.models.policy for the device iteration.
 One `PolicyBank` holds the parameters of all command banks of one signal
-(steer or throttle) stacked on a leading command axis; `act_batch` and
-`evaluate_masked` evaluate every bank densely over the batch and keep each
-sample's own bank, as the JAX package's `PolicyBankDef` does.
+(steer or throttle) stacked on a leading command axis. `act_batch`
+evaluates every bank densely over the batch and keeps each sample's own
+bank, as the JAX package's `PolicyBankDef` does; the update's
+`evaluate_masked` routes each sample through its own command's bank
+alone, which gives the same terms and gradients without the other banks'
+work.
 
   memory:   'lstm' (the reference's): torch nn.LSTMCell semantics (gates
             i, f, g, o; two biases), orthogonal weights, zero biases;
@@ -20,7 +23,7 @@ sample's own bank, as the JAX package's `PolicyBankDef` does.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -239,6 +242,22 @@ def memory_kind(memory: str = "lstm", use_lstm: bool = True) -> str:
     return memory if use_lstm else "none"
 
 
+def group_by_command(commands: torch.Tensor, banks: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows grouped by their command along the last axis: (order, counts),
+    `order` the stable sort of `commands` (bank 0's rows first, each
+    bank's in the order they came), `counts` [..., banks] each bank's
+    rows. Neither waits for the device."""
+    order = torch.sort(commands, dim=-1, stable=True).indices
+    counts = nn.functional.one_hot(commands.long(), banks).sum(-2)
+    return order, counts
+
+
+def read_bank_rows(counts: torch.Tensor) -> list:
+    """The routing's one host read: `counts` as nested lists of ints."""
+    return counts.tolist()
+
+
 class PolicyOutput(NamedTuple):
     action: torch.Tensor       # [N] int64
     log_prob: torch.Tensor     # [N]
@@ -271,7 +290,11 @@ class PolicyBank(nn.Module):
         self.critic_fc2 = BankedLinear(c, hidsize, hidsize, 1.0)
         self.critic_fc3 = BankedLinear(c, hidsize, 1, 1.0)
 
-    def _all_banks(self, obs_seq: torch.Tensor, carry: Carry):
+    @property
+    def num_banks(self) -> int:
+        return self.critic_fc3.weight.shape[0]
+
+    def forward(self, obs_seq: torch.Tensor, carry: Carry):
         """Every bank on every env: (logits [C, N, A], values [C, N], the
         LSTM's carry ([C, N, F], [C, N, F]), None for the other memories).
         """
@@ -297,7 +320,7 @@ class PolicyBank(nn.Module):
         """All banks densely, then each env's own: obs_seq [T, N, F],
         commands [N] -> (logits [N, A], value [N], carry ([N, F], [N, F]):
         the LSTM's, or `carry` itself for the other memories)."""
-        logits_c, values_c, new_carry = self._all_banks(obs_seq, carry)
+        logits_c, values_c, new_carry = self(obs_seq, carry)
         idx = (commands.long(), torch.arange(obs_seq.shape[1],
                                              device=obs_seq.device))
         if new_carry is not None:
@@ -305,21 +328,43 @@ class PolicyBank(nn.Module):
         return logits_c[idx], values_c[idx], carry
 
     def evaluate_masked(self, obs_seq: torch.Tensor, carry: Carry,
-                        action: torch.Tensor, commands: torch.Tensor):
-        """The update's forward pass (JAX `evaluate_masked`): every bank on
-        every sample, each sample keeping its own bank's terms through a
-        one-hot mask summed over banks, so every bank's parameters get a
-        dense gradient (zero where no sample has its command).
-        obs_seq [T, B, F], carry ([B, F], [B, F]), action and commands [B]
-        -> (value, log_prob, entropy), each [B]."""
-        logits_c, values_c, _ = self._all_banks(obs_seq, carry)
-        lps = categorical_log_prob(logits_c,
-                                   action.expand(logits_c.shape[:2]))
-        ents = categorical_entropy(logits_c)
-        onehot = torch.nn.functional.one_hot(
-            commands.long(), logits_c.shape[0]).to(values_c.dtype).T
-        return ((values_c * onehot).sum(0), (lps * onehot).sum(0),
-                (ents * onehot).sum(0))
+                        action: torch.Tensor, commands: torch.Tensor,
+                        bank_rows: Optional[Sequence[int]] = None):
+        """The update's forward pass (JAX `evaluate_masked`): each sample
+        through its own command's bank only. obs_seq [T, B, F], carry
+        ([B, F], [B, F]), action and commands [B] -> (value, log_prob,
+        entropy), each [B] in the samples' order.
+
+        `bank_rows` (C host ints) says the samples come grouped by command:
+        bank 0's first, then bank 1's, and so on. Without it, or where it
+        does not add up to B, the samples are grouped here, with one host
+        read of the counts. Bank c runs on its rows through its own
+        parameters, `p[c:c + 1]`, and a bank with no rows is skipped, so
+        every bank's parameters still get a dense gradient: exact zeros
+        for a bank no sample uses, as the dense one-hot mask gives."""
+        order = None
+        if bank_rows is None or sum(bank_rows) != action.shape[0]:
+            order, counts = group_by_command(commands, self.num_banks)
+            bank_rows = read_bank_rows(counts)
+            obs_seq, action = obs_seq[:, order], action[order]
+            carry = (carry[0][order], carry[1][order])
+        params = dict(self.named_parameters())
+        terms, start = [], 0
+        for c, n in enumerate(bank_rows):
+            if not n:
+                continue
+            rows = slice(start, start + n)
+            start += n
+            logits, values, _ = torch.func.functional_call(
+                self, {k: p[c:c + 1] for k, p in params.items()},
+                (obs_seq[:, rows], (carry[0][rows], carry[1][rows])))
+            terms.append(torch.stack([
+                values[0], categorical_log_prob(logits[0], action[rows]),
+                categorical_entropy(logits[0])]))
+        terms = torch.cat(terms, dim=1)
+        if order is not None:
+            terms = terms[:, torch.argsort(order)]
+        return terms[0], terms[1], terms[2]
 
     def sample_members(self, members: int, obs_seq: torch.Tensor,
                        commands: torch.Tensor, carry: Carry,
@@ -329,7 +374,7 @@ class PolicyBank(nn.Module):
         every env in one pass, then each member's bank of each env's
         command. obs_seq [T, N, F], commands [N], gumbel [K, N, A] ->
         actions [K, N]."""
-        logits_c, _, _ = self._all_banks(obs_seq, carry)      # [K*C, N, A]
+        logits_c, _, _ = self(obs_seq, carry)      # [K*C, N, A]
         n = commands.shape[0]
         dev = logits_c.device
         banks = logits_c.shape[0] // members

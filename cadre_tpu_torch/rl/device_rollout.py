@@ -79,6 +79,9 @@ class IterationMetrics(NamedTuple):
     red_lights: torch.Tensor       # red-light infractions of done episodes
     checksum: torch.Tensor         # rewards + the first policy leaf's sum
     rollout_seconds: float         # host clock, rollout half synchronised
+    # the update's rows per bank over every minibatch step, (steer,
+    # throttle) [C] host ints: how the update routed its rows
+    update_bank_rows: Optional[list] = None
 
 
 def advance_hist(feat_hist: torch.Tensor, feats: torch.Tensor,
@@ -259,7 +262,8 @@ def make_device_iteration(agent: CadreAgent, env: DrivingEnv,
             mean_throttle_reward=m.mean_throttle_reward,
             episodes_done=m.episodes_done, completion_sum=m.completion_sum,
             error_hist=m.error_hist, red_lights=m.red_lights,
-            checksum=checksum, rollout_seconds=rollout_seconds)
+            checksum=checksum, rollout_seconds=rollout_seconds,
+            update_bank_rows=update.bank_rows)
         return carry, metrics
 
     return iteration, init_carry

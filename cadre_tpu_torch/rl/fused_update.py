@@ -6,8 +6,12 @@ signals, advantage normalisation, ppo_epoch x mini_batch_num minibatch
 steps over epoch-major row permutations (separate ones for steer and
 throttle, remainder rows dropped), each a gather, the loss, the gradients
 of both banks, a global-norm clip and an Adam step; then the means of the
-loss terms over every step. Nothing reads a device value back on the host,
-so the loop issues its work without waiting for the device.
+loss terms over every step. Each minibatch's rows are ordered by their
+command (stable) inside the gather it already makes, so that each bank
+runs on its own rows alone (`PolicyBank.evaluate_masked`); the rows each
+bank has in every minibatch, of both signals, are read back on the host
+once, before the first step. That is the update's one wait for the
+device; the loop then issues its work without waiting.
 
 With a mesh (parallel/mesh.py), its sharded branch: each rank's buffers
 hold its own envs; it permutes and minibatches its own rows from a
@@ -24,7 +28,11 @@ import numpy as np
 import torch
 
 from cadre_tpu_torch.configs.agent_config import RolloutConfig
-from cadre_tpu_torch.models.policy import PolicyBank
+from cadre_tpu_torch.models.policy import (
+    PolicyBank,
+    group_by_command,
+    read_bank_rows,
+)
 from cadre_tpu_torch.parallel.mesh import Mesh, mean_reduce_, sum_reduce_
 from cadre_tpu_torch.rl.ppo import LossAux, PPOConfig, update_step
 from cadre_tpu_torch.rl.rollout import (
@@ -77,7 +85,9 @@ def make_fused_iteration_update(steer: PolicyBank, throttle: PolicyBank,
     """Returns
     update(opt, steer_buf, throttle_buf, next_values, perms=None) -> LossAux
     of means over every minibatch step; the banks' parameters and `opt`'s
-    state are updated in place.
+    state are updated in place. After a call, `update.bank_rows` holds
+    its rows per bank summed over every minibatch step, (steer, throttle)
+    [C] host ints (this rank's rows with a mesh).
 
     `perms` (steer, throttle) [E*M, B] int64 row indices replace the
     permutations, which otherwise come from a generator on the banks'
@@ -109,15 +119,30 @@ def make_fused_iteration_update(steer: PolicyBank, throttle: PolicyBank,
                                      rollout_cfg.mini_batch_num, gen, device)
                           for _ in range(2))
         s_idx, t_idx = perms
+        commands = torch.stack([_flat_command(steer_buf)[s_idx],
+                                _flat_command(throttle_buf)[t_idx]], dim=1)
+        order, counts = group_by_command(commands, steer.num_banks)
+        s_idx = s_idx.gather(1, order[:, 0])
+        t_idx = t_idx.gather(1, order[:, 1])
+        rows = read_bank_rows(counts)                  # [E*M][2][C]
         auxes = []
-        for si, ti in zip(s_idx, t_idx):
+        for si, ti, r in zip(s_idx, t_idx, rows):
             s_mb = gather_minibatch_batched(steer_buf, s_ret, s_adv, si)
             t_mb = gather_minibatch_batched(throttle_buf, t_ret, t_adv, ti)
-            auxes.append(torch.stack(update_step(steer, throttle, opt, s_mb,
-                                                 t_mb, cfg, grad_reduce)))
+            auxes.append(torch.stack(update_step(
+                steer, throttle, opt, s_mb, t_mb, cfg, grad_reduce,
+                bank_rows=r)))
+        update.bank_rows = np.sum(rows, axis=0).tolist()
         aux = torch.stack(auxes).mean(dim=0)
         if mesh is not None:
             mean_reduce_([aux], mesh)
         return LossAux(*aux)
 
+    update.bank_rows = None
     return update
+
+
+def _flat_command(buf: RolloutBuffer) -> torch.Tensor:
+    """The commands of the buffer's T*N rows, flattened row-major as
+    gather_minibatch_batched indexes them."""
+    return buf.command[:buf.num_steps].reshape(-1)

@@ -1,9 +1,10 @@
 """Clipped-surrogate PPO loss and optimizer step for the dual steer /
 throttle command banks.
 
-PyTorch counterpart of cadre_tpu.rl.ppo (unsharded): for each signal every
-command bank is evaluated on the minibatch and each sample keeps its own
-bank's terms (`PolicyBank.evaluate_masked`); ratio clip at `clip`, clipped
+PyTorch counterpart of cadre_tpu.rl.ppo (unsharded): for each signal each
+sample of the minibatch goes through its own command's bank alone
+(`PolicyBank.evaluate_masked`, the terms and gradients of the JAX
+package's dense one-hot mask); ratio clip at `clip`, clipped
 value loss 0.5*max(sq, sq_clipped), losses summed over the two signals,
 total = value_coeff*value + clip_coeff*action - ent_coeff*entropy. The
 gradients of both banks are clipped together by their global norm
@@ -12,13 +13,15 @@ gradients of both banks are clipped together by their global norm
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from cadre_tpu_torch.models.policy import PolicyBank
 from cadre_tpu_torch.rl.rollout import Minibatch
 from cadre_tpu_torch.utils.profiling import span
+
+BankRows = Tuple[Sequence[int], Sequence[int]]   # (steer, throttle) [C]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,10 +47,11 @@ class LossAux(NamedTuple):
     entropy_loss: torch.Tensor
 
 
-def _signal_loss(bank: PolicyBank, mb: Minibatch, clip: float):
+def _signal_loss(bank: PolicyBank, mb: Minibatch, clip: float,
+                 bank_rows: Optional[Sequence[int]] = None):
     """One signal's clipped surrogate + clipped value loss + entropy."""
     values, log_prob, entropy = bank.evaluate_masked(
-        mb.obs_seq, mb.hidden, mb.action, mb.command)
+        mb.obs_seq, mb.hidden, mb.action, mb.command, bank_rows)
     ratio = torch.exp(log_prob - mb.old_log_prob)
     surr1 = ratio * mb.advantage
     surr2 = torch.clamp(ratio, 1.0 - clip, 1.0 + clip) * mb.advantage
@@ -61,10 +65,14 @@ def _signal_loss(bank: PolicyBank, mb: Minibatch, clip: float):
 
 
 def ppo_loss(steer: PolicyBank, throttle: PolicyBank, steer_mb: Minibatch,
-             throttle_mb: Minibatch, cfg: PPOConfig):
-    """(total loss over both signals, LossAux)."""
-    sv, sa, se = _signal_loss(steer, steer_mb, cfg.clip)
-    tv, ta, te = _signal_loss(throttle, throttle_mb, cfg.clip)
+             throttle_mb: Minibatch, cfg: PPOConfig,
+             bank_rows: Optional[BankRows] = None):
+    """(total loss over both signals, LossAux). `bank_rows`, (steer,
+    throttle) rows per bank, says each minibatch comes grouped by command
+    (`PolicyBank.evaluate_masked`)."""
+    s_rows, t_rows = bank_rows or (None, None)
+    sv, sa, se = _signal_loss(steer, steer_mb, cfg.clip, s_rows)
+    tv, ta, te = _signal_loss(throttle, throttle_mb, cfg.clip, t_rows)
     value_loss = (sv + tv) * cfg.value_coeff
     action_loss = (sa + ta) * cfg.clip_coeff
     ent_loss = (se + te) * cfg.ent_coeff
@@ -95,14 +103,16 @@ def update_step(steer: PolicyBank, throttle: PolicyBank,
                 opt: torch.optim.Optimizer, steer_mb: Minibatch,
                 throttle_mb: Minibatch, cfg: PPOConfig,
                 grad_reduce: Optional[Callable[[List[torch.Tensor]], None]]
-                = None) -> LossAux:
+                = None, bank_rows: Optional[BankRows] = None) -> LossAux:
     """One minibatch step: loss, gradients of both banks, global-norm clip
     at cfg.max_grad_norm, Adam. Every parameter gets a dense gradient, so
     Adam moves every bank on every step, as optax does. `grad_reduce`
     combines the gradients over data-parallel ranks in place before the
-    clip (parallel/mesh.py: a sum or a mean)."""
+    clip (parallel/mesh.py: a sum or a mean); `bank_rows` as `ppo_loss`
+    takes it."""
     with span("update/loss"):
-        total, aux = ppo_loss(steer, throttle, steer_mb, throttle_mb, cfg)
+        total, aux = ppo_loss(steer, throttle, steer_mb, throttle_mb, cfg,
+                              bank_rows)
     params = [p for group in opt.param_groups for p in group["params"]]
     with span("update/backward"):
         grads = list(torch.autograd.grad(total, params))

@@ -29,12 +29,17 @@ from cadre_tpu.rl import rollout as jro
 from cadre_tpu_torch.configs.agent_config import RolloutConfig, TrainConfig
 from cadre_tpu_torch.configs.danet_config import danet_params
 from cadre_tpu_torch.envs import torch_env
+from cadre_tpu_torch.models import policy
 from cadre_tpu_torch.models.policy import PolicyBank
 from cadre_tpu_torch.rl import fused_update, ppo, rollout
 from cadre_tpu_torch.rl.agent import CadreAgent
 from cadre_tpu_torch.rl.device_rollout import (
     make_device_iteration,
     train_device,
+)
+from cadre_tpu_torch.rl.distributions import (
+    categorical_entropy,
+    categorical_log_prob,
 )
 from cadre_tpu_torch.utils.convert import policy_from_flax
 from test_torch_port_slice import (
@@ -200,6 +205,125 @@ def test_evaluate_masked_matches_jax():
                                             mb.command)
         for o, r in zip(ours, ref):
             np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-5)
+
+
+def _dense_masked(bank, obs_seq, carry, action, commands):
+    """The one-hot formula evaluate_masked routes around: every bank on
+    every sample, each sample's own bank's terms kept by a mask summed
+    over banks."""
+    logits_c, values_c, _ = bank(obs_seq, carry)
+    lps = categorical_log_prob(logits_c, action.expand(logits_c.shape[:2]))
+    ents = categorical_entropy(logits_c)
+    onehot = torch.nn.functional.one_hot(
+        commands, logits_c.shape[0]).to(values_c.dtype).T
+    return ((values_c * onehot).sum(0), (lps * onehot).sum(0),
+            (ents * onehot).sum(0))
+
+
+@pytest.mark.parametrize("commands", ["mixed_one_empty", "one_bank"])
+@pytest.mark.parametrize("ordinal", [False, True])
+@pytest.mark.parametrize("memory", ["lstm", "transformer", "none"])
+def test_routed_evaluate_masked_matches_the_dense_mask(memory, ordinal,
+                                                       commands):
+    """Each sample through its own bank alone against the dense one-hot
+    formula: values, log-probs, entropies and every parameter's gradient
+    (of a random weighting of the three) within f32 rounding, both when
+    evaluate_masked groups the samples itself and when they come grouped
+    with their counts. A bank no sample uses gets an exact zero gradient
+    of its parameter's shape."""
+    torch.manual_seed(11)
+    b, seq, f = 23, 4, 16
+    bank = PolicyBank(4, 5, f, memory=memory, ordinal=ordinal)
+    obs = torch.randn(seq, b, f)
+    carry = (0.5 * torch.randn(b, f), 0.5 * torch.randn(b, f))
+    action = torch.randint(0, 5, (b,))
+    if commands == "one_bank":
+        cmd = torch.full((b,), 2, dtype=torch.long)
+    else:
+        cmd = torch.tensor([3, 0, 3, 3, 1] * 5)[:b]          # bank 2 empty
+    weights = torch.randn(3, b)
+    params = dict(bank.named_parameters())
+
+    def terms_and_grads(fn, *args, order=slice(None)):
+        out = fn(*args)
+        loss = sum((w[order] * t).sum() for w, t in zip(weights, out))
+        return out, dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+
+    ref, ref_g = terms_and_grads(_dense_masked, bank, obs, carry, action,
+                                 cmd)
+    order = torch.sort(cmd, stable=True).indices
+    rows = torch.bincount(cmd, minlength=4).tolist()
+    grouped = (obs[:, order], (carry[0][order], carry[1][order]),
+               action[order], cmd[order])
+    routed = [terms_and_grads(bank.evaluate_masked, obs, carry, action, cmd)]
+    out, g = terms_and_grads(bank.evaluate_masked, *grouped, rows,
+                             order=order)
+    routed.append((tuple(t[torch.argsort(order)] for t in out), g))
+    empty = [c for c in range(4) if rows[c] == 0]
+    assert empty
+    # the attention key biases' gradient is zero but for rounding: their
+    # bound takes a floor from the largest gradient
+    floor = 1e-7 * max(float(r.abs().max()) for r in ref_g.values())
+    for out, grads in routed:
+        for o, r in zip(out, ref):
+            torch.testing.assert_close(o, r, rtol=1e-5, atol=1e-5)
+        for k, r in ref_g.items():
+            assert grads[k].shape == params[k].shape, k
+            bound = 1e-5 * float(r.abs().max()) + floor
+            assert float((grads[k] - r).abs().max()) <= bound, k
+            for c in empty:
+                assert torch.equal(grads[k][c], torch.zeros_like(r[c])), k
+
+
+def _bank_rows_of(minibatches):
+    """Rows per bank of recorded minibatches' commands, summed."""
+    return torch.stack([torch.bincount(c, minlength=4)
+                        for c in minibatches]).sum(0).tolist()
+
+
+def test_fused_update_reads_bank_rows_once(monkeypatch):
+    """The fused update's per-bank rows equal the bincount of the commands
+    of the minibatches it gathered and add up to E x M x B per signal;
+    they are read from the device once per update, whatever the number
+    of minibatch steps, and evaluate_masked reads nothing more."""
+    _, _, banks = _banks()
+    arrays = {s: _buffer_arrays(40 + i, a)
+              for i, (s, a) in enumerate(OUTPUTS.items())}
+    for a in arrays.values():
+        a["command"][:T] = np.minimum(a["command"][:T], 2)   # bank 3 empty
+    reads, gathered = [], []
+    read = policy.read_bank_rows
+    gather = fused_update.gather_minibatch_batched
+
+    def counted(counts):
+        reads.append(counts.shape)
+        return read(counts)
+
+    def recorded(buf, ret, adv, idx):
+        mb = gather(buf, ret, adv, idx)
+        gathered.append(mb.command)
+        return mb
+
+    monkeypatch.setattr(policy, "read_bank_rows", counted)
+    monkeypatch.setattr(fused_update, "read_bank_rows", counted)
+    monkeypatch.setattr(fused_update, "gather_minibatch_batched", recorded)
+    update = fused_update.make_fused_iteration_update(
+        banks["steer"], banks["throttle"], ppo.PPOConfig(ppo_epoch=2),
+        RolloutConfig(num_steps=T, mini_batch_num=3, seq_length=SEQ,
+                      feature_dims=F), seed=2)
+    opt = ppo.make_optimizer(_params(banks), ppo.PPOConfig())
+    eff_mb, b = fused_update.minibatch_layout(T * N, 3)
+    for call in (1, 2):
+        gathered.clear()
+        update(opt, _port_buffer(arrays["steer"]),
+               _port_buffer(arrays["throttle"]),
+               (torch.zeros(N), torch.zeros(N)))
+        assert reads == [(2 * eff_mb, 2, 4)] * call
+        want = [_bank_rows_of(gathered[0::2]), _bank_rows_of(gathered[1::2])]
+        assert update.bank_rows == want
+        for rows in update.bank_rows:
+            assert sum(rows) == 2 * eff_mb * b and rows[3] == 0
 
 
 def test_ppo_loss_and_gradients_match_jax():
@@ -481,6 +605,32 @@ def test_train_device_two_iterations(tmp_path):
         steps.append(carry.env_state.step.clone())
     assert not torch.equal(steps[0], steps[1])
     assert not torch.equal(steps[1], steps[2])
+
+
+def test_iteration_reports_update_bank_rows(monkeypatch):
+    """IterationMetrics.update_bank_rows: the rows each bank had over the
+    update's minibatch steps, per signal, as gathered; the device env
+    gives every env command 3, so bank 3 has all E x M x B rows."""
+    gathered = []
+    gather = fused_update.gather_minibatch_batched
+
+    def recorded(buf, ret, adv, idx):
+        mb = gather(buf, ret, adv, idx)
+        gathered.append(mb.command)
+        return mb
+
+    monkeypatch.setattr(fused_update, "gather_minibatch_batched", recorded)
+    agent, env = _small_setup()
+    rollout_cfg = RolloutConfig(num_steps=4)
+    iteration, init_carry = make_device_iteration(
+        agent, env, rollout_cfg, TrainConfig(ppo_epoch=2))
+    _, m = iteration(agent.opt, init_carry())
+    eff_mb, b = fused_update.minibatch_layout(4 * env.num_envs,
+                                              rollout_cfg.mini_batch_num)
+    rows = 2 * eff_mb * b
+    assert m.update_bank_rows == [_bank_rows_of(gathered[0::2]),
+                                  _bank_rows_of(gathered[1::2])]
+    assert m.update_bank_rows == [[0, 0, 0, rows]] * 2
 
 
 def test_cli_trains_and_saves_a_snapshot(tmp_path):
