@@ -21,6 +21,10 @@ convolutions run NCHW (channels_last in memory where the caller moves the
 module so); every flatten is NCHW order, the JAX `flatten_nchw`. The
 forward returns the JAX dict: decoder maps NHWC [B, H, W, K] (views of
 the NCHW results, free under channels_last), heads [B, K] or [B].
+`fold_batch_norms` turns an eval-mode net's latent path into its frozen
+inference form: the backbone's and DANetHead's BatchNorms folded into
+their convolutions, whose bias, residual add and ReLU then run in the
+convolution's epilogue on CUDA tensors (`resnet.FoldedBackbone`).
 
 Train mode: BatchNorm uses the batch and folds flax's running statistics
 (torch_compat.BatchNorm2d); DANetHead drops whole channels (Dropout2d(0.1),
@@ -37,7 +41,12 @@ import torch
 from torch import nn
 
 from cadre_tpu_torch.configs.danet_config import DANetParams
-from cadre_tpu_torch.models.resnet import ResNetBackbone, out_channels
+from cadre_tpu_torch.models.resnet import (
+    FoldedBackbone,
+    FoldedConv,
+    ResNetBackbone,
+    out_channels,
+)
 from cadre_tpu_torch.models.torch_compat import (
     LEAKY_SLOPE,
     BatchNorm2d,
@@ -463,3 +472,23 @@ class DANet(nn.Module):
         _, att_bc = self._zs(x, self._masks(x, masks, generator))
         bc = self.bc_branch(self._speed(att_bc, bc_speed))
         return bc[:, 0], bc[:, 1]
+
+
+def fold_batch_norms(net: DANet) -> DANet:
+    """`net`, in eval mode, with its latent path folded in place: the
+    backbone as `FoldedBackbone`, DANetHead's conv5a, conv5c, conv51 and
+    conv52 each one `FoldedConv` (BatchNorm folded, ReLU in the epilogue).
+    The latent is the unfolded net's to float32 rounding. The folded net
+    is frozen: it has no BatchNorm keys, and takes conv biases that a
+    training checkpoint lacks, so `load_state_dict` of such a checkpoint
+    into it fails instead of leaving it stale. The decoders, which the
+    latent does not run, keep their BatchNorms."""
+    if net.training:
+        raise ValueError("fold_batch_norms takes a net in eval mode: a "
+                         "training-mode BatchNorm normalises by the batch")
+    net.backbone = FoldedBackbone(net.backbone)
+    head = net.da_head
+    for name in ("conv5a", "conv5c", "conv51", "conv52"):
+        conv, bn, _ = getattr(head, name)
+        setattr(head, name, FoldedConv.of(conv, bn))
+    return net

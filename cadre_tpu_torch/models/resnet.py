@@ -8,13 +8,24 @@ defaults already give what the JAX package's torch_compat helpers
 emulate: symmetric integer padding and max pooling padded with -inf.
 BatchNorm is `torch_compat.BatchNorm2d` (eps 1e-5, flax's running-variance
 update in train mode).
+
+The frozen copy that the RL agent runs on the card is `FoldedBackbone`:
+every eval-mode BatchNorm folded into the convolution before it, and the
+bias, the residual add and the ReLU run in the convolution's epilogue
+(`ops/conv_epilogue.py`), so BatchNorm, the add and the ReLU make no pass
+of their own over the maps. It holds no BatchNorm.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils.fusion import fuse_conv_bn_weights
 
 from cadre_tpu_torch.models.torch_compat import BatchNorm2d
+from cadre_tpu_torch.ops.conv_epilogue import conv_bias_relu
 
 _STAGE_PLANES = (64, 128, 256, 512)
 
@@ -109,4 +120,100 @@ class ResNetBackbone(nn.Module):
     def forward(self, x):
         x = torch.relu(self.bn1(self.conv1(x)))
         x = nn.functional.max_pool2d(x, 3, 2, 1)
+        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+
+
+def fold_batch_norm(conv: nn.Conv2d, bn: nn.BatchNorm2d
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The eval-mode BatchNorm after `conv` folded into it, in float64:
+    (w * s, beta + (b - mean) * s) with s = gamma / sqrt(var + eps) per
+    output channel (b = 0 for a convolution without a bias)."""
+    def f64(t):
+        return None if t is None else t.detach().double()
+
+    weight, bias = fuse_conv_bn_weights(
+        f64(conv.weight), f64(conv.bias), f64(bn.running_mean),
+        f64(bn.running_var), bn.eps, f64(bn.weight), f64(bn.bias))
+    return weight.detach(), bias.detach()
+
+
+class FoldedConv(nn.Module):
+    """A frozen convolution (undilated and ungrouped, as every one of the
+    backbone's and DANetHead's is; others are refused) with its BatchNorm
+    folded in, from the float64 fold rounded once to the convolution's
+    dtype. With a bias it is
+    relu(conv(x) + bias [+ z]) in one fused convolution (`conv_bias_relu`);
+    without one (a downsample branch, whose folded bias the block's last
+    convolution adds) the bare convolution."""
+
+    def __init__(self, conv: nn.Conv2d, weight: torch.Tensor,
+                 bias: Optional[torch.Tensor]):
+        super().__init__()
+        if conv.dilation != (1, 1) or conv.groups != 1:
+            raise ValueError("FoldedConv takes an undilated, ungrouped "
+                             f"convolution, not dilation {conv.dilation}, "
+                             f"groups {conv.groups}")
+        dtype = conv.weight.dtype
+        self.weight = nn.Parameter(weight.to(dtype), requires_grad=False)
+        self.bias = None if bias is None else \
+            nn.Parameter(bias.to(dtype), requires_grad=False)
+        self.stride, self.padding = conv.stride, conv.padding
+
+    @classmethod
+    def of(cls, conv: nn.Conv2d, bn: nn.BatchNorm2d) -> "FoldedConv":
+        return cls(conv, *fold_batch_norm(conv, bn))
+
+    def forward(self, x: torch.Tensor,
+                z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.bias is None:
+            return F.conv2d(x, self.weight, None, self.stride, self.padding)
+        return conv_bias_relu(x, self.weight, self.bias, self.stride,
+                              self.padding, z)
+
+
+class FoldedBlock(nn.Module):
+    """A BasicBlock or Bottleneck folded: conv1, conv2 (and conv3) as
+    FoldedConvs, the last adding the identity before its ReLU. A
+    downsample branch is its bare convolution; its folded bias joins the
+    last convolution's."""
+
+    def __init__(self, block: nn.Module):
+        super().__init__()
+        names = [n for n in ("conv1", "conv2", "conv3") if hasattr(block, n)]
+        self.downsample = None
+        carried = 0.0
+        if block.downsample is not None:
+            conv, bn = block.downsample
+            weight, carried = fold_batch_norm(conv, bn)
+            self.downsample = FoldedConv(conv, weight, None)
+        for i, name in enumerate(names, 1):
+            conv = getattr(block, name)
+            weight, bias = fold_batch_norm(conv, getattr(block, f"bn{i}"))
+            if i == len(names):
+                bias = bias + carried
+            setattr(self, name, FoldedConv(conv, weight, bias))
+        self.convs = names
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        out = x
+        for name in self.convs[:-1]:
+            out = getattr(self, name)(out)
+        return getattr(self, self.convs[-1])(out, identity)
+
+
+class FoldedBackbone(nn.Module):
+    """`ResNetBackbone` in eval mode, folded (module docstring): its stem
+    and every block, under the same names, with no BatchNorm."""
+
+    def __init__(self, backbone: ResNetBackbone):
+        super().__init__()
+        self.conv1 = FoldedConv.of(backbone.conv1, backbone.bn1)
+        for stage in range(1, 5):
+            blocks = getattr(backbone, f"layer{stage}")
+            setattr(self, f"layer{stage}",
+                    nn.Sequential(*[FoldedBlock(b) for b in blocks]))
+
+    def forward(self, x):
+        x = F.max_pool2d(self.conv1(x), 3, 2, 1)
         return self.layer4(self.layer3(self.layer2(self.layer1(x))))

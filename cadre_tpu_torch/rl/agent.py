@@ -42,7 +42,7 @@ import torch
 
 from cadre_tpu_torch.configs.agent_config import AgentConfig
 from cadre_tpu_torch.configs.danet_config import DANetParams, danet_params
-from cadre_tpu_torch.models.danet import DANet
+from cadre_tpu_torch.models.danet import DANet, fold_batch_norms
 from cadre_tpu_torch.models.policy import (
     Carry,
     PolicyBank,
@@ -133,8 +133,12 @@ class CadreAgent:
         untouched); `encoder_state`, a DANet state_dict (a trained
         encoder's, `utils.checkpoint.load_danet_checkpoint`), replaces the
         encoder's: every key of the latent path must be there, decoder and
-        head keys are ignored. `bf16_encoder` casts the whole encoder to
-        bf16."""
+        head keys are ignored. On a CUDA device the loaded encoder is then
+        folded (`models.danet.fold_batch_norms`: BatchNorm folded into
+        the convolutions, bias, residual add and ReLU in their epilogue),
+        so it holds no BatchNorm and a training state_dict no longer
+        loads into it; on the CPU it stays the unfolded module.
+        `bf16_encoder` casts the whole encoder to bf16, after the fold."""
         agent_cfg = agent_cfg or AgentConfig()
         danet_cfg = danet_cfg or danet_params()
         dev = resolve_device(device)
@@ -150,8 +154,11 @@ class CadreAgent:
             keys = encoder.state_dict().keys()
             encoder.load_state_dict({k: v for k, v in encoder_state.items()
                                      if k in keys})
-        encoder = encoder.eval().to(dev, memory_format=torch.channels_last)
-        if bf16_encoder:     # parameters and buffers, BN statistics too
+        encoder = encoder.eval()
+        if dev.type == "cuda":      # in f32, before any cast
+            encoder = fold_batch_norms(encoder)
+        encoder = encoder.to(dev, memory_format=torch.channels_last)
+        if bf16_encoder:     # parameters and buffers
             encoder = encoder.to(torch.bfloat16)
         encoder.requires_grad_(False)
         return cls(agent_cfg, danet_cfg, encoder, steer.to(dev),

@@ -26,11 +26,15 @@ Phases, each of which must pass:
      Cqk up to 64, with non-zero gammas, two calls bit-equal, and a bf16
      call that needs a gradient refused; timings against each kernel's
      bound and, for dual attention and its backward, a PyTorch yardstick;
+     the fused convolution (`ops/conv_epilogue.py`) against its plain
+     version at every folded convolution of a resnet18 and a resnet50
+     latent at 144x256, in f32 and bf16, with its count a latent;
   4. the main path: a bf16 CoPM agent at production width drives 32 device
      envs for a 20-step rollout, then trains one whole iteration at
      production size (T=200, 4 PPO epochs of 2 minibatches) after a T=2
-     warm-up iteration, with every kernel's launch count read around each
-     of those two runs; a profile of one update;
+     warm-up iteration, with every kernel's launch count and the folded
+     encoder's fused convolutions read around each of those two runs and
+     one latent; a profile of one update;
   5. the CUDA path against the CPU path of the same port on a small input:
      rollout pieces and one fused PPO update;
   6. the training CLI, `python -m cadre_tpu_torch.main --env jax`, for two
@@ -56,8 +60,8 @@ Phases, each of which must pass:
      profile of a few steps; (c) one train step of a small model on the
      card against the CPU; (d) `python -m cadre_tpu_torch.train_perception`
      on the shards; (e) `python -m cadre_tpu_torch.main --danet-checkpoint`
-     on (b)'s checkpoint, and an agent built from it giving the trainer's
-     latent bit for bit;
+     on (b)'s checkpoint, and an agent built from it giving the latent of
+     the trainer's net folded as the agent folds it bit for bit;
   9. the host-env path (`--env sim`): the f32 production encoder trains one
      train_vec iteration on 8 kinematic sim envs with traffic, T=200 fused
      ticks, 4 PPO epochs of 2 minibatches, after a T=2 warm-up, with every
@@ -102,7 +106,7 @@ Phases, each of which must pass:
  12. the checkpoint and config utilities and data-parallel training: (a)
      phase 8b's DANet written as a JAX-format .msgpack (import_danet_torch,
      save_pytree) and read back, the writer's and reader's MB/s, an agent
-     built from it giving the trainer's f32 latent bit for bit; 4 member
+     built from it giving the folded trainer's f32 latent bit for bit; 4 member
      snapshots saved as .msgpack with their optax .opt, `python -m
      cadre_tpu_torch.eval --env sim` on them in process for one episode,
      its K2 launches counted; a reference-format ppo_model_0.pt
@@ -200,6 +204,15 @@ inputs, one process per ROOT in the order given, two ways: a CUDA graph of
 200 calls, and 200 calls issued one by one; a shape a checkout refuses
 (ValueError) reads n/a. Give the checkouts to compare as A B B A to see
 the spread between runs.
+
+    python3 chip_smoke.py --conv-times
+
+times each folded convolution of the resnet18 and resnet50 latents at the
+benchmark's shapes (B=2048, 144x256, f32 channels_last, TF32 as torch
+defaults it) three ways: bare, as the unfolded net runs it (convolution,
+BatchNorm, [residual add,] ReLU) and fused (`ops/conv_epilogue.py`); then
+the whole latent unfolded and folded. These figures chose cuDNN's fused
+convolution over a hand-written epilogue.
 
     python3 chip_smoke.py --phase-times ROOT [ROOT ...]
 
@@ -327,6 +340,72 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
         "nvidia-smi gave nothing"
+
+
+# the agent's encoder on the card is folded (BatchNorm in the convolutions,
+# the epilogue fused), so its f32 latent is the unfolded net's to float32
+# rounding, not bit for bit (the CPU tests read 1e-5 at most)
+FOLD_TOL = 1e-4
+# the fused convolution against its plain version (relative RMS): f32 with
+# TF32 off, and bf16 within BF16_ULP_BOUND steps of the output's scale (the
+# plain version rounds the convolution, the bias and the add each to bf16)
+CONV_TOL = {"float32": 1e-5, "bfloat16": BF16_ULP_BOUND * 2.0 ** -8}
+
+
+def folded_latent_gap(got, want) -> float:
+    """Relative RMS gap of a folded encoder's latent to the unfolded
+    net's."""
+    return float((got.double() - want.double()).norm()
+                 / want.double().norm())
+
+
+def fused_convs_per_latent(arch: str) -> int:
+    """Fused convolutions (`ops/conv_epilogue.py`) of one folded latent:
+    the stem, each block's two or three (a downsample runs bare) and
+    DANetHead's four."""
+    from cadre_tpu_torch.models.resnet import RESNET_SPECS
+
+    block, depths = RESNET_SPECS[arch]
+    return 1 + sum(depths) * (3 if block.expansion == 4 else 2) + 4
+
+
+def _fused_counted(fn):
+    """fn()'s result and the fused convolutions it ran."""
+    from cadre_tpu_torch.ops import conv_epilogue
+
+    conv_epilogue.launches = 0
+    out = fn()
+    return out, conv_epilogue.launches
+
+
+def folded_like_the_agent(model):
+    """An eval-mode copy of `model` folded as `CadreAgent.create` folds a
+    CUDA agent's encoder: on the CPU, in f32, then moved to the card
+    channels_last."""
+    import copy
+
+    import torch
+
+    from cadre_tpu_torch.models.danet import fold_batch_norms
+
+    net = fold_batch_norms(copy.deepcopy(model).cpu().eval())
+    return net.to("cuda", memory_format=torch.channels_last)
+
+
+def _randomised_batch_norms(net, gen):
+    """`net` with every BatchNorm's statistics and affine drawn away from
+    (0, 1), so that each folded bias is non-zero."""
+    import torch
+
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                n = m.num_features
+                m.running_mean.copy_(0.5 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.2 + 3.0 * torch.rand(n, generator=gen))
+                m.weight.copy_(1.0 + 0.2 * torch.randn(n, generator=gen))
+                m.bias.copy_(0.2 * torch.randn(n, generator=gen))
+    return net
 
 
 def no_tf32() -> None:
@@ -1286,9 +1365,74 @@ def phase_kernels():
     device = torch.device("cuda")
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    return {"paint": check_paint(gen, device),
-            "dual_attention": check_dual_attention(gen, device),
-            "dual_attention_bwd": check_dual_attention_backward(gen, device)}
+    kernels = {"paint": check_paint(gen, device),
+               "dual_attention": check_dual_attention(gen, device),
+               "dual_attention_bwd": check_dual_attention_backward(gen,
+                                                                   device)}
+    check_conv_epilogue()
+    return kernels
+
+
+CONV_CHECK_B = 32
+
+
+def check_conv_epilogue():
+    """3c: every fused convolution of a folded resnet18 and resnet50
+    latent at 144x256 (B=CONV_CHECK_B, channels_last, BatchNorms away from
+    (0, 1)) against `conv_bias_relu_ref` on the same inputs, in f32 (TF32
+    off) and in bf16 (folded in f32, then cast, as `CadreAgent.create`
+    does); each latent runs `fused_convs_per_latent` of them."""
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.models.danet import DANet, fold_batch_norms
+    from cadre_tpu_torch.models.resnet import FoldedConv
+    from cadre_tpu_torch.ops.conv_epilogue import conv_bias_relu_ref
+
+    gen = torch.Generator().manual_seed(7)
+    for arch in ("resnet18", "resnet50"):
+        cfg = danet_params(backbone=arch)
+        net = _randomised_batch_norms(DANet(cfg, latent_only=True), gen)
+        net = fold_batch_norms(net.eval()).to(
+            "cuda", memory_format=torch.channels_last)
+        frames = torch.rand(CONV_CHECK_B, cfg.image_height, cfg.image_width,
+                            4, generator=gen).cuda()
+        want = fused_convs_per_latent(arch)
+        for dtype in (torch.float32, torch.bfloat16):
+            net = net.to(dtype)
+            gaps = []
+
+            def hook(conv, args, out):
+                if conv.bias is not None:
+                    ref = conv_bias_relu_ref(args[0], conv.weight, conv.bias,
+                                             conv.stride, conv.padding,
+                                             *args[1:])
+                    gaps.append(folded_latent_gap(out, ref))
+
+            handles = [m.register_forward_hook(hook) for m in net.modules()
+                       if isinstance(m, FoldedConv)]
+            try:
+                with torch.no_grad():
+                    z, fused = _fused_counted(
+                        lambda: net.latent(frames.to(dtype)))
+            finally:
+                for h in handles:
+                    h.remove()
+            torch.cuda.synchronize()
+            _finite(f"{arch} {dtype} folded latent", z)
+            name = str(dtype).split(".")[-1]
+            require(fused == want == len(gaps),
+                    f"3c {arch} {name}: {fused} fused convolutions a latent "
+                    f"({len(gaps)} hooked), not {want}")
+            require(max(gaps) <= CONV_TOL[name],
+                    f"3c {arch} {name}: a fused convolution lies "
+                    f"{max(gaps):.3g} from the plain version (relative RMS; "
+                    f"at most {CONV_TOL[name]})")
+            print(f"[3c] conv_epilogue {arch} {name} B={CONV_CHECK_B}: "
+                  f"{fused} fused convolutions a latent, each within "
+                  f"{max(gaps):.3g} of the plain version (relative RMS, "
+                  f"median {sorted(gaps)[len(gaps) // 2]:.3g}; at most "
+                  f"{CONV_TOL[name]})")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1325,11 +1469,15 @@ def phase_slice():
     print(f"[4] set-up (agent, bank, env, warm-up) "
           f"{time.perf_counter() - t0:.2f} s; obs_dim {agent.obs_dim}")
 
+    per_latent = fused_convs_per_latent(agent.danet_cfg.backbone)
     t0 = time.perf_counter()
-    (carry, steer, throttle, next_values, m), launches = _counted(
-        lambda: rollout(carry))
+    ((carry, steer, throttle, next_values, m), launches), fused = \
+        _fused_counted(lambda: _counted(lambda: rollout(carry)))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    require(fused == (T_STEPS + 1) * per_latent,
+            f"rollout ran {fused} fused convolutions, not {T_STEPS + 1} "
+            f"latents x {per_latent}")
 
     require(launches["paint"] == 2 * T_STEPS
             and launches["dual_attention"] == T_STEPS + 1
@@ -1354,7 +1502,8 @@ def phase_slice():
           f"{N_ENVS * T_STEPS / seconds:.1f} env-steps/s; episodes_done "
           f"{float(m.episodes_done):.0f}, mean rewards "
           f"{float(m.mean_steer_reward):.4f}/{float(m.mean_throttle_reward):.4f}"
-          f", checksum {float(m.checksum):.6f}; launches {launches}")
+          f", checksum {float(m.checksum):.6f}; launches {launches}, fused "
+          f"convolutions {fused}")
 
     for b in (N_ENVS, 256):
         reps = -(-b // N_ENVS)
@@ -1362,9 +1511,13 @@ def phase_slice():
                            carry.obs["route_fig"].repeat(reps, 1, 1)[:b])
         x = x.to(torch.bfloat16)
         with torch.no_grad():
+            z, fused = _fused_counted(lambda: agent.encoder.latent(x))
             ms = time_ms(lambda: agent.encoder.latent(x), 10)
+        _finite(f"bf16 latent B={b}", z)
+        require(fused == per_latent, f"a latent ran {fused} fused "
+                f"convolutions, not {per_latent}")
         print(f"[4] encoder bf16 B={b}: {ms:.3f} ms, "
-              f"{b / ms * 1e3:.1f} frames/s")
+              f"{b / ms * 1e3:.1f} frames/s; {fused} fused convolutions")
 
     # where one rollout step's device time goes
     prof_steps = 5
@@ -1460,10 +1613,15 @@ def train_iteration(agent, env, carry, bufs):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    (carry, m), launches = _counted(lambda: iteration(opt, carry))
+    ((carry, m), launches), fused = _fused_counted(
+        lambda: _counted(lambda: iteration(opt, carry)))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    per_latent = fused_convs_per_latent(agent.danet_cfg.backbone)
+    require(fused == (T_TRAIN + 1) * per_latent,
+            f"iteration ran {fused} fused convolutions, not {T_TRAIN + 1} "
+            f"latents x {per_latent}")
 
     require(launches["paint"] == 2 * T_TRAIN
             and launches["dual_attention"] == T_TRAIN + 1
@@ -1489,7 +1647,8 @@ def train_iteration(agent, env, carry, bufs):
           f"memory allocated {peak / 2**30:.2f} GiB; losses value "
           f"{float(m.value_loss):.5f} policy {float(m.policy_loss):.5f} "
           f"entropy {float(m.entropy_loss):.5f}; episodes_done "
-          f"{float(m.episodes_done):.0f}; launches {launches}")
+          f"{float(m.episodes_done):.0f}; launches {launches}, fused "
+          f"convolutions {fused}")
 
     ppo_cfg = dataclasses.replace(agent.ppo_cfg,
                                   ppo_epoch=train_cfg.ppo_epoch)
@@ -2375,7 +2534,9 @@ def perception_cli(data_dir):
 def perception_handoff(trainer, ckpt, batch):
     """PPO on the trained encoder: the training CLI with
     --danet-checkpoint in its own process, then an agent built from the
-    checkpoint, whose latent must equal the trainer's bit for bit."""
+    checkpoint, whose folded latent must equal the trainer's net folded
+    the same way bit for bit, and lie within FOLD_TOL of the trainer's
+    unfolded latent."""
     import os
     import shutil
 
@@ -2410,16 +2571,21 @@ def perception_handoff(trainer, ckpt, batch):
     trainer.model.eval()
     with torch.no_grad():
         want = trainer.model.latent(x)
+        folded = folded_like_the_agent(trainer.model).latent(x)
         got = agent.encoder.latent(x)
     trainer.model.train()
     torch.cuda.synchronize()
-    require(torch.equal(got, want), f"agent latent differs from the "
-            f"trainer's by {float((got - want).abs().max()):.3g}")
+    require(torch.equal(got, folded), f"agent latent differs from the "
+            f"folded trainer's by {float((got - folded).abs().max()):.3g}")
+    gap = folded_latent_gap(got, want)
+    require(gap <= FOLD_TOL, f"agent latent differs from the trainer's by "
+            f"{gap:.3g} (relative RMS; at most {FOLD_TOL})")
     print(f"[8e] python -m cadre_tpu_torch.main --env jax --danet-checkpoint "
           f"{os.path.relpath(ckpt, root)} --num-envs {N_ENVS} --num-steps "
           f"{T_STEPS} --iterations 1: exit 0 in {seconds:.1f} s; the agent's "
-          f"f32 latent of {x.shape[0]} frames equals the trainer's bit for "
-          f"bit")
+          f"folded f32 latent of {x.shape[0]} frames equals the folded "
+          f"trainer's bit for bit and lies {gap:.3g} (relative RMS) from "
+          f"the unfolded trainer's")
 
 
 # ---------------------------------------------------------------- phase 9
@@ -3352,8 +3518,9 @@ def _torchrun(tag, args):
 def msgpack_handoff(pretrained):
     """12a: phase 8b's trained DANet written as the JAX package's .msgpack
     (import_danet_torch, save_pytree), read back, an agent built from it:
-    its f32 latent equals the trainer's bit for bit. The writer's and the
-    reader's MB/s (host figures)."""
+    its folded f32 latent equals the trainer's net folded the same way bit
+    for bit (and lies within FOLD_TOL of the unfolded one). The writer's
+    and the reader's MB/s (host figures)."""
     import os
 
     import torch
@@ -3386,16 +3553,22 @@ def msgpack_handoff(pretrained):
     trainer.model.eval()
     with torch.no_grad():
         want = trainer.model.latent(x)
+        folded = folded_like_the_agent(trainer.model).latent(x)
         got = agent.encoder.latent(x)
     trainer.model.train()
     torch.cuda.synchronize()
-    require(torch.equal(got, want), f"the .msgpack agent's latent differs "
-            f"from the trainer's by {float((got - want).abs().max()):.3g}")
+    require(torch.equal(got, folded), f"the .msgpack agent's latent differs "
+            f"from the folded trainer's by "
+            f"{float((got - folded).abs().max()):.3g}")
+    gap = folded_latent_gap(got, want)
+    require(gap <= FOLD_TOL, f"the .msgpack agent's latent differs from the "
+            f"trainer's by {gap:.3g} (relative RMS; at most {FOLD_TOL})")
     print(f"[12a] phase 8b's DANet as a JAX .msgpack: {mb:.1f} MiB written "
           f"in {write_s:.3f} s ({mb / write_s:.1f} MB/s, host), read in "
           f"{read_s:.3f} s ({mb / read_s:.1f} MB/s), read and converted to "
           f"a state_dict in {load_s:.3f} s; the agent built from it gives "
-          f"the trainer's f32 latent of {x.shape[0]} frames bit for bit")
+          f"the folded trainer's f32 latent of {x.shape[0]} frames bit for "
+          f"bit, {gap:.3g} (relative RMS) from the unfolded trainer's")
 
 
 def _reference_policy(banks, commands):
@@ -3987,6 +4160,131 @@ def phase_utilities_and_mesh(pretrained):
     two = mesh_two_ranks_on_the_card(pretrained)
     print(f"[12] phase 12 in {time.perf_counter() - t0:.1f} s")
     return eval_launches, {"12b": world_one, "12c": two}
+
+
+# ------------------------------------------- folded convolution times
+
+CONV_TIMES_B = 2048              # the benchmark's N: one encode's frames
+
+
+def _conv_shapes(net, frames):
+    """Each FoldedConv of `net`'s latent on `frames` by its shape
+    (Cin, H, W, Cout, k, stride, padding, residual, bare), with its count
+    in one latent, from a run at the frames' batch."""
+    import torch
+
+    from cadre_tpu_torch.models.resnet import FoldedConv
+
+    shapes = {}
+
+    def hook(conv, args, out):
+        _, cin, h, w = args[0].shape
+        cout, _, k, _ = conv.weight.shape
+        key = (cin, h, w, cout, k, conv.stride[0], conv.padding[0],
+               len(args) > 1, conv.bias is None)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, FoldedConv)]
+    with torch.no_grad():
+        net.latent(frames)
+    for h in handles:
+        h.remove()
+    return shapes
+
+
+def _conv_row(key, b, gen):
+    """(bare, unfolded, fused) ms of one folded convolution shape at batch
+    b: the bare convolution; as the unfolded net runs it, the convolution,
+    eval BatchNorm, the residual add and ReLU each a pass of its own (a
+    downsample: convolution and BatchNorm); and the folded form (fused, or
+    for a downsample the bare convolution)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cadre_tpu_torch.ops.conv_epilogue import conv_bias_relu
+
+    cin, h, w, cout, k, stride, pad, residual, bare = key
+    cl = torch.channels_last
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    x = rand(b, cin, h, w).to(memory_format=cl)
+    wt = (rand(cout, cin, k, k) / math.sqrt(cin * k * k)).to(
+        memory_format=cl)
+    bias, mean, gamma, beta = (rand(cout) for _ in range(4))
+    var = 0.5 + torch.rand(cout, generator=gen, device="cuda")
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    z = rand(b, cout, ho, wo).to(memory_format=cl) if residual else None
+
+    def conv():
+        return F.conv2d(x, wt, None, stride, pad)
+
+    def unfolded():
+        y = F.batch_norm(conv(), mean, var, gamma, beta, False, 0.0, 1e-5)
+        if bare:
+            return y
+        return torch.relu(y if z is None else y + z)
+
+    def fused():
+        return conv() if bare else conv_bias_relu(
+            x, wt, bias, (stride, stride), (pad, pad), z)
+
+    with torch.no_grad():
+        return tuple(time_ms(fn, 5, warmup=2)
+                     for fn in (conv, unfolded, fused))
+
+
+def conv_times() -> int:
+    """`--conv-times` (module docstring): each folded convolution shape of
+    the resnet18 and resnet50 latents at the benchmark's N, timed bare,
+    unfolded and fused, the sums over one latent, and the whole latent
+    unfolded and folded; TF32 convolutions as torch defaults them."""
+    import copy
+
+    import torch
+
+    from cadre_tpu_torch.configs.danet_config import danet_params
+    from cadre_tpu_torch.models.danet import DANet, fold_batch_norms
+
+    print(card_line())
+    print(f"torch {torch.__version__}, cuDNN {torch.backends.cudnn.version()}"
+          f", cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b = CONV_TIMES_B
+    for arch in ("resnet18", "resnet50"):
+        cfg = danet_params(backbone=arch)
+        net = _randomised_batch_norms(DANet(cfg, latent_only=True),
+                                      torch.Generator().manual_seed(1))
+        net = net.eval().to("cuda", memory_format=torch.channels_last)
+        folded = fold_batch_norms(copy.deepcopy(net))
+        frames = torch.rand(b, cfg.image_height, cfg.image_width, 4,
+                            generator=gen, device="cuda")
+        shapes = _conv_shapes(folded, frames[:2])
+        print(f"[conv] {arch} B={b}, ms: Cin x H x W -> Cout, k s p; "
+              f"residual; bare | calls | bare | unfolded | fused")
+        sums = [0.0, 0.0, 0.0]
+        for key, calls in shapes.items():
+            cin, h, w, cout, k, stride, pad, residual, bare = key
+            row = _conv_row(key, b, gen)
+            sums = [t + calls * r for t, r in zip(sums, row)]
+            print(f"[conv]   {cin}x{h}x{w} -> {cout}, {k}x{k} s{stride} "
+                  f"p{pad}{'; z' if residual else ''}"
+                  f"{'; bare' if bare else ''} | {calls} | "
+                  + " | ".join(f"{t:.3f}" for t in row))
+        fused_n = sum(c for key, c in shapes.items() if not key[-1])
+        bare_n = sum(shapes.values()) - fused_n
+        print(f"[conv]   summed over one latent ({fused_n} fused + {bare_n} "
+              f"bare) | | " + " | ".join(f"{t:.1f}" for t in sums))
+        with torch.no_grad():
+            lat = [time_ms(lambda m=m: m.latent(frames), 3, warmup=2)
+                   for m in (net, folded, net, folded)]
+        print(f"[conv] {arch} latent B={b}: unfolded {lat[0]:.1f} / "
+              f"{lat[2]:.1f} ms, folded {lat[1]:.1f} / {lat[3]:.1f} ms")
+        del net, folded, frames
+        torch.cuda.empty_cache()
+    return 0
 
 
 # ------------------------------------------- kernel times of checkouts
@@ -5298,6 +5596,8 @@ def main(argv) -> int:
         return 2
     if argv[:1] == ["--mesh-step"] and len(argv) == 2:
         return mesh_step_worker(argv[1])
+    if argv == ["--conv-times"]:
+        return conv_times()
     for flag, compare in (("--kernel-times", compare_kernel_times),
                           ("--phase-times", compare_phase_times)):
         if argv[:1] == [flag] and len(argv) > 1:
